@@ -1,0 +1,356 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``dpf_tpu_torch``) on one GPU.
+
+Run from the repository root on a machine with one NVIDIA H100 and the
+CUDA toolkit:
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and the script exits non-zero):
+
+1. build every CUDA kernel from ``dpf_tpu_torch/csrc`` (one ``nvcc`` per
+   source, all at once) and print the build time;
+2. hold each kernel against its plain PyTorch version on the card, bit
+   for bit: small shapes, ragged batches (B = 1, 3, 33) and the main
+   path's shapes (B = 512, N = 2^20, E = 16); time kernel, plain version
+   and, for the contraction, the ``torch._int_mm`` byte-limb
+   decomposition as the library yardstick;
+3. the sample flow for PRF ids 0-5 at N = 16384: two ``DPF`` servers
+   answer 8 distinct indices, the client recovers each row exactly, and
+   the shares equal the CPU oracle ``eval_cpu``;
+4. full width: AES-128 and ChaCha20 at N = 2^20, E = 16, B = 512 (64
+   distinct key pairs tiled to the batch, every recovered row checked),
+   and the AES-128 headline configuration N = 65536, E = 16, B = 512;
+5. every kernel's launch count must have grown during phases 3-4.
+
+The last lines are the card's name and power limit, one
+``{"kernels": [...]}`` line, and ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or without the package beside it, the script
+fails before printing any result.  It imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
+PEAK_OPS_PER_S = 67e12       # H100 SXM fp32 non-tensor rate (same sheet)
+
+# 32-bit operations per unit of work, counted from the kernels' code
+# (each rotate, shift, mask, table lookup, add, xor or multiply is one):
+# AES-128 node = key schedule (10 x ~22) + 2 blocks x (9 full rounds x
+# ~60 + final round ~52) + 2 x add128 (~10) + select
+OPS_AES_NODE = 10 * 22 + 2 * (9 * 60 + 52) + 2 * 10 + 10
+# Salsa/ChaCha-12 core block = 48 quarter rounds x 12 ops + 16 adds
+OPS_CORE_BLOCK = 48 * 12 + 16
+OPS_CHILD_ADD = 12           # add128 + codeword select per child
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+
+    import dpf_tpu_torch
+    from dpf_tpu_torch import DPF
+    from dpf_tpu_torch.ops import aes_level, cuda_build, matmul128, subtree
+    from dpf_tpu_torch.utils.bench import test_dpf_perf
+
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log("python %s torch %s cuda %s device %s"
+        % (sys.version.split()[0], torch.__version__, torch.version.cuda,
+           torch.cuda.get_device_name(0)))
+    rng = np.random.default_rng(20261016)
+    gen = torch.Generator(device=dev).manual_seed(20261016)
+
+    def rnd(*shape):
+        # random 32-bit limbs made on the card from a fixed seed
+        return torch.randint(-2 ** 31, 2 ** 31, shape, dtype=torch.int64,
+                             device=dev, generator=gen).to(torch.int32)
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def cuda_ms(fn, reps):
+        fn()
+        sync()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        sync()
+        return start.elapsed_time(end) / reps
+
+    def held(name, got, want):
+        sync()
+        if got.shape != want.shape:
+            raise AssertionError("%s: shape %s != %s" % (
+                name, tuple(got.shape), tuple(want.shape)))
+        err = 0 if torch.equal(got, want) else int(
+            (got.long() - want.long()).abs().max().item())
+        if err != 0:
+            raise AssertionError("%s: kernel differs from its plain version "
+                                 "(max_abs_err %d)" % (name, err))
+        log("  %-44s bit-equal" % name)
+        return err
+
+    # ---------------------------------------------------------- 1. build
+    t0 = time.perf_counter()
+    logs = cuda_build.build()
+    log("phase 1 build: %.1f s (%s)" % (time.perf_counter() - t0,
+                                        ", ".join(sorted(logs)) or "cached"))
+    for name, text in sorted(logs.items()):
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log("  %s: %s" % (name, line.strip()))
+
+    # ---------------------------------------- 2. kernels vs plain versions
+    log("phase 2 kernels against their plain versions")
+    errs = {"aes_level_step": 0, "subtree_contract": 0, "contract_i32": 0}
+    rows = {}
+
+    # K1: AES level step; the AES path's widest call at N = 2^20, B = 512
+    # (choose_chunk -> C = 8192, choose_group -> 32 subtrees) is w = 2^17
+    for bsz, w in ((3, 5), (1, 1), (33, 64), (512, 1 << 17)):
+        seeds, cw1, cw2 = rnd(bsz, w, 4), rnd(bsz, 64, 4), rnd(bsz, 64, 4)
+        c1, c2 = cw1[:, 6:8], cw2[:, 6:8]
+        errs["aes_level_step"] |= held(
+            "K1 aes_level_step B=%d w=%d" % (bsz, w),
+            aes_level.aes_level_step(seeds, c1, c2),
+            aes_level.aes_level_step_plain(seeds, c1, c2))
+    nodes = bsz * w
+    rows["aes_level_step"] = dict(
+        ms=cuda_ms(lambda: aes_level.aes_level_step(seeds, c1, c2), 10),
+        plain_ms=cuda_ms(lambda: aes_level.aes_level_step_plain(
+            seeds, c1, c2), 1),
+        library_ms=None,
+        bytes=nodes * 16 + 2 * bsz * 2 * 16 + 2 * nodes * 16,
+        ops=nodes * OPS_AES_NODE,
+        shape="B=%d w=%d -> 2w (one level)" % (bsz, w))
+    del seeds, cw1, cw2, c1, c2
+
+    # K3: contraction; the AES path hands it the low limbs of the
+    # [B, g*C, 4] group leaves (strided), K = 2^18 at N = 2^20.  Why it
+    # exists: torch's int32 matmul on CUDA (probed, not relied on)
+    try:
+        probe = rnd(2, 2) @ rnd(2, 2)
+        log("  torch int32 matmul on CUDA: supported (%s)" % probe.dtype)
+    except (NotImplementedError, RuntimeError) as exc:
+        log("  torch int32 matmul on CUDA: %s: %s"
+            % (type(exc).__name__, str(exc).splitlines()[0]))
+    for bsz, k, e in ((3, 300, 3), (1, 4096, 16), (3, 4096, 1),
+                      (33, 4096, 16)):
+        a, t = rnd(bsz, k), rnd(k, e)
+        errs["contract_i32"] |= held(
+            "K3 contract_i32 B=%d K=%d E=%d" % (bsz, k, e),
+            matmul128.dot_i32(a, t), matmul128.dot_i32_plain(a, t))
+    for bsz, k in ((512, 1 << 16), (512, 1 << 18)):
+        leaves = rnd(bsz, k, 4)
+        a, t = leaves[..., 0], rnd(k, 16)
+        got = matmul128.dot_i32(a, t)
+        errs["contract_i32"] |= held(
+            "K3 contract_i32 B=%d K=%d E=16 strided" % (bsz, k), got,
+            matmul128.dot_i32_plain(a, t))
+    a_c = a.contiguous()
+    lib = int_mm_dot_i32(a_c, t)
+    sync()
+    lib_equal = bool(torch.equal(lib, got))
+    log("  torch._int_mm byte-limb decomposition equal to K3: %s" % lib_equal)
+    rows["contract_i32"] = dict(
+        ms=cuda_ms(lambda: matmul128.dot_i32(a, t), 20),
+        plain_ms=cuda_ms(lambda: matmul128.dot_i32_plain(a, t), 1),
+        library_ms=cuda_ms(lambda: int_mm_dot_i32(a_c, t), 5),
+        library_equal=lib_equal,
+        bytes=bsz * k * 4 + k * 16 * 4 + bsz * 16 * 4,
+        ops=2 * bsz * k * 16,
+        shape="[%d, %d] (strided low limbs) x [%d, 16]" % (bsz, k, k))
+    del leaves, a, t, a_c, lib, got
+
+    # K2: subtree expand + contract; small and ragged shapes for every
+    # stream-cipher id, then ChaCha20 at the full-width shape
+    for prf in subtree.SUBTREE_PRFS:
+        for bsz, depth, cb in ((3, 10, 256), (1, 14, 4096), (3, 14, 4096),
+                               (33, 14, 4096)):
+            fr, cw1, cw2 = rnd(bsz, 1, 4), rnd(bsz, 64, 4), rnd(bsz, 64, 4)
+            tbl = rnd(1 << depth, 16)
+            kw = dict(depth=depth, f_levels=0, prf_method=prf,
+                      block_leaves=cb)
+            errs["subtree_contract"] |= held(
+                "K2 subtree_contract prf=%d B=%d N=2^%d" % (prf, bsz, depth),
+                subtree.subtree_contract(fr, cw1, cw2, tbl, **kw),
+                subtree.subtree_contract_plain(fr, cw1, cw2, tbl, **kw))
+    bsz, depth, prf = 512, 20, dpf_tpu_torch.PRF_CHACHA20
+    fr, cw1, cw2 = rnd(bsz, 1, 4), rnd(bsz, 64, 4), rnd(bsz, 64, 4)
+    tbl = rnd(1 << depth, 16)
+    kw = dict(depth=depth, f_levels=0, prf_method=prf, block_leaves=4096)
+    t0 = time.perf_counter()
+    want = subtree.subtree_contract_plain(fr, cw1, cw2, tbl, **kw)
+    sync()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    errs["subtree_contract"] |= held(
+        "K2 subtree_contract prf=2 B=512 N=2^20",
+        subtree.subtree_contract(fr, cw1, cw2, tbl, **kw), want)
+    n = 1 << depth
+    rows["subtree_contract"] = dict(
+        ms=cuda_ms(lambda: subtree.subtree_contract(fr, cw1, cw2, tbl, **kw),
+                   5),
+        plain_ms=plain_ms, library_ms=None,
+        bytes=bsz * 16 + 2 * bsz * 64 * 16 + n * 16 * 4 + bsz * 16 * 4,
+        ops=bsz * ((n - 1) * (2 * OPS_CORE_BLOCK + 2 * OPS_CHILD_ADD)
+                   + n * 16 * 2),
+        shape="ChaCha20 B=%d N=2^%d E=16 from the root" % (bsz, depth))
+    del fr, cw1, cw2, tbl, want
+    torch.cuda.empty_cache()
+
+    for name, r in rows.items():
+        r["bound_ms"] = 1e3 * max(r["bytes"] / PEAK_BYTES_PER_S,
+                                  r["ops"] / PEAK_OPS_PER_S)
+        r["bound_by"] = ("bytes" if r["bytes"] / PEAK_BYTES_PER_S
+                         >= r["ops"] / PEAK_OPS_PER_S else "operations")
+        log("  %-17s %-44s ms %.4f  plain_ms %.2f  bound_ms %.4f (%s)  "
+            "library_ms %s" % (name, r["shape"], r["ms"], r["plain_ms"],
+                               r["bound_ms"], r["bound_by"],
+                               "%.4f" % r["library_ms"]
+                               if r["library_ms"] is not None else "null"))
+
+    # ------------------------------------------------ the main path: 3 + 4
+    counters = {"aes_level_step": aes_level.aes_level_step,
+                "subtree_contract": subtree.subtree_contract,
+                "contract_i32": matmul128.dot_i32}
+    for fn in counters.values():
+        fn.launches = 0
+
+    # 3. sample flow for every PRF id at N = 16384
+    log("phase 3 sample flow, N=16384 E=16, 8 indices, PRF ids 0-5")
+    n3 = 16384
+    table = rng.integers(0, 2 ** 31, (n3, 16), dtype=np.int64).astype(
+        np.int32)
+    idx = [int(i) for i in rng.choice(n3, 8, replace=False)]
+    for prf in range(6):
+        client = DPF(prf=prf, device="cpu")
+        pairs = [client.gen(i, n3, seed=b"smoke-%d-%d" % (prf, i))
+                 for i in idx]
+        server_a, server_b = DPF(prf=prf), DPF(prf=prf)
+        server_a.eval_init(table)
+        server_b.eval_init(table)
+        t0 = time.perf_counter()
+        sa = server_a.eval_gpu([p[0] for p in pairs])
+        sb = server_b.eval_gpu([p[1] for p in pairs])
+        sync()
+        dt = time.perf_counter() - t0
+        ua = sa.cpu().numpy().view(np.uint32)
+        ub = sb.cpu().numpy().view(np.uint32)
+        rec = (ua - ub).view(np.int32)
+        if not (rec == table[idx]).all():
+            raise AssertionError("prf %d: recovered rows differ" % prf)
+        oracle = server_a.eval_cpu([p[0] for p in pairs]).numpy()
+        if not (oracle == sa.cpu().numpy()).all():
+            raise AssertionError("prf %d: GPU shares differ from eval_cpu"
+                                 % prf)
+        log("  prf %d %-12s 8 rows recovered exactly, shares == eval_cpu "
+            "(both servers %.1f ms)" % (prf, server_a.prf_method_string,
+                                         1e3 * dt))
+    from dpf_tpu_torch import sample
+    sample.client()
+
+    # 4. full width through the user's entry points
+    log("phase 4 full width (64 distinct key pairs tiled to B=512, every "
+        "row checked)")
+    for prf, n4, reps in ((dpf_tpu_torch.PRF_AES128, 1 << 20, 3),
+                          (dpf_tpu_torch.PRF_CHACHA20, 1 << 20, 5),
+                          (dpf_tpu_torch.PRF_AES128, 65536, 10)):
+        r = test_dpf_perf(N=n4, batch=512, entrysize=16, prf=prf, reps=reps,
+                          keys_distinct=64, check=True, quiet=True)
+        log("  %-8s N=%-8d E=16 B=512: %.1f dpfs/s (%.2f ms/batch, "
+            "recovery exact) on %s" % (
+                r["prf"], n4, r["dpfs_per_sec"], r["ms_per_batch"], smi))
+        log("  " + json.dumps(r))
+
+    # 5. launch counts of the main path
+    launches = {k: fn.launches for k, fn in counters.items()}
+    log("phase 5 launches during phases 3-4: %s" % launches)
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError("kernel %s was never launched on the main "
+                                 "path" % k)
+
+    meta = {
+        "aes_level_step": ("dpf_tpu_torch/csrc/aes_level.cu",
+                           "dpf_tpu/ops/aes_planes.py:408"),
+        "subtree_contract": ("dpf_tpu_torch/csrc/subtree.cu",
+                             "dpf_tpu/ops/pallas_level.py:402"),
+        "contract_i32": ("dpf_tpu_torch/csrc/contract.cu",
+                         "dpf_tpu/ops/matmul128.py:29"),
+    }
+    kernels = []
+    for name, (source, replaces) in meta.items():
+        r = rows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": errs[name], "matched": errs[name] == 0,
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": r["shape"]})
+    log(smi)
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def int_mm_dot_i32(a, b):
+    """The library yardstick for K3: the exact mod-2^32 product through
+    ``torch._int_mm`` (int8 x int8 -> int32), split into byte limbs
+    biased into int8 range with rank-1 bias corrections (the JAX
+    package's ``dot_i32_mxu``).  Timed here only; the port never calls
+    it."""
+    k = a.shape[1]
+
+    def limbs(x):
+        out = []
+        for s in range(4):
+            byte = (x >> (8 * s)) & 0xFF
+            out.append(byte)
+        return out
+
+    a_bytes, b_bytes = limbs(a), limbs(b)
+    a_s = [(x - 128).to(torch.int8) for x in a_bytes]
+    b_s = [(x - 128).to(torch.int8) for x in b_bytes]
+    a_rows = [x.sum(dim=1, keepdim=True, dtype=torch.int32) - 128 * k
+              for x in a_bytes]
+    b_cols = [x.sum(dim=0, keepdim=True, dtype=torch.int32) - 128 * k
+              for x in b_bytes]
+    bias = (128 * 128 * k) & 0xFFFFFFFF
+    bias = bias - (1 << 32) if bias >= 1 << 31 else bias
+    out = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.int32,
+                      device=a.device)
+    for i in range(4):
+        for j in range(4 - i):
+            term = (torch._int_mm(a_s[i], b_s[j]) + 128 * a_rows[i]
+                    + 128 * b_cols[j] + bias)
+            out = out + (term << (8 * (i + j)))
+    return out
+
+
+if __name__ == "__main__":
+    sys.exit(main())

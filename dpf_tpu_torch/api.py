@@ -1,0 +1,296 @@
+"""User-facing DPF API on PyTorch and CUDA.
+
+Port of ``dpf_tpu/api.py::DPF`` for the binary log-N construction (the
+reference's wire format): ``gen`` / ``eval_init`` / ``eval_gpu`` (alias
+``eval_tpu``) / ``eval_cpu`` / ``eval_one_hot`` / ``eval_points`` /
+``eval_free``, constants ``ENTRY_SIZE`` / ``BATCH_SIZE`` / ``PRF_*``,
+524-int32 keys.  Shares are bit-identical to ``dpf_tpu``'s.
+
+The server runs on the device given at construction: ``device=None``
+means ``"cuda"`` and raises when CUDA is absent; ``device="cpu"`` runs
+the kernels' plain versions on the CPU.  Keys are CPU int32 tensors;
+``eval_gpu`` / ``eval_one_hot`` / ``eval_points`` return int32 tensors
+on the server's device; ``eval_cpu`` returns CPU tensors.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from .core import evalref, expand, keygen, u128
+from .core.prf_ref import (PRF_AES128, PRF_CHACHA20, PRF_CHACHA20_BLK,
+                           PRF_DUMMY, PRF_NAMES, PRF_SALSA20,
+                           PRF_SALSA20_BLK)
+from .core.u32 import from_u32
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> CUDA.  A CUDA device raises when CUDA is absent: there
+    is no fallback to the CPU unless the caller asks for it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to "
+                           "run the plain versions on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError("unsupported device %s" % dev)
+    return dev
+
+
+def _to_numpy(x, dtype=None) -> np.ndarray:
+    if hasattr(x, "detach"):  # torch tensor, any device
+        x = x.detach().cpu().numpy()
+    arr = np.asarray(x)
+    if dtype is not None and arr.dtype != dtype:
+        arr = arr.astype(dtype)
+    return arr
+
+
+def _check_construction(scheme: str, radix: int) -> None:
+    if scheme not in ("logn", "sqrtn", "auto"):
+        raise ValueError("scheme must be one of ('logn', 'sqrtn', 'auto') "
+                         "(got %r)" % (scheme,))
+    if radix not in (2, 4):
+        raise ValueError("radix must be 2 or 4")
+    if scheme == "sqrtn":
+        raise NotImplementedError("scheme='sqrtn' is not ported yet "
+                                  "(ROADMAP Queue 1 item 9, sqrt-N)")
+    if scheme == "auto":
+        raise NotImplementedError("scheme='auto' needs the tuning cache, "
+                                  "not ported yet (ROADMAP Queue 1 item 16)")
+    if radix == 4:
+        raise NotImplementedError("radix=4 is not ported yet "
+                                  "(ROADMAP Queue 1 item 8, radix-4)")
+
+
+class DPF(object):
+    """Two-server DPF with server-side evaluation on an NVIDIA GPU."""
+
+    PRF_DUMMY = PRF_DUMMY
+    PRF_SALSA20 = PRF_SALSA20
+    PRF_CHACHA20 = PRF_CHACHA20
+    PRF_AES128 = PRF_AES128
+    PRF_SALSA20_BLK = PRF_SALSA20_BLK
+    PRF_CHACHA20_BLK = PRF_CHACHA20_BLK
+
+    ENTRY_SIZE = 16       # int32 words per entry (reference parity)
+    BATCH_SIZE = 512      # max keys per device dispatch (reference parity)
+    MIN_ENTRIES = 128
+
+    DEFAULT_PRF = PRF_AES128
+
+    def __init__(self, prf=None, strict=True, config=None, scheme=None,
+                 device=None):
+        """config: optional ``utils.config.EvalConfig`` (``prf_method``,
+        ``batch_size``).  device: where the server evaluates (None =
+        CUDA)."""
+        radix, sch = 2, "logn"
+        if config is not None:
+            if prf is None:
+                prf = config.prf_method
+            self.BATCH_SIZE = config.batch_size
+            radix, sch = config.radix, config.scheme
+        if scheme is not None:
+            sch = scheme
+        _check_construction(sch, radix)
+        self.device = resolve_device(device)
+        self.prf_method = self.DEFAULT_PRF if prf is None else prf
+        if self.prf_method not in PRF_NAMES:
+            raise ValueError("unknown PRF id %r" % (self.prf_method,))
+        self.prf_method_string = PRF_NAMES[self.prf_method]
+        self.strict = strict          # enforce reference shape limits
+        self.table = None             # original table (numpy int32)
+        self.table_device = None      # permuted table on self.device
+        self.table_num_entries = None
+        self.table_effective_entry_size = None
+        self.buffers = None           # reference-API compat handle
+
+    # ------------------------------------------------------------------ gen
+
+    def _check_gen_domain(self, k: int, n: int) -> int:
+        """Index in range, then the strict/auto-pad power-of-two policy.
+        Returns the (possibly padded) domain."""
+        if k >= n:
+            raise ValueError(
+                "k (%d), the selected element, must be less than n (%d), "
+                "the number of entries in the table" % (k, n))
+        if n & (n - 1) != 0:
+            if self.strict:
+                raise ValueError(
+                    "Table num entries (%d) must be a power of two "
+                    "(pass strict=False to auto-pad)" % n)
+            n = u128.next_pow2(n)
+        return n
+
+    def gen(self, k, n, seed: bytes | None = None):
+        """Generate the two servers' keys for secret index k in [0, n).
+
+        With strict=False a non-power-of-two n is allowed: keys cover the
+        next power-of-two domain, matching eval_init's zero padding.
+        Returns two [524] int32 CPU tensors."""
+        if isinstance(k, (list, tuple, np.ndarray, torch.Tensor)) and \
+                np.ndim(k) >= 1:
+            raise NotImplementedError("batched keygen is not ported yet "
+                                      "(ROADMAP Queue 1 item 11)")
+        n = self._check_gen_domain(int(k), int(n))
+        if seed is None:
+            seed = os.urandom(128)
+        k0, k1 = keygen.generate_keys(int(k), n, seed, self.prf_method)
+        return (torch.from_numpy(k0.serialize()),
+                torch.from_numpy(k1.serialize()))
+
+    # ----------------------------------------------------------- eval_init
+
+    def eval_init(self, table):
+        """Upload a [N, E] integer table; pre-permutes rows for BFS order.
+
+        With strict=False, non-power-of-two N is zero-padded to the next
+        power of two (matching gen's domain rounding)."""
+        tbl = _to_numpy(table, np.int32)
+        if tbl.ndim != 2:
+            raise ValueError("table must be 2D [entries, entry_size]")
+        n, e = tbl.shape
+        if n < self.MIN_ENTRIES:
+            raise ValueError(
+                "Table (%d) must have at least %d elements"
+                % (n, self.MIN_ENTRIES))
+        if n & (n - 1) != 0:
+            if self.strict:
+                raise ValueError(
+                    "Table num entries (%d) must be a power of two "
+                    "(pass strict=False to auto-pad)" % n)
+            n_pad = u128.next_pow2(n)
+            padded = np.zeros((n_pad, e), np.int32)
+            padded[:n] = tbl
+            tbl, n = padded, n_pad
+        if self.strict and e > self.ENTRY_SIZE:
+            raise ValueError(
+                "Table entry dimension (%d) must be <= %d "
+                "(pass strict=False to lift)" % (e, self.ENTRY_SIZE))
+        self.table = np.ascontiguousarray(tbl)
+        self.table_num_entries = n
+        self.table_effective_entry_size = e
+        self.table_device = torch.from_numpy(
+            expand.permute_table(self.table)).to(self.device)
+        self.buffers = (self.table_device,)
+        return self.buffers
+
+    # ------------------------------------------------------------ eval_gpu
+
+    def eval_gpu(self, keys) -> torch.Tensor:
+        """Batched server evaluation on the device.
+
+        keys: a list of [524] int32 keys (tensors or arrays) or one
+        [B, 524] array.  Batches of at most ``BATCH_SIZE`` keys, each
+        padded to a power of two by repeating its last key.  Returns
+        [len(keys), entry_size] int32 shares on the server's device."""
+        if self.table_device is None:
+            raise RuntimeError("Must call `eval_init` before `eval_gpu`")
+        wire = keygen.stack_wire_keys(keys)
+        results = []
+        for i in range(0, wire.shape[0], self.BATCH_SIZE):
+            cur = wire[i:i + self.BATCH_SIZE]
+            results.append(self._eval_batch(cur))
+        return torch.cat(results)[:, :self.table_effective_entry_size]
+
+    # The JAX package's name for the same call.
+    eval_tpu = eval_gpu
+
+    def _decode_batch(self, keys) -> keygen.PackedKeys:
+        """Wire keys -> packed batch, validated against the table."""
+        pk = keygen.decode_keys_batched(keys)
+        n = self.table_num_entries
+        if n is not None and pk.n != n:
+            raise ValueError(
+                "key generated for n=%d but table has n=%d" % (pk.n, n))
+        return pk
+
+    def _device_keys(self, pk: keygen.PackedKeys):
+        return tuple(from_u32(a).to(self.device)
+                     for a in (pk.cw1, pk.cw2, pk.last))
+
+    def _eval_batch(self, wire: np.ndarray) -> torch.Tensor:
+        pk = self._decode_batch(wire)
+        n_real = pk.batch
+        pk = pk.pad_to(u128.next_pow2(n_real))
+        cw1, cw2, last = self._device_keys(pk)
+        knobs = self.resolved_eval_knobs(pk.batch)
+        out = expand.expand_and_contract(
+            cw1, cw2, last, self.table_device,
+            depth=self.table_num_entries.bit_length() - 1,
+            prf_method=self.prf_method, chunk_leaves=knobs["chunk_leaves"])
+        return out[:n_real]
+
+    def resolved_eval_knobs(self, batch: int) -> dict:
+        """Program knobs for one dispatch batch size: the heuristic branch
+        of ``dpf_tpu``'s resolution under ``kernel_impl="pallas"`` (the
+        tuning cache is not ported yet).  The stream ciphers take the
+        subtree kernel's block of at most 4096 leaves; AES and DUMMY take
+        the 64 MiB live-seed chunk (``expand.choose_chunk``)."""
+        n = self.table_num_entries
+        if n is None:
+            raise RuntimeError("Must call `eval_init` before resolving")
+        if self.prf_method in expand.SUBTREE_PRFS:
+            from .ops.subtree import subtree_chunk_leaves
+            chunk, kernel = subtree_chunk_leaves(n), "subtree_contract"
+        else:
+            chunk = expand.clamp_chunk(None, n, batch)
+            kernel = ("aes_level_step" if self.prf_method == PRF_AES128
+                      else "plain_level_step")
+        return {"chunk_leaves": chunk, "kernel": kernel,
+                "kernel_resolved_from": "heuristic"}
+
+    # ------------------------------------------------- one-hot and points
+
+    def eval_one_hot(self, keys) -> torch.Tensor:
+        """Full one-hot expansion: [len(keys), N] int32 shares in natural
+        index order, on the server's device.  Memory O(batch x N)."""
+        pk = keygen.decode_keys_batched(keys)
+        cw1, cw2, last = self._device_keys(pk)
+        return expand.expand_leaves(cw1, cw2, last, depth=pk.depth,
+                                    prf_method=self.prf_method)
+
+    def eval_points(self, keys, indices) -> torch.Tensor:
+        """Sparse evaluation: each key at the given indices only.
+        Returns [len(keys), len(indices)] int32 one-hot shares."""
+        pk = keygen.decode_keys_batched(keys)
+        idx = _to_numpy(indices).astype(np.int64)
+        if idx.ndim != 1 or (idx >= pk.n).any() or (idx < 0).any():
+            raise ValueError("indices must be 1D and < n=%d" % pk.n)
+        cw1, cw2, last = self._device_keys(pk)
+        return expand.eval_points(cw1, cw2, last, torch.from_numpy(idx),
+                                  depth=pk.depth, prf_method=self.prf_method)
+
+    # ------------------------------------------------------------ eval_cpu
+
+    def eval_cpu(self, keys, one_hot_only=False) -> torch.Tensor:
+        """Host reference evaluation (plain PyTorch on the CPU, one key at
+        a time), whatever the server's device.  Returns CPU tensors."""
+        hots = np.stack([evalref.eval_one_hot_i32(keygen.deserialize_key(k),
+                                                  self.prf_method)
+                         for k in keys])             # [B, N] int32
+        if one_hot_only:
+            return torch.from_numpy(hots)
+        if self.table is None:
+            raise RuntimeError(
+                "Must call `eval_init` before `eval_cpu` with "
+                "one_hot_only=False")
+        # exact wrapping mod-2^32 product on the host
+        prod = hots.view(np.uint32) @ self.table.view(np.uint32)
+        return torch.from_numpy(prod.view(np.int32))
+
+    # ------------------------------------------------------------ eval_free
+
+    def eval_free(self, buffers=None):
+        self.table_device = None
+        self.buffers = None
+
+    def __repr__(self):
+        if self.table_device is None:
+            return ("DPF(_uninitialized_, prf_method=%s, device=%s)"
+                    % (self.prf_method_string, self.device))
+        return ("DPF(entries=%d, entry_size=%d, prf_method=%s, device=%s)"
+                % (self.table_num_entries, self.table_effective_entry_size,
+                   self.prf_method_string, self.device))

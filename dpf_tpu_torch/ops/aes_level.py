@@ -1,0 +1,75 @@
+"""One binary GGM level under AES-128: plain version and kernel K1.
+
+Port of ``dpf_tpu/ops/aes_planes.py::aes_level_step_pallas`` at arity 2:
+
+    child[2j+b] = AES_{seed_j}(b) + (lsb(seed_j) ? cw2[b] : cw1[b])  mod 2^128
+
+seeds ``[B, w, 4]``, this level's codewords ``cw1_lvl``/``cw2_lvl``
+``[B, 2, 4]`` (branch, limb) -> children ``[B, 2w, 4]`` node-major, all
+int32 limb tensors read as uint32.  The TPU kernel bit-slices 32 keys
+into planes; the card's kernel (``csrc/aes_level.cu``) runs one thread
+per node with shared-memory T-tables and gives the same bits.
+
+* ``aes_level_step_plain`` -- the plain version (gather-S-box AES,
+  ``core/prf.py``), used for CPU tensors and as the kernel's oracle.
+* ``aes_level_step`` -- the wrapper: CUDA tensors launch K1, CPU
+  tensors take the plain version.  Arity 4 comes with radix-4.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.expand import _level_step_pair
+from ..core.prf_ref import PRF_AES128
+from . import cuda_build
+
+
+def aes_level_step_plain(seeds: torch.Tensor, cw1_lvl: torch.Tensor,
+                         cw2_lvl: torch.Tensor) -> torch.Tensor:
+    """[B, w, 4] seeds, [B, 2, 4] codewords -> [B, 2w, 4] children."""
+    return _level_step_pair(seeds, cw1_lvl, cw2_lvl, PRF_AES128)
+
+
+def _check(seeds, cw1_lvl, cw2_lvl) -> None:
+    for t in (seeds, cw1_lvl, cw2_lvl):
+        if t.dtype != torch.int32:
+            raise TypeError("aes_level_step takes int32 limb tensors")
+        if t.device != seeds.device:
+            raise ValueError("aes_level_step operands on different devices")
+    if seeds.dim() != 3 or seeds.shape[2] != 4:
+        raise ValueError("seeds must be [B, w, 4], got %s"
+                         % (tuple(seeds.shape),))
+    for cw in (cw1_lvl, cw2_lvl):
+        if tuple(cw.shape) != (seeds.shape[0], 2, 4):
+            raise ValueError("level codewords must be [B, 2, 4], got %s"
+                             % (tuple(cw.shape),))
+    # the kernel's layout, checked on every device so CPU runs catch it
+    if not seeds.is_contiguous():
+        raise ValueError("aes_level_step: seeds must be contiguous")
+    if cw1_lvl.stride() != cw2_lvl.stride() or cw1_lvl.stride()[1:] != (4, 1):
+        raise ValueError("aes_level_step: codewords need contiguous "
+                         "(branch, limb) axes and equal strides")
+
+
+def aes_level_step(seeds: torch.Tensor, cw1_lvl: torch.Tensor,
+                   cw2_lvl: torch.Tensor) -> torch.Tensor:
+    """One AES-128 GGM level; K1 on CUDA tensors, plain on CPU ones."""
+    _check(seeds, cw1_lvl, cw2_lvl)
+    if seeds.device.type == "cpu":
+        return aes_level_step_plain(seeds, cw1_lvl, cw2_lvl)
+    if seeds.device.type != "cuda":
+        raise ValueError("aes_level_step: unsupported device %s"
+                         % seeds.device)
+    bsz, w, _ = seeds.shape
+    out = torch.empty((bsz, 2 * w, 4), dtype=torch.int32, device=seeds.device)
+    with torch.cuda.device(seeds.device):
+        cuda_build.launch(
+            "aes_level", "aes_level_launch", seeds.data_ptr(),
+            cw1_lvl.data_ptr(), cw2_lvl.data_ptr(), cw1_lvl.stride(0),
+            out.data_ptr(), bsz, w, torch.cuda.current_stream().cuda_stream)
+    aes_level_step.launches += 1
+    return out
+
+
+aes_level_step.launches = 0

@@ -9,12 +9,16 @@ setup(
     version="0.1.0",
     description=("TPU-native Distributed Point Functions / two-server PIR "
                  "(JAX/XLA/shard_map)"),
-    packages=find_packages(include=["dpf_tpu", "dpf_tpu.*"]),
-    package_data={"dpf_tpu.native": ["src/*.cpp", "src/*.h"]},
+    packages=find_packages(include=["dpf_tpu", "dpf_tpu.*",
+                                    "dpf_tpu_torch", "dpf_tpu_torch.*"]),
+    # dpf_tpu_torch's CUDA sources are compiled by nvcc at first use
+    package_data={"dpf_tpu.native": ["src/*.cpp", "src/*.h"],
+                  "dpf_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=["numpy", "jax"],
     extras_require={
         "models": ["flax", "optax", "orbax-checkpoint"],
         "plots": ["matplotlib"],
+        "torch": ["torch"],     # the PyTorch / CUDA port, dpf_tpu_torch
     },
 )

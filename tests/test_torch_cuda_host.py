@@ -1,0 +1,214 @@
+"""The CUDA kernels' logic, compiled for the host and run on the CPU.
+
+There is no GPU and no ``nvcc`` here, so the sources in
+``dpf_tpu_torch/csrc`` are compiled with ``g++`` against a small shim
+(below) that emulates what they use of CUDA: ``threadIdx``/``blockIdx``
+as thread-locals, ``__syncthreads`` as a ``std::barrier``, ``atomicAdd``
+as an atomic fetch-add, ``__shared__`` as static storage (blocks run one
+after another).  Each ``kernel<<<grid, block, smem, stream>>>(args)``
+launch is rewritten into a loop that runs every block's threads as
+``std::thread``s.  The kernels use no warp-level primitives, so this
+executes exactly their arithmetic and indexing; the results are held
+against the kernels' plain PyTorch versions at small shapes.  It says
+nothing about speed or about what ``nvcc`` accepts (``chip_smoke.py``
+does that on the card).
+"""
+
+import ctypes
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from dpf_tpu_torch.ops import aes_level, cuda_build, matmul128, subtree
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU ops on one thread here: the suite runs several worker
+    processes side by side, and an oversubscribed host stalls the other
+    workers' timing-sensitive tests."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+SHIM = r"""
+#pragma once
+#include <algorithm>
+#include <atomic>
+#include <barrier>
+#include <cstdint>
+#include <thread>
+#include <vector>
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __restrict__
+#define __launch_bounds__(x)
+#define __shared__ static
+#define __constant__
+using std::max;
+using std::min;
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct uint4 { uint32_t x, y, z, w; };
+inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return uint4{a, b, c, d};
+}
+typedef void* cudaStream_t;
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline const char* cudaGetErrorString(cudaError_t e) {
+  return e ? "invalid value" : "no error";
+}
+inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
+inline thread_local std::barrier<>* host_barrier = nullptr;
+inline void __syncthreads() { host_barrier->arrive_and_wait(); }
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return std::atomic_ref<unsigned>(*p).fetch_add(v);
+}
+inline int __ffs(int x) { return __builtin_ffs(x); }
+template <class F> void host_launch(dim3 grid, dim3 block, F f) {
+  const unsigned nt = block.x * block.y * block.z;
+  for (unsigned bz = 0; bz < grid.z; ++bz)
+    for (unsigned by = 0; by < grid.y; ++by)
+      for (unsigned bx = 0; bx < grid.x; ++bx) {
+        std::barrier<> bar(nt);
+        std::vector<std::thread> ts;
+        for (unsigned t = 0; t < nt; ++t)
+          ts.emplace_back([&, t] {
+            threadIdx = dim3(t % block.x, (t / block.x) % block.y,
+                             t / (block.x * block.y));
+            blockIdx = dim3(bx, by, bz);
+            blockDim = block;
+            gridDim = grid;
+            host_barrier = &bar;
+            f();
+            bar.arrive_and_drop();
+          });
+        for (auto& th : ts) th.join();
+      }
+}
+"""
+
+
+def _host_source(src: str) -> str:
+    """Rewrite every ``name<<<cfg>>>(args)`` launch into host_launch."""
+    out, pos = [], 0
+    while True:
+        i = src.find("<<<", pos)
+        if i < 0:
+            return "".join(out) + src[pos:]
+        start = pos + re.search(r"([A-Za-z_]\w*(?:<\w+>)?)$",
+                                src[pos:i]).start(1)
+        j = src.index(">>>", i)
+        cfg = [c.strip() for c in src[i + 3:j].split(",")]
+        k = p = src.index("(", j)
+        depth = 0
+        while True:
+            depth += {"(": 1, ")": -1}.get(src[p], 0)
+            if depth == 0:
+                break
+            p += 1
+        out.append(src[pos:start])
+        out.append("host_launch(dim3(%s), dim3(%s), [&] { %s(%s); })"
+                   % (cfg[0], cfg[1], src[start:i], src[k + 1:p]))
+        pos = p + 1
+
+
+@pytest.fixture(scope="module")
+def host_libs(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the kernels for the host")
+    build = tmp_path_factory.mktemp("cuda_host")
+    (build / "cuda_runtime.h").write_text(SHIM)
+
+    def compile_one(name):
+        cpp = build / (name + ".cpp")
+        cpp.write_text(_host_source(
+            (cuda_build.CSRC_DIR / (name + ".cu")).read_text()))
+        so = build / ("lib%s.so" % name)
+        res = subprocess.run(
+            [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+             "-I", str(build), "-I", str(cuda_build.CSRC_DIR), "-o", str(so),
+             str(cpp)], capture_output=True, text=True, timeout=300)
+        assert res.returncode == 0, res.stderr[-4000:]
+        lib = ctypes.CDLL(str(so))
+        for fn, argtypes in cuda_build.SOURCES[name][0].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        return lib
+
+    # one compiler at a time: the suite's other workers share the host
+    return {name: compile_one(name) for name in cuda_build.SOURCES}
+
+
+def _rnd(rng, *shape):
+    return torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, shape,
+                                         dtype=np.int64).astype(np.int32))
+
+
+@pytest.mark.parametrize("bsz,w", [(1, 1), (3, 5), (2, 300)])
+def test_aes_level_kernel_on_host(host_libs, bsz, w):
+    rng = np.random.default_rng(bsz * 1000 + w)
+    seeds, cw1, cw2 = _rnd(rng, bsz, w, 4), _rnd(rng, bsz, 64, 4), \
+        _rnd(rng, bsz, 64, 4)
+    c1, c2 = cw1[:, 14:16], cw2[:, 14:16]
+    out = torch.empty(bsz, 2 * w, 4, dtype=torch.int32)
+    assert host_libs["aes_level"].aes_level_launch(
+        seeds.data_ptr(), c1.data_ptr(), c2.data_ptr(), c1.stride(0),
+        out.data_ptr(), bsz, w, None) == 0
+    assert torch.equal(out, aes_level.aes_level_step_plain(seeds, c1, c2))
+
+
+@pytest.mark.parametrize("bsz,k,e,inc", [(1, 7, 1, 1), (3, 300, 3, 1),
+                                         (17, 1000, 16, 4), (5, 600, 20, 1)])
+def test_contract_kernel_on_host(host_libs, bsz, k, e, inc):
+    rng = np.random.default_rng(k + e)
+    base = _rnd(rng, bsz, k, inc)
+    a = base[..., 0]
+    t = _rnd(rng, k, e)
+    out = torch.zeros(bsz, e, dtype=torch.int32)
+    assert host_libs["contract"].contract_i32_launch(
+        a.data_ptr(), a.stride(0), a.stride(1), t.data_ptr(), out.data_ptr(),
+        bsz, k, e, 4, None) == 0
+    assert torch.equal(out, matmul128.dot_i32_plain(a, t))
+
+
+@pytest.mark.parametrize("method", subtree.SUBTREE_PRFS)
+@pytest.mark.parametrize("bsz,depth,f_levels,cb,e", [
+    (2, 7, 0, 128, 16),      # one block per key, no path walk
+    (3, 9, 1, 64, 3),        # frontier of 2, two-level path walk
+    (2, 8, 2, 16, 5),        # block smaller than the 256-thread BFS
+    (1, 10, 0, 1024, 1),     # depth-first below the 256-node level
+])
+def test_subtree_kernel_on_host(host_libs, method, bsz, depth, f_levels, cb,
+                                e):
+    rng = np.random.default_rng(depth * 10 + method)
+    n = 1 << depth
+    fr = _rnd(rng, bsz, 1 << f_levels, 4)
+    cw1, cw2, tbl = _rnd(rng, bsz, 64, 4), _rnd(rng, bsz, 64, 4), \
+        _rnd(rng, n, e)
+    out = torch.zeros(bsz, e, dtype=torch.int32)
+    assert host_libs["subtree"].subtree_contract_launch(
+        fr.data_ptr(), cw1.data_ptr(), cw2.data_ptr(), tbl.data_ptr(),
+        out.data_ptr(), bsz, 1 << f_levels, depth, f_levels,
+        cb.bit_length() - 1, e, method, None) == 0
+    assert torch.equal(out, subtree.subtree_contract_plain(
+        fr, cw1, cw2, tbl, depth=depth, f_levels=f_levels,
+        prf_method=method))
+
+
+def test_subtree_kernel_on_host_rejects_bad_prf(host_libs):
+    z = torch.zeros(1, 64, 4, dtype=torch.int32)
+    assert host_libs["subtree"].subtree_contract_launch(
+        z.data_ptr(), z.data_ptr(), z.data_ptr(), z.data_ptr(), z.data_ptr(),
+        1, 1, 7, 0, 7, 1, 3, None) != 0

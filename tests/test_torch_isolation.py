@@ -1,0 +1,50 @@
+"""``dpf_tpu_torch`` imports neither JAX nor the JAX package.
+
+``dpf_tpu_torch`` itself starts with ``dpf_tpu``, so module names are
+matched exactly or by the ``dpf_tpu.`` / ``jax.`` prefix.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "dpf_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_import_loads_no_jax_and_no_dpf_tpu():
+    code = ("import sys, dpf_tpu_torch, dpf_tpu_torch.interop, "
+            "dpf_tpu_torch.sample, dpf_tpu_torch.utils.bench; "
+            "import dpf_tpu_torch.ops.aes_level, dpf_tpu_torch.ops.subtree; "
+            "print('\\n'.join(sorted(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr
+    mods = out.stdout.split()
+    assert "dpf_tpu_torch" in mods
+    assert [m for m in mods if _forbidden(m)] == []
+
+
+def test_sources_import_no_jax_and_no_dpf_tpu():
+    files = sorted((ROOT / "dpf_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    bad = []
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += ["%s: %s" % (path.name, n) for n in names if _forbidden(n)]
+    assert bad == []
