@@ -9,19 +9,26 @@ CUDA toolkit:
 Phases (any failure raises and the script exits non-zero):
 
 1. build every CUDA kernel from ``dpf_tpu_torch/csrc`` (one ``nvcc`` per
-   source, all at once) and print the build time;
+   source, all at once), print the build time and ``ptxas``' registers
+   and spills per kernel;
 2. hold each kernel against its plain PyTorch version on the card, bit
-   for bit: small shapes, ragged batches (B = 1, 3, 33) and the main
-   path's shapes (B = 512, N = 2^20, E = 16); time kernel, plain version
-   and, for the contraction, the ``torch._int_mm`` byte-limb
-   decomposition as the library yardstick;
-3. the sample flow for PRF ids 0-5 at N = 16384: two ``DPF`` servers
-   answer 8 distinct indices, the client recovers each row exactly, and
-   the shares equal the CPU oracle ``eval_cpu``;
-4. full width: AES-128 and ChaCha20 at N = 2^20, E = 16, B = 512 (64
-   distinct key pairs tiled to the batch, every recovered row checked),
-   and the AES-128 headline configuration N = 65536, E = 16, B = 512;
-5. every kernel's launch count must have grown during phases 3-4.
+   for bit: small shapes, ragged batches (B = 1, 3, 33), odd and even
+   depths for the radix-4 subtree kernel, and the main paths' shapes
+   (B = 512, N = 2^20, E = 16); time kernel, plain version and, for the
+   contraction, the ``torch._int_mm`` byte-limb decomposition as the
+   library yardstick;
+3. the sample flow for PRF ids 0-5, binary tree at N = 16384 and radix-4
+   tree at N = 16384 and 8192 (odd depth): two ``DPF`` servers answer 8
+   distinct indices, the client recovers each row exactly, and the
+   shares equal the CPU oracle ``eval_cpu``;
+4. full width: binary AES-128 and ChaCha20 and radix-4 AES-128 and
+   ChaCha20-BLK at N = 2^20, E = 16, B = 512 (64 distinct key pairs
+   tiled to the batch, every recovered row checked), and AES-128 in both
+   trees at the headline configuration N = 65536, E = 16, B = 512;
+5. launch counts: phases 3-4 run once per path (binary, then radix-4),
+   every count set to 0 just before the path and read just after; each
+   kernel of a path must have been launched in its run, and the launches
+   per 512-key batch of each full-width configuration are printed.
 
 The last lines are the card's name and power limit, one
 ``{"kernels": [...]}`` line, and ``{"ok": true, "device": {...}}``.
@@ -44,9 +51,10 @@ PEAK_OPS_PER_S = 67e12       # H100 SXM fp32 non-tensor rate (same sheet)
 
 # 32-bit operations per unit of work, counted from the kernels' code
 # (each rotate, shift, mask, table lookup, add, xor or multiply is one):
-# AES-128 node = key schedule (10 x ~22) + 2 blocks x (9 full rounds x
-# ~60 + final round ~52) + 2 x add128 (~10) + select
+# AES-128 node = key schedule (10 x ~22) + A blocks x (9 full rounds x
+# ~60 + final round ~52) + A x add128 (~10) + select, A = 2 or 4
 OPS_AES_NODE = 10 * 22 + 2 * (9 * 60 + 52) + 2 * 10 + 10
+OPS_AES_NODE_A4 = 10 * 22 + 4 * (9 * 60 + 52) + 4 * 10 + 10
 # Salsa/ChaCha-12 core block = 48 quarter rounds x 12 ops + 16 adds
 OPS_CORE_BLOCK = 48 * 12 + 16
 OPS_CHILD_ADD = 12           # add128 + codeword select per child
@@ -64,7 +72,8 @@ def main() -> int:
     import numpy as np
 
     import dpf_tpu_torch
-    from dpf_tpu_torch import DPF
+    from dpf_tpu_torch import DPF, EvalConfig
+    from dpf_tpu_torch.core import radix4
     from dpf_tpu_torch.ops import aes_level, cuda_build, matmul128, subtree
     from dpf_tpu_torch.utils.bench import test_dpf_perf
 
@@ -99,6 +108,19 @@ def main() -> int:
         sync()
         return start.elapsed_time(end) / reps
 
+    def log_row(name, r):
+        """Fill a timing row's bound (the larger of bytes over the memory
+        rate and operations over the peak rate) and print the row."""
+        r["bound_ms"] = 1e3 * max(r["bytes"] / PEAK_BYTES_PER_S,
+                                  r["ops"] / PEAK_OPS_PER_S)
+        r["bound_by"] = ("bytes" if r["bytes"] / PEAK_BYTES_PER_S
+                         >= r["ops"] / PEAK_OPS_PER_S else "operations")
+        log("  %-22s %-44s ms %.4f  plain_ms %.2f  bound_ms %.4f (%s)  "
+            "library_ms %s" % (name, r["shape"], r["ms"], r["plain_ms"],
+                               r["bound_ms"], r["bound_by"],
+                               "%.4f" % r["library_ms"]
+                               if r["library_ms"] is not None else "null"))
+
     def held(name, got, want):
         sync()
         if got.shape != want.shape:
@@ -119,12 +141,15 @@ def main() -> int:
                                         ", ".join(sorted(logs)) or "cached"))
     for name, text in sorted(logs.items()):
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
                 log("  %s: %s" % (name, line.strip()))
 
     # ---------------------------------------- 2. kernels vs plain versions
     log("phase 2 kernels against their plain versions")
-    errs = {"aes_level_step": 0, "subtree_contract": 0, "contract_i32": 0}
+    errs = {"aes_level_step": 0, "aes_level_step_a4": 0,
+            "subtree_contract": 0, "subtree_contract_mixed": 0,
+            "contract_i32": 0}
     rows = {}
 
     # K1: AES level step; the AES path's widest call at N = 2^20, B = 512
@@ -145,6 +170,28 @@ def main() -> int:
         bytes=nodes * 16 + 2 * bsz * 2 * 16 + 2 * nodes * 16,
         ops=nodes * OPS_AES_NODE,
         shape="B=%d w=%d -> 2w (one level)" % (bsz, w))
+    del seeds, cw1, cw2, c1, c2
+
+    # K1 at arity 4; the radix-4 AES path's widest call at N = 2^20,
+    # B = 512 (C = 4096 leaves per frontier node, 64 nodes per group) is
+    # w = 2^16 -> 2^18
+    for bsz, w in ((3, 5), (1, 1), (33, 64), (512, 1 << 16)):
+        seeds, cw1, cw2 = rnd(bsz, w, 4), rnd(bsz, 64, 4), rnd(bsz, 64, 4)
+        c1, c2 = cw1[:, 6:10], cw2[:, 6:10]
+        errs["aes_level_step_a4"] |= held(
+            "K1 aes_level_step arity 4 B=%d w=%d" % (bsz, w),
+            aes_level.aes_level_step(seeds, c1, c2, arity=4),
+            aes_level.aes_level_step_plain(seeds, c1, c2, 4))
+    nodes = bsz * w
+    rows["aes_level_step_a4"] = dict(
+        ms=cuda_ms(lambda: aes_level.aes_level_step(seeds, c1, c2, arity=4),
+                   10),
+        plain_ms=cuda_ms(lambda: aes_level.aes_level_step_plain(
+            seeds, c1, c2, 4), 1),
+        library_ms=None,
+        bytes=nodes * 16 + 2 * bsz * 4 * 16 + 4 * nodes * 16,
+        ops=nodes * OPS_AES_NODE_A4,
+        shape="B=%d w=%d -> 4w (one radix-4 level)" % (bsz, w))
     del seeds, cw1, cw2, c1, c2
 
     # K3: contraction; the AES path hands it the low limbs of the
@@ -220,96 +267,217 @@ def main() -> int:
     del fr, cw1, cw2, tbl, want
     torch.cuda.empty_cache()
 
-    for name, r in rows.items():
-        r["bound_ms"] = 1e3 * max(r["bytes"] / PEAK_BYTES_PER_S,
-                                  r["ops"] / PEAK_OPS_PER_S)
-        r["bound_by"] = ("bytes" if r["bytes"] / PEAK_BYTES_PER_S
-                         >= r["ops"] / PEAK_OPS_PER_S else "operations")
-        log("  %-17s %-44s ms %.4f  plain_ms %.2f  bound_ms %.4f (%s)  "
-            "library_ms %s" % (name, r["shape"], r["ms"], r["plain_ms"],
-                               r["bound_ms"], r["bound_by"],
-                               "%.4f" % r["library_ms"]
-                               if r["library_ms"] is not None else "null"))
-
-    # ------------------------------------------------ the main path: 3 + 4
-    counters = {"aes_level_step": aes_level.aes_level_step,
-                "subtree_contract": subtree.subtree_contract,
-                "contract_i32": matmul128.dot_i32}
-    for fn in counters.values():
-        fn.launches = 0
-
-    # 3. sample flow for every PRF id at N = 16384
-    log("phase 3 sample flow, N=16384 E=16, 8 indices, PRF ids 0-5")
-    n3 = 16384
-    table = rng.integers(0, 2 ** 31, (n3, 16), dtype=np.int64).astype(
-        np.int32)
-    idx = [int(i) for i in rng.choice(n3, 8, replace=False)]
-    for prf in range(6):
-        client = DPF(prf=prf, device="cpu")
-        pairs = [client.gen(i, n3, seed=b"smoke-%d-%d" % (prf, i))
-                 for i in idx]
-        server_a, server_b = DPF(prf=prf), DPF(prf=prf)
-        server_a.eval_init(table)
-        server_b.eval_init(table)
+    # mixed K2: the radix-4 schedule at odd depth (a binary level on top,
+    # inside the block at 2^11, walked by thread 0 at 2^13) and even
+    # depth, frontiers at eval levels 0-2, ragged batches; then
+    # ChaCha20-BLK and ChaCha20 at the full-width shape from the root
+    for prf in subtree.SUBTREE_PRFS:
+        for bsz, depth, f_lv, cb in ((3, 11, 0, 2048), (1, 13, 0, 4096),
+                                     (33, 13, 1, 4096), (3, 14, 0, 4096),
+                                     (33, 14, 2, 256)):
+            ars = radix4.arities(1 << depth)
+            f_cnt = int(np.prod(ars[:f_lv]))
+            fr, cw1, cw2 = rnd(bsz, f_cnt, 4), rnd(bsz, 64, 4), \
+                rnd(bsz, 64, 4)
+            tbl = rnd(1 << depth, 16)
+            kw = dict(ars=ars, f_lv=f_lv, prf_method=prf, block_leaves=cb)
+            errs["subtree_contract_mixed"] |= held(
+                "K2 subtree_contract_mixed prf=%d B=%d N=2^%d f_lv=%d"
+                % (prf, bsz, depth, f_lv),
+                subtree.subtree_contract_mixed(fr, cw1, cw2, tbl, **kw),
+                subtree.subtree_contract_mixed_plain(fr, cw1, cw2, tbl, **kw))
+    bsz, depth = 512, 20
+    n = 1 << depth
+    ars = radix4.arities(n)
+    fr, cw1, cw2 = rnd(bsz, 1, 4), rnd(bsz, 64, 4), rnd(bsz, 64, 4)
+    tbl = rnd(n, 16)
+    nodes = (n - 1) // 3          # parents of a radix-4 tree, 4 children each
+    for prf, blocks in ((dpf_tpu_torch.PRF_CHACHA20, 4),
+                        (dpf_tpu_torch.PRF_CHACHA20_BLK, 1)):
+        kw = dict(ars=ars, f_lv=0, prf_method=prf, block_leaves=4096)
         t0 = time.perf_counter()
-        sa = server_a.eval_gpu([p[0] for p in pairs])
-        sb = server_b.eval_gpu([p[1] for p in pairs])
+        want = subtree.subtree_contract_mixed_plain(fr, cw1, cw2, tbl, **kw)
         sync()
-        dt = time.perf_counter() - t0
-        ua = sa.cpu().numpy().view(np.uint32)
-        ub = sb.cpu().numpy().view(np.uint32)
-        rec = (ua - ub).view(np.int32)
-        if not (rec == table[idx]).all():
-            raise AssertionError("prf %d: recovered rows differ" % prf)
-        oracle = server_a.eval_cpu([p[0] for p in pairs]).numpy()
-        if not (oracle == sa.cpu().numpy()).all():
-            raise AssertionError("prf %d: GPU shares differ from eval_cpu"
-                                 % prf)
-        log("  prf %d %-12s 8 rows recovered exactly, shares == eval_cpu "
-            "(both servers %.1f ms)" % (prf, server_a.prf_method_string,
-                                         1e3 * dt))
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        errs["subtree_contract_mixed"] |= held(
+            "K2 subtree_contract_mixed prf=%d B=512 N=2^20" % prf,
+            subtree.subtree_contract_mixed(fr, cw1, cw2, tbl, **kw), want)
+        # the row holds the last of the two: ChaCha20-BLK, one core block
+        # per radix-4 node (ChaCha20 takes four)
+        rows["subtree_contract_mixed"] = dict(
+            ms=cuda_ms(lambda: subtree.subtree_contract_mixed(
+                fr, cw1, cw2, tbl, **kw), 5),
+            plain_ms=plain_ms, library_ms=None,
+            bytes=bsz * 16 + 2 * bsz * 64 * 16 + n * 16 * 4 + bsz * 16 * 4,
+            ops=bsz * (nodes * (blocks * OPS_CORE_BLOCK + 4 * OPS_CHILD_ADD)
+                       + n * 16 * 2),
+            shape="prf %d radix-4 B=%d N=2^%d E=16 from the root"
+                  % (prf, bsz, depth))
+        if prf == dpf_tpu_torch.PRF_CHACHA20:
+            log_row("subtree_contract_mixed", rows["subtree_contract_mixed"])
+    # the same launch with one table column: the expansion is unchanged
+    # and the contraction's table traffic (read once per key, from L2)
+    # falls 16x, so the difference bounds what the contraction costs
+    tbl1 = tbl[:, :1].contiguous()
+    errs["subtree_contract_mixed"] |= held(
+        "K2 subtree_contract_mixed prf=5 B=512 N=2^20 E=1",
+        subtree.subtree_contract_mixed(fr, cw1, cw2, tbl1, **kw),
+        subtree.subtree_contract_mixed_plain(fr, cw1, cw2, tbl1, **kw))
+    log("  K2 subtree_contract_mixed prf=5 B=512 N=2^20: E=1 ms %.4f, "
+        "E=16 ms %.4f" % (cuda_ms(lambda: subtree.subtree_contract_mixed(
+            fr, cw1, cw2, tbl1, **kw), 5),
+            rows["subtree_contract_mixed"]["ms"]))
+    del fr, cw1, cw2, tbl, tbl1, want
+    torch.cuda.empty_cache()
+
+    for name, r in rows.items():
+        log_row(name, r)
+
+    # ---------------------------------------- the main paths: 3 + 4 + 5
+    # kernel name -> the wrapper that counts its launches
+    counters = {
+        "aes_level_step": aes_level.aes_level_step,
+        "aes_level_step_a4": aes_level.aes_level_step,
+        "subtree_contract": subtree.subtree_contract,
+        "subtree_contract_mixed": subtree.subtree_contract_mixed,
+        "contract_i32": matmul128.dot_i32}
+
+    def count_attr(name):
+        return "launches_a4" if name == "aes_level_step_a4" else "launches"
+
+    def read_counts():
+        return {k: getattr(fn, count_attr(k)) for k, fn in counters.items()}
+
+    def zero_counts():
+        for k, fn in counters.items():
+            setattr(fn, count_attr(k), 0)
+
+    n3 = 16384
+    table3 = rng.integers(0, 2 ** 31, (n3, 16), dtype=np.int64).astype(
+        np.int32)
+
+    def sample_flow(radix, n, prfs=range(6)):
+        """Phase 3: two servers answer 8 indices for each PRF id; exact
+        rows, shares equal to eval_cpu."""
+        table = table3[:n]
+        idx = [int(i) for i in rng.choice(n, 8, replace=False)]
+        cfg = EvalConfig(radix=radix)
+        for prf in prfs:
+            client = DPF(prf=prf, config=cfg, device="cpu")
+            pairs = [client.gen(i, n, seed=b"smoke-%d-%d" % (prf, i))
+                     for i in idx]
+            server_a = DPF(prf=prf, config=cfg)
+            server_b = DPF(prf=prf, config=cfg)
+            server_a.eval_init(table)
+            server_b.eval_init(table)
+            t0 = time.perf_counter()
+            sa = server_a.eval_gpu([p[0] for p in pairs])
+            sb = server_b.eval_gpu([p[1] for p in pairs])
+            sync()
+            dt = time.perf_counter() - t0
+            ua = sa.cpu().numpy().view(np.uint32)
+            ub = sb.cpu().numpy().view(np.uint32)
+            rec = (ua - ub).view(np.int32)
+            if not (rec == table[idx]).all():
+                raise AssertionError("radix %d N=%d prf %d: recovered rows "
+                                     "differ" % (radix, n, prf))
+            oracle = server_a.eval_cpu([p[0] for p in pairs]).numpy()
+            if not (oracle == sa.cpu().numpy()).all():
+                raise AssertionError("radix %d N=%d prf %d: GPU shares "
+                                     "differ from eval_cpu" % (radix, n, prf))
+            log("  radix %d N=%-6d prf %d %-12s 8 rows recovered exactly, "
+                "shares == eval_cpu (both servers %.1f ms)"
+                % (radix, n, prf, server_a.prf_method_string, 1e3 * dt))
+
+    per_batch = {}
+
+    def full_width(radix, prf, n4, reps):
+        """Phase 4 through the user's entry points; launches per batch
+        from the counts of this configuration alone."""
+        before = read_counts()
+        r = test_dpf_perf(N=n4, batch=512, entrysize=16, prf=prf, reps=reps,
+                          keys_distinct=64, check=True, quiet=True,
+                          config=EvalConfig(radix=radix))
+        batches = 3 + reps           # check (two servers), warm-up, reps
+        key = "%s radix-%d N=%d" % (r["prf"], radix, n4)
+        per_batch[key] = {k: (v - before[k]) / batches
+                          for k, v in read_counts().items()
+                          if v != before[k]}
+        log("  %-8s radix %d N=%-8d E=16 B=512: %.1f dpfs/s (%.2f ms/batch, "
+            "recovery exact) on %s" % (r["prf"], radix, n4,
+                                       r["dpfs_per_sec"], r["ms_per_batch"],
+                                       smi))
+        log("    launches per batch: %s" % per_batch[key])
+        log("  " + json.dumps(r))
+
+    path_kernels = {
+        "binary": ("aes_level_step", "subtree_contract", "contract_i32"),
+        "radix4": ("aes_level_step", "aes_level_step_a4",
+                   "subtree_contract_mixed", "contract_i32")}
+    by_path = {}
+
+    # the binary path
+    zero_counts()
+    log("phase 3 binary sample flow, N=16384 E=16, 8 indices, PRF ids 0-5")
+    sample_flow(2, n3)
     from dpf_tpu_torch import sample
     sample.client()
-
-    # 4. full width through the user's entry points
-    log("phase 4 full width (64 distinct key pairs tiled to B=512, every "
-        "row checked)")
+    log("phase 4 binary full width (64 distinct key pairs tiled to B=512, "
+        "every row checked)")
     for prf, n4, reps in ((dpf_tpu_torch.PRF_AES128, 1 << 20, 3),
                           (dpf_tpu_torch.PRF_CHACHA20, 1 << 20, 5),
                           (dpf_tpu_torch.PRF_AES128, 65536, 10)):
-        r = test_dpf_perf(N=n4, batch=512, entrysize=16, prf=prf, reps=reps,
-                          keys_distinct=64, check=True, quiet=True)
-        log("  %-8s N=%-8d E=16 B=512: %.1f dpfs/s (%.2f ms/batch, "
-            "recovery exact) on %s" % (
-                r["prf"], n4, r["dpfs_per_sec"], r["ms_per_batch"], smi))
-        log("  " + json.dumps(r))
+        full_width(2, prf, n4, reps)
+    by_path["binary"] = read_counts()
 
-    # 5. launch counts of the main path
-    launches = {k: fn.launches for k, fn in counters.items()}
-    log("phase 5 launches during phases 3-4: %s" % launches)
-    for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError("kernel %s was never launched on the main "
-                                 "path" % k)
+    # the radix-4 path
+    zero_counts()
+    log("phase 3 radix-4 sample flow, N=16384 and N=8192 (odd depth), "
+        "E=16, 8 indices, PRF ids 0-5")
+    sample_flow(4, n3)
+    sample_flow(4, n3 // 2)
+    log("phase 4 radix-4 full width (64 distinct key pairs tiled to B=512, "
+        "every row checked)")
+    for prf, n4, reps in ((dpf_tpu_torch.PRF_AES128, 1 << 20, 3),
+                          (dpf_tpu_torch.PRF_CHACHA20_BLK, 1 << 20, 5),
+                          (dpf_tpu_torch.PRF_AES128, 65536, 10)):
+        full_width(4, prf, n4, reps)
+    by_path["radix4"] = read_counts()
+
+    # 5. launch counts of each path
+    for path, counts in by_path.items():
+        log("phase 5 launches during the %s path (phases 3-4): %s"
+            % (path, counts))
+        for k in path_kernels[path]:
+            if counts[k] <= 0:
+                raise AssertionError("kernel %s was never launched on the "
+                                     "%s path" % (k, path))
 
     meta = {
         "aes_level_step": ("dpf_tpu_torch/csrc/aes_level.cu",
                            "dpf_tpu/ops/aes_planes.py:408"),
+        "aes_level_step_a4": ("dpf_tpu_torch/csrc/aes_level.cu",
+                              "dpf_tpu/ops/aes_planes.py:408"),
         "subtree_contract": ("dpf_tpu_torch/csrc/subtree.cu",
                              "dpf_tpu/ops/pallas_level.py:402"),
+        "subtree_contract_mixed": ("dpf_tpu_torch/csrc/subtree.cu",
+                                   "dpf_tpu/ops/pallas_level.py:442"),
         "contract_i32": ("dpf_tpu_torch/csrc/contract.cu",
                          "dpf_tpu/ops/matmul128.py:29"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
         r = rows[name]
+        launches = {p: c[name] for p, c in by_path.items() if c[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(launches.values()),
+            "launches_by_path": launches,
             "max_abs_err": errs[name], "matched": errs[name] == 0,
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"]})
+    log(json.dumps({"launches_per_batch": per_batch}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

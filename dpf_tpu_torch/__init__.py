@@ -1,12 +1,14 @@
 """dpf_tpu_torch -- the DPF / two-server PIR server on PyTorch and CUDA.
 
 The PyTorch port of ``dpf_tpu`` (which stays the reference): client-side
-O(log N) GGM key generation with the reference's 524-int32 keys, and
-server-side batched expansion + table contraction on an NVIDIA H100
-through hand-written CUDA kernels (``csrc/``): AES-128 level expansion,
-Salsa20/ChaCha20 subtree expansion + contraction, and the exact int32
-contraction.  Shares are bit-identical to ``dpf_tpu``'s.  This package
-imports neither JAX nor ``dpf_tpu``.
+O(log N) GGM key generation with the reference's 524-int32 keys (binary
+tree) or radix-4 keys (``EvalConfig(radix=4)``), and server-side batched
+expansion + table contraction on an NVIDIA H100 through hand-written
+CUDA kernels (``csrc/``): AES-128 level expansion at arity 2 or 4,
+Salsa20/ChaCha20 subtree expansion + contraction over a binary or
+radix-4 schedule, and the exact int32 contraction.  Shares are
+bit-identical to ``dpf_tpu``'s.  This package imports neither JAX nor
+``dpf_tpu``.
 """
 
 from .api import DPF  # noqa: F401

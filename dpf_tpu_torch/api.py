@@ -1,10 +1,12 @@
 """User-facing DPF API on PyTorch and CUDA.
 
-Port of ``dpf_tpu/api.py::DPF`` for the binary log-N construction (the
-reference's wire format): ``gen`` / ``eval_init`` / ``eval_gpu`` (alias
-``eval_tpu``) / ``eval_cpu`` / ``eval_one_hot`` / ``eval_points`` /
-``eval_free``, constants ``ENTRY_SIZE`` / ``BATCH_SIZE`` / ``PRF_*``,
-524-int32 keys.  Shares are bit-identical to ``dpf_tpu``'s.
+Port of ``dpf_tpu/api.py::DPF`` for the log-N constructions: the binary
+GGM tree (the reference's wire format) and, with
+``config=EvalConfig(radix=4)``, the radix-4 tree (``core/radix4.py``).
+``gen`` / ``eval_init`` / ``eval_gpu`` (alias ``eval_tpu``) /
+``eval_cpu`` / ``eval_one_hot`` / ``eval_points`` / ``eval_free``,
+constants ``ENTRY_SIZE`` / ``BATCH_SIZE`` / ``PRF_*``, 524-int32 keys.
+Shares are bit-identical to ``dpf_tpu``'s.
 
 The server runs on the device given at construction: ``device=None``
 means ``"cuda"`` and raises when CUDA is absent; ``device="cpu"`` runs
@@ -20,7 +22,7 @@ import os
 import numpy as np
 import torch
 
-from .core import evalref, expand, keygen, u128
+from .core import evalref, expand, keygen, radix4, u128
 from .core.prf_ref import (PRF_AES128, PRF_CHACHA20, PRF_CHACHA20_BLK,
                            PRF_DUMMY, PRF_NAMES, PRF_SALSA20,
                            PRF_SALSA20_BLK)
@@ -60,9 +62,6 @@ def _check_construction(scheme: str, radix: int) -> None:
     if scheme == "auto":
         raise NotImplementedError("scheme='auto' needs the tuning cache, "
                                   "not ported yet (ROADMAP Queue 1 item 16)")
-    if radix == 4:
-        raise NotImplementedError("radix=4 is not ported yet "
-                                  "(ROADMAP Queue 1 item 8, radix-4)")
 
 
 class DPF(object):
@@ -84,8 +83,8 @@ class DPF(object):
     def __init__(self, prf=None, strict=True, config=None, scheme=None,
                  device=None):
         """config: optional ``utils.config.EvalConfig`` (``prf_method``,
-        ``batch_size``).  device: where the server evaluates (None =
-        CUDA)."""
+        ``batch_size``, ``radix``).  device: where the server evaluates
+        (None = CUDA)."""
         radix, sch = 2, "logn"
         if config is not None:
             if prf is None:
@@ -95,6 +94,7 @@ class DPF(object):
         if scheme is not None:
             sch = scheme
         _check_construction(sch, radix)
+        self.radix = radix
         self.device = resolve_device(device)
         self.prf_method = self.DEFAULT_PRF if prf is None else prf
         if self.prf_method not in PRF_NAMES:
@@ -103,6 +103,7 @@ class DPF(object):
         self.strict = strict          # enforce reference shape limits
         self.table = None             # original table (numpy int32)
         self.table_device = None      # permuted table on self.device
+        #                               (bit- or digit-reversed rows)
         self.table_num_entries = None
         self.table_effective_entry_size = None
         self.buffers = None           # reference-API compat handle
@@ -137,14 +138,17 @@ class DPF(object):
         n = self._check_gen_domain(int(k), int(n))
         if seed is None:
             seed = os.urandom(128)
-        k0, k1 = keygen.generate_keys(int(k), n, seed, self.prf_method)
+        make = (radix4.generate_keys_r4 if self.radix == 4
+                else keygen.generate_keys)
+        k0, k1 = make(int(k), n, seed, self.prf_method)
         return (torch.from_numpy(k0.serialize()),
                 torch.from_numpy(k1.serialize()))
 
     # ----------------------------------------------------------- eval_init
 
     def eval_init(self, table):
-        """Upload a [N, E] integer table; pre-permutes rows for BFS order.
+        """Upload a [N, E] integer table; pre-permutes rows for BFS order
+        (bit-reversed, or digit-reversed for radix 4).
 
         With strict=False, non-power-of-two N is zero-padded to the next
         power of two (matching gen's domain rounding)."""
@@ -172,8 +176,12 @@ class DPF(object):
         self.table = np.ascontiguousarray(tbl)
         self.table_num_entries = n
         self.table_effective_entry_size = e
-        self.table_device = torch.from_numpy(
-            expand.permute_table(self.table)).to(self.device)
+        if self.radix == 4:
+            perm = radix4.mixed_reverse_indices(radix4.arities(n))
+            permuted = np.ascontiguousarray(self.table[perm])
+        else:
+            permuted = expand.permute_table(self.table)
+        self.table_device = torch.from_numpy(permuted).to(self.device)
         self.buffers = (self.table_device,)
         return self.buffers
 
@@ -198,9 +206,16 @@ class DPF(object):
     # The JAX package's name for the same call.
     eval_tpu = eval_gpu
 
+    def _decode(self, keys) -> keygen.PackedKeys:
+        """Wire keys -> packed batch of this server's construction: a
+        radix-4 key sent to a binary server raises, and the reverse."""
+        if self.radix == 4:
+            return radix4.decode_mixed_keys_batched(keys)
+        return keygen.decode_keys_batched(keys)
+
     def _decode_batch(self, keys) -> keygen.PackedKeys:
         """Wire keys -> packed batch, validated against the table."""
-        pk = keygen.decode_keys_batched(keys)
+        pk = self._decode(keys)
         n = self.table_num_entries
         if n is not None and pk.n != n:
             raise ValueError(
@@ -217,10 +232,17 @@ class DPF(object):
         pk = pk.pad_to(u128.next_pow2(n_real))
         cw1, cw2, last = self._device_keys(pk)
         knobs = self.resolved_eval_knobs(pk.batch)
-        out = expand.expand_and_contract(
-            cw1, cw2, last, self.table_device,
-            depth=self.table_num_entries.bit_length() - 1,
-            prf_method=self.prf_method, chunk_leaves=knobs["chunk_leaves"])
+        if self.radix == 4:
+            out = radix4.expand_and_contract_mixed(
+                cw1, cw2, last, self.table_device,
+                n=self.table_num_entries, prf_method=self.prf_method,
+                chunk_leaves=knobs["chunk_leaves"])
+        else:
+            out = expand.expand_and_contract(
+                cw1, cw2, last, self.table_device,
+                depth=self.table_num_entries.bit_length() - 1,
+                prf_method=self.prf_method,
+                chunk_leaves=knobs["chunk_leaves"])
         return out[:n_real]
 
     def resolved_eval_knobs(self, batch: int) -> dict:
@@ -228,7 +250,10 @@ class DPF(object):
         of ``dpf_tpu``'s resolution under ``kernel_impl="pallas"`` (the
         tuning cache is not ported yet).  The stream ciphers take the
         subtree kernel's block of at most 4096 leaves; AES and DUMMY take
-        the 64 MiB live-seed chunk (``expand.choose_chunk``)."""
+        the 64 MiB live-seed chunk (``expand.choose_chunk``).  For radix
+        4 the chunk is rounded down to a product of trailing arities
+        (``radix4._suffix_chunk``) and the kernels are the radix-4 ones:
+        K2 ``subtree_contract_mixed``, K1 at arity 4."""
         n = self.table_num_entries
         if n is None:
             raise RuntimeError("Must call `eval_init` before resolving")
@@ -239,6 +264,11 @@ class DPF(object):
             chunk = expand.clamp_chunk(None, n, batch)
             kernel = ("aes_level_step" if self.prf_method == PRF_AES128
                       else "plain_level_step")
+        if self.radix == 4:
+            chunk = radix4._suffix_chunk(radix4.arities(n), chunk)[1]
+            kernel = {"subtree_contract": "subtree_contract_mixed",
+                      "aes_level_step": "aes_level_step_a4"}.get(kernel,
+                                                                 kernel)
         return {"chunk_leaves": chunk, "kernel": kernel,
                 "kernel_resolved_from": "heuristic"}
 
@@ -247,30 +277,45 @@ class DPF(object):
     def eval_one_hot(self, keys) -> torch.Tensor:
         """Full one-hot expansion: [len(keys), N] int32 shares in natural
         index order, on the server's device.  Memory O(batch x N)."""
-        pk = keygen.decode_keys_batched(keys)
+        pk = self._decode(keys)
         cw1, cw2, last = self._device_keys(pk)
+        if self.radix == 4:
+            return radix4.expand_leaves_mixed(cw1, cw2, last, n=pk.n,
+                                              prf_method=self.prf_method)
         return expand.expand_leaves(cw1, cw2, last, depth=pk.depth,
                                     prf_method=self.prf_method)
 
     def eval_points(self, keys, indices) -> torch.Tensor:
         """Sparse evaluation: each key at the given indices only.
         Returns [len(keys), len(indices)] int32 one-hot shares."""
-        pk = keygen.decode_keys_batched(keys)
+        pk = self._decode(keys)
         idx = _to_numpy(indices).astype(np.int64)
         if idx.ndim != 1 or (idx >= pk.n).any() or (idx < 0).any():
             raise ValueError("indices must be 1D and < n=%d" % pk.n)
         cw1, cw2, last = self._device_keys(pk)
+        if self.radix == 4:
+            return radix4.eval_points_mixed(cw1, cw2, last,
+                                            torch.from_numpy(idx), n=pk.n,
+                                            prf_method=self.prf_method)
         return expand.eval_points(cw1, cw2, last, torch.from_numpy(idx),
                                   depth=pk.depth, prf_method=self.prf_method)
 
     # ------------------------------------------------------------ eval_cpu
 
     def eval_cpu(self, keys, one_hot_only=False) -> torch.Tensor:
-        """Host reference evaluation (plain PyTorch on the CPU, one key at
-        a time), whatever the server's device.  Returns CPU tensors."""
-        hots = np.stack([evalref.eval_one_hot_i32(keygen.deserialize_key(k),
-                                                  self.prf_method)
-                         for k in keys])             # [B, N] int32
+        """Host reference evaluation (plain PyTorch on the CPU: one key at
+        a time for the binary tree, the whole batch through the plain
+        level steps for radix 4), whatever the server's device.  Returns
+        CPU tensors."""
+        if self.radix == 4:
+            pk = radix4.decode_mixed_keys_batched(keys)
+            hots = radix4.expand_leaves_mixed(
+                *(from_u32(a) for a in (pk.cw1, pk.cw2, pk.last)), n=pk.n,
+                prf_method=self.prf_method).numpy()
+        else:
+            hots = np.stack([evalref.eval_one_hot_i32(
+                keygen.deserialize_key(k), self.prf_method)
+                for k in keys])                      # [B, N] int32
         if one_hot_only:
             return torch.from_numpy(hots)
         if self.table is None:
@@ -291,6 +336,8 @@ class DPF(object):
         if self.table_device is None:
             return ("DPF(_uninitialized_, prf_method=%s, device=%s)"
                     % (self.prf_method_string, self.device))
-        return ("DPF(entries=%d, entry_size=%d, prf_method=%s, device=%s)"
-                % (self.table_num_entries, self.table_effective_entry_size,
-                   self.prf_method_string, self.device))
+        return ("DPF(entries=%d, entry_size=%d, prf_method=%s, radix=%d, "
+                "device=%s)" % (self.table_num_entries,
+                                self.table_effective_entry_size,
+                                self.prf_method_string, self.radix,
+                                self.device))

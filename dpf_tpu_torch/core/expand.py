@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from . import u128
-from .prf import prf_pair
+from .prf import prf_multi, prf_pair
 from .prf_ref import (PRF_AES128, PRF_CHACHA20, PRF_CHACHA20_BLK,
                       PRF_SALSA20, PRF_SALSA20_BLK)
 
@@ -82,25 +82,28 @@ def choose_group(f: int, c: int) -> int:
     return g
 
 
-def _level_step_pair(seeds: torch.Tensor, cw1_pair: torch.Tensor,
-                     cw2_pair: torch.Tensor, prf_method: int) -> torch.Tensor:
-    """One GGM level with this level's codeword pairs passed directly
-    (plain PyTorch).  seeds [B, w, 4]; cw*_pair [B, 2, 4] -> [B, 2w, 4]."""
+def _level_step_multi(seeds: torch.Tensor, cw1_lvl: torch.Tensor,
+                      cw2_lvl: torch.Tensor, prf_method: int,
+                      arity: int = 2) -> torch.Tensor:
+    """One GGM level of fan-out ``arity`` with this level's codewords
+    passed directly (plain PyTorch; port of ``expand._level_step_pair``
+    and ``radix4._level_step_mixed``).  seeds [B, w, 4]; cw*_lvl
+    [B, arity, 4] -> [B, arity*w, 4], child b of node j at arity*j + b."""
     sel = (seeds[..., 0] & 1).bool()[..., None]            # [B, w, 1]
-    prf_out = prf_pair(prf_method, seeds)
+    prf_out = prf_multi(prf_method, seeds, arity)
     children = []
-    for b in (0, 1):
-        cw = torch.where(sel, cw2_pair[:, None, b, :], cw1_pair[:, None, b, :])
+    for b in range(arity):
+        cw = torch.where(sel, cw2_lvl[:, None, b, :], cw1_lvl[:, None, b, :])
         children.append(u128.add128(prf_out[b], cw))
     bsz, w = seeds.shape[0], seeds.shape[1]
-    return torch.stack(children, dim=2).reshape(bsz, 2 * w, 4)
+    return torch.stack(children, dim=2).reshape(bsz, arity * w, 4)
 
 
 def _level_step(seeds, cw1, cw2, i: int, prf_method: int) -> torch.Tensor:
     """One plain GGM level: [B, w, 4] -> [B, 2w, 4]; ``i`` is the flat
     level index (codeword slots 2i, 2i+1)."""
-    return _level_step_pair(seeds, cw1[:, 2 * i:2 * i + 2, :],
-                            cw2[:, 2 * i:2 * i + 2, :], prf_method)
+    return _level_step_multi(seeds, cw1[:, 2 * i:2 * i + 2, :],
+                             cw2[:, 2 * i:2 * i + 2, :], prf_method)
 
 
 def level_step(seeds, cw1, cw2, i: int, prf_method: int) -> torch.Tensor:

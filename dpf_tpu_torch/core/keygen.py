@@ -139,8 +139,8 @@ def decode_keys_batched(keys) -> PackedKeys:
     decoded with views and reshapes."""
     slots = stack_wire_keys(keys).view(np.uint32).reshape(-1, 131, 4)
     if (slots[:, 0, 1] == 4).any():
-        raise ValueError("mixed-radix key: radix-4 keys are not served by "
-                         "this package yet (ROADMAP Queue 1 item 8)")
+        raise ValueError("mixed-radix key: serve radix-4 keys with "
+                         "DPF(config=EvalConfig(radix=4))")
     depth = slots[:, 0, 0]
     # n <= 2^32 spills into limb 1; limbs 2/3 are zero on every writer
     n = (slots[:, 130, 0].astype(np.uint64)
@@ -162,8 +162,8 @@ def deserialize_key(key) -> FlatKey:
                          % (KEY_WORDS, arr.shape[0]))
     slots = arr.view(np.uint32).reshape(131, 4)
     if slots[0, 1] == 4:  # radix marker (binary keys keep this limb zero)
-        raise ValueError("mixed-radix key: radix-4 keys are not served by "
-                         "this package yet (ROADMAP Queue 1 item 8)")
+        raise ValueError("mixed-radix key: serve radix-4 keys with "
+                         "DPF(config=EvalConfig(radix=4))")
     return FlatKey(
         depth=int(slots[0, 0]),
         cw1=slots[1:65].copy(),

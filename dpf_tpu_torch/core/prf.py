@@ -1,9 +1,10 @@
 """Vectorized PRFs over [..., 4] int32 limb tensors (plain PyTorch).
 
-Port of ``prf_v`` / ``prf_pair`` in ``dpf_tpu/core/prf.py`` for PRF ids
-0-5.  Each function maps a batch of 128-bit seeds (trailing axis = 4
-little-endian 32-bit limbs, int32 tensors read as uint32, see
-``core/u32.py``) and a static position ``pos`` (0 or 1 in the GGM walk)
+Port of ``prf_v`` / ``prf_pair`` / ``prf_multi`` in
+``dpf_tpu/core/prf.py`` for PRF ids 0-5.  Each function maps a batch of
+128-bit seeds (trailing axis = 4 little-endian 32-bit limbs, int32
+tensors read as uint32, see ``core/u32.py``) and a static position
+``pos`` (0..3 in the GGM walk)
 to a batch of 128-bit outputs, bit-identical to ``core/prf_ref.py``.
 
 These are the plain versions the CUDA kernels are held against: the
@@ -240,12 +241,21 @@ def prf_v(method: int, seeds: torch.Tensor, pos: int) -> torch.Tensor:
     return PRF_V[method](seeds, pos)
 
 
-def prf_pair(method: int, seeds: torch.Tensor) -> tuple:
-    """Both children PRF(seed, 0), PRF(seed, 1): one shared key schedule
-    for AES, one core block for the block-PRG ids."""
+def prf_multi(method: int, seeds: torch.Tensor, arity: int) -> tuple:
+    """All ``arity`` children PRF(seed, 0..arity-1): one shared key
+    schedule for AES, one core block for the block-PRG ids (child ``b``
+    = block words [4b..4b+3]), one ``prf_v`` call per position
+    otherwise."""
     if method in _BLK_WORDS:
+        if arity > 4:
+            raise ValueError("a block-PRG core block yields 4 children")
         out = _BLK_WORDS[method](seeds, 0)
-        return _blk_group(out, 0), _blk_group(out, 4)
+        return tuple(_blk_group(out, 4 * b) for b in range(arity))
     if method == PRF_AES128:
-        return aes128_multi(seeds, (0, 1))
-    return prf_v(method, seeds, 0), prf_v(method, seeds, 1)
+        return aes128_multi(seeds, range(arity))
+    return tuple(prf_v(method, seeds, b) for b in range(arity))
+
+
+def prf_pair(method: int, seeds: torch.Tensor) -> tuple:
+    """Both children PRF(seed, 0), PRF(seed, 1)."""
+    return prf_multi(method, seeds, 2)

@@ -1,33 +1,46 @@
 // K2 subtree_contract: fused GGM subtree expansion + table contraction
 // for the stream-cipher PRFs (Salsa20-12, ChaCha20-12 and their block-PRG
-// ids 4/5).
+// ids 4/5), over a per-level arity schedule.
 //
-// Replaces the TPU kernel dpf_tpu/ops/pallas_level.py::
-// subtree_contract_pallas (binary schedule).  That kernel walks a grid
-// (key tile, frontier subtree) in order on one core, expands each
-// subtree breadth-first in VMEM and carries the [TB, E] sum from one
-// subtree to the next.  Blocks on the card run in no order, so here:
+// Replaces the TPU kernels dpf_tpu/ops/pallas_level.py::
+// subtree_contract_pallas (binary schedule) and
+// subtree_contract_pallas_mixed (radix-4 schedule: arities ars[f_lv:],
+// codeword slots at radix4.cw_offsets).  Those kernels walk a grid (key
+// tile, frontier subtree) in order on one core, expand each subtree
+// breadth-first in VMEM and carry the [TB, E] sum from one subtree to the
+// next.  Blocks on the card run in no order, so here:
 //
+//   * one kernel serves both trees: the caller passes each eval level's
+//     arity (2 or 4) and codeword slot (Sched); the binary tree's slots
+//     are the reversed wire layout 2 (depth-1-j) + b, a radix-4 tree's
+//     are its eval-order blocks cw_offsets(ars)[j] + b.  A block subtree
+//     of binary levels only takes an instance with the arity fixed at 2;
 //   * one block per (key, block subtree of CB <= 4096 leaves); the key
 //     index varies fastest, so blocks that run together read the same
 //     table rows and the table streams from L2, not device memory;
 //   * thread 0 walks from the frontier node down to the block's subtree
-//     root (one PRF child per level); with a frontier of one node per
-//     key (f_levels = 0) the kernel starts at the root, so no level of
-//     the tree is left to plain tensor code;
-//   * the block expands breadth-first in shared memory to 256 nodes, then
-//     each thread expands its node depth-first in registers (a stack of
-//     right siblings), as the upstream dpf_hybrid.cu does, and writes the
-//     low 32 bits of its leaves to shared memory;
-//   * the block multiplies the leaves by their (bit-reversed) table rows,
-//     reduces per column in shared memory, and atomically adds [E] into
-//     the zeroed [B, E] output.  int32 addition wraps mod 2^32 and is
-//     associative, so the order of the atomics changes no bit.
+//     root, one PRF child per level, taking the block index's mixed-radix
+//     digits most significant first (arities are powers of two, so each
+//     digit is a field of 1 or 2 bits); with a frontier of one node per
+//     key the kernel starts at the root, so no level of the tree is left
+//     to plain tensor code;
+//   * the block expands breadth-first in shared memory while the width
+//     stays <= 256 nodes (a product of the arities, so not always a power
+//     of 4), then each thread expands its node depth-first in registers
+//     and local memory (a stack of up to 3 right siblings per level), as
+//     the upstream dpf_hybrid.cu does, and writes the low 32 bits of its
+//     leaves to shared memory: leaf q of thread t lands at t (CB/W) + q,
+//     the digit-reversed (BFS) order the table was permuted into;
+//   * the block multiplies the leaves by their table rows, reduces per
+//     column in shared memory, and atomically adds [E] into the zeroed
+//     [B, E] output.  int32 addition wraps mod 2^32 and is associative,
+//     so the order of the atomics changes no bit.
 //
-// Bound on the H100: operations.  A binary level costs two 12-round core
-// blocks per parent (one for the block-PRG ids), ~600 32-bit operations
-// each, against a few bytes of input per key; the table (N x E x 4 bytes)
-// is read once per key but served from L2.
+// Bound on the H100: operations.  A parent of arity a costs a 12-round
+// core blocks (one for the block-PRG ids, whose block feeds all four
+// children), ~600 32-bit operations each, against a few bytes of input
+// per key; the table (N x E x 4 bytes) is read once per key but served
+// from L2.
 //
 // Cipher layouts (core/prf.py): ChaCha puts the seed in words 7..4 (limb
 // 0 in word 7) and the position in word 13, output words 7..4; Salsa puts
@@ -42,7 +55,29 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kLogThreads = 8;
 constexpr int kMaxLogBlockLeaves = 12;                 // CB <= 4096
-constexpr int kMaxDfs = kMaxLogBlockLeaves - kLogThreads;
+constexpr int kMaxLevels = 32;                         // N <= 2^32
+constexpr int kMaxSlots = 64;                          // codewords per key
+// Depth-first levels below the breadth-first width W: W stops growing
+// only once W * arity > 256, so W >= 128 and CB / W <= 32 leaves; an
+// all-binary block reaches W = 256, so CB / W <= 16.
+constexpr int kMaxDfs = 5;
+constexpr int kMaxDfsBinary = kMaxLogBlockLeaves - kLogThreads;
+
+// The arity schedule of one launch, built on the host, passed by value.
+// Eval level j (0 = the root's) has arity 1 << lg[j] and reads codeword
+// slots off[j] .. off[j] + arity - 1.
+struct Sched {
+  int levels;   // eval levels of the tree
+  int f_lv;     // level of the frontier nodes
+  int s_lv;     // level of the block subtrees' roots
+  int bfs_end;  // first level expanded depth-first
+  int log_s;    // log2 block subtrees per frontier node
+  int log_c;    // log2 leaves per frontier node
+  int log_cb;   // log2 leaves per block subtree (CB)
+  int log_w;    // log2 breadth-first width (W)
+  int lg[kMaxLevels];
+  int off[kMaxLevels];
+};
 
 constexpr uint32_t kSigma0 = 0x65787061u, kSigma1 = 0x6E642033u,
                    kSigma2 = 0x322D6279u, kSigma3 = 0x7465206Bu;
@@ -123,39 +158,22 @@ __device__ __forceinline__ void core_block(const uint32_t s[4], uint32_t pos,
   }
 }
 
-// PRF(seed, 0) and PRF(seed, 1) as little-endian limbs.
-template <int PRF>
-__device__ __forceinline__ void prf_children(const uint32_t s[4],
-                                             uint32_t v0[4], uint32_t v1[4]) {
-  uint32_t o[16];
-  if (PRF == 4 || PRF == 5) {
-    core_block<PRF>(s, 0u, o);
-    v0[0] = o[3]; v0[1] = o[2]; v0[2] = o[1]; v0[3] = o[0];
-    v1[0] = o[7]; v1[1] = o[6]; v1[2] = o[5]; v1[3] = o[4];
-  } else if (PRF == 2) {
-    chacha_block(s, 0u, o);
-    v0[0] = o[7]; v0[1] = o[6]; v0[2] = o[5]; v0[3] = o[4];
-    chacha_block(s, 1u, o);
-    v1[0] = o[7]; v1[1] = o[6]; v1[2] = o[5]; v1[3] = o[4];
-  } else {
-    salsa_block(s, 0u, o);
-    v0[0] = o[4]; v0[1] = o[3]; v0[2] = o[2]; v0[3] = o[1];
-    salsa_block(s, 1u, o);
-    v1[0] = o[4]; v1[1] = o[3]; v1[2] = o[2]; v1[3] = o[1];
-  }
-}
-
-// PRF(seed, br) for one branch br in {0, 1}.
+// PRF(seed, br) for one branch br in {0, 1, 2, 3}, as little-endian limbs.
 template <int PRF>
 __device__ __forceinline__ void prf_child(const uint32_t s[4], uint32_t br,
                                           uint32_t v[4]) {
   uint32_t o[16];
   if (PRF == 4 || PRF == 5) {
     core_block<PRF>(s, 0u, o);
-    v[0] = br ? o[7] : o[3];
-    v[1] = br ? o[6] : o[2];
-    v[2] = br ? o[5] : o[1];
-    v[3] = br ? o[4] : o[0];
+#pragma unroll
+    for (uint32_t g = 0; g < 4; ++g) {
+      if (g == br) {
+        v[0] = o[4 * g + 3];
+        v[1] = o[4 * g + 2];
+        v[2] = o[4 * g + 1];
+        v[3] = o[4 * g];
+      }
+    }
   } else if (PRF == 2) {
     chacha_block(s, br, o);
     v[0] = o[7]; v[1] = o[6]; v[2] = o[5]; v[3] = o[4];
@@ -165,29 +183,58 @@ __device__ __forceinline__ void prf_child(const uint32_t s[4], uint32_t br,
   }
 }
 
-// Both children of node s at the level whose codeword slots are
-// slot, slot+1 (flat level i: slot = 2i); codeword row by the seed's LSB.
-template <int PRF>
-__device__ __forceinline__ void expand_node(const uint32_t s[4],
-                                            const uint32_t* cw1s,
-                                            const uint32_t* cw2s, int slot,
-                                            uint32_t c0[4], uint32_t c1[4]) {
-  uint32_t v0[4], v1[4];
-  prf_children<PRF>(s, v0, v1);
-  const uint32_t* cw = (s[0] & 1u) ? cw2s : cw1s;
-  dpf::add128(c0, v0, cw + 4 * slot);
-  dpf::add128(c1, v1, cw + 4 * (slot + 1));
+// The a children of node s at the level whose codewords start at slot
+// off: kid[b] = PRF(s, b) + cw[lsb(s)][off + b] for b < a <= A.  The
+// block-PRG ids take all children from one core block, the others one
+// block each (both unrolled when A = 2, so kid stays in registers).
+template <int PRF, int A>
+__device__ __forceinline__ void expand_node(const uint32_t s[4], int a,
+                                            int off, const uint32_t* cw1s,
+                                            const uint32_t* cw2s,
+                                            uint32_t kid[A][4]) {
+  const uint32_t* cw = ((s[0] & 1u) ? cw2s : cw1s) + 4 * off;
+  if constexpr (PRF == 4 || PRF == 5) {
+    uint32_t o[16];
+    core_block<PRF>(s, 0u, o);
+#pragma unroll
+    for (int b = 0; b < A; ++b) {
+      const uint32_t v[4] = {o[4 * b + 3], o[4 * b + 2], o[4 * b + 1],
+                             o[4 * b]};
+      if (b < a) dpf::add128(kid[b], v, cw + 4 * b);
+    }
+  } else if constexpr (A == 2) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      uint32_t v[4];
+      prf_child<PRF>(s, (uint32_t)b, v);
+      dpf::add128(kid[b], v, cw + 4 * b);
+    }
+  } else {
+#pragma unroll 1
+    for (int b = 0; b < a; ++b) {
+      uint32_t v[4];
+      prf_child<PRF>(s, (uint32_t)b, v);
+      dpf::add128(kid[b], v, cw + 4 * b);
+    }
+  }
 }
 
-template <int PRF>
+// BIN: every level below the block subtrees' roots is binary (the whole
+// binary tree, and radix-4 trees of one binary level above the block), so
+// arities are the constant 2 there and the depth-first stack holds one
+// sibling per level.  Otherwise the children loops keep a run-time trip
+// count: unrolled with a guard they hold kid in registers, 48 instead of
+// 32 for the block-PRG ids, and fewer blocks fit on an SM.
+template <int PRF, bool BIN>
 __global__ void __launch_bounds__(kThreads)
     subtree_kernel(const uint32_t* __restrict__ frontier,
                    const uint32_t* __restrict__ cw1,
                    const uint32_t* __restrict__ cw2,
                    const int32_t* __restrict__ table,
-                   uint32_t* __restrict__ out, int batch, int f_cnt, int depth,
-                   int f_levels, int log_s, int log_cb, int e_total) {
-  __shared__ uint32_t cws[2][64 * 4];
+                   uint32_t* __restrict__ out, int batch, int f_cnt,
+                   int e_total, const Sched sc) {
+  constexpr int kA = BIN ? 2 : 4;                 // widest arity in the block
+  __shared__ uint32_t cws[2][kMaxSlots * 4];
   __shared__ uint32_t nodes[2][kThreads * 4];
   __shared__ uint32_t leaves[1 << kMaxLogBlockLeaves];
   __shared__ uint32_t red[kThreads];
@@ -196,95 +243,110 @@ __global__ void __launch_bounds__(kThreads)
   const long long blk = blockIdx.x;
   const int key = (int)(blk % batch);
   const long long sub = blk / batch;           // in [0, F << log_s)
-  const int f = (int)(sub >> log_s);
-  const long long s_idx = sub & ((1LL << log_s) - 1);
+  const int f = (int)(sub >> sc.log_s);
+  const long long s_idx = sub & ((1LL << sc.log_s) - 1);
 
-  for (int i = tid; i < 64 * 4; i += kThreads) {
-    cws[0][i] = cw1[(long long)key * 256 + i];
-    cws[1][i] = cw2[(long long)key * 256 + i];
+  for (int i = tid; i < kMaxSlots * 4; i += kThreads) {
+    cws[0][i] = cw1[(long long)key * kMaxSlots * 4 + i];
+    cws[1][i] = cw2[(long long)key * kMaxSlots * 4 + i];
   }
   __syncthreads();
 
-  // kernel level k (from the frontier) uses flat level depth-1-(f_levels+k)
-  // walk from the frontier node to this block's subtree root
+  // walk from the frontier node to this block's subtree root: the digit
+  // of level j is the next lg[j] bits of s_idx, most significant first
   if (tid == 0) {
     const uint32_t* fr = frontier + ((long long)key * f_cnt + f) * 4;
     uint32_t cur[4] = {fr[0], fr[1], fr[2], fr[3]};
-    for (int k = 0; k < log_s; ++k) {
-      const uint32_t br = (uint32_t)((s_idx >> (log_s - 1 - k)) & 1);
-      const int slot = 2 * (depth - 1 - (f_levels + k)) + (int)br;
+    int shift = sc.log_s;
+    for (int j = sc.f_lv; j < sc.s_lv; ++j) {
+      shift -= sc.lg[j];
+      const uint32_t br =
+          (uint32_t)(s_idx >> shift) & ((1u << sc.lg[j]) - 1u);
       uint32_t v[4];
       prf_child<PRF>(cur, br, v);
       const uint32_t* cw = (cur[0] & 1u) ? cws[1] : cws[0];
-      dpf::add128(cur, v, cw + 4 * slot);
+      dpf::add128(cur, v, cw + 4 * (sc.off[j] + (int)br));
     }
 #pragma unroll
     for (int l = 0; l < 4; ++l) nodes[0][l] = cur[l];
   }
   __syncthreads();
 
-  // breadth-first in shared memory down to W = min(CB, 256) nodes
-  const int lb = log_cb < kLogThreads ? log_cb : kLogThreads;
-  int k = log_s;
+  // breadth-first in shared memory down to W <= 256 nodes; child b of
+  // node t lands at a t + b
   int buf = 0;
-  for (int l = 0; l < lb; ++l, ++k) {
-    if (tid < (1 << l)) {
+  int w = 1;
+  for (int j = sc.s_lv; j < sc.bfs_end; ++j) {
+    const int a = BIN ? 2 : 1 << sc.lg[j];
+    if (tid < w) {
       const uint32_t* src = nodes[buf] + 4 * tid;
-      uint32_t s[4] = {src[0], src[1], src[2], src[3]};
-      uint32_t c0[4], c1[4];
-      expand_node<PRF>(s, cws[0], cws[1], 2 * (depth - 1 - (f_levels + k)),
-                       c0, c1);
-      uint32_t* dst = nodes[buf ^ 1] + 8 * tid;
+      const uint32_t s[4] = {src[0], src[1], src[2], src[3]};
+      uint32_t kid[kA][4];
+      expand_node<PRF, kA>(s, a, sc.off[j], cws[0], cws[1], kid);
+      uint32_t* dst = nodes[buf ^ 1] + 4 * a * tid;
+      for (int b = 0; b < a; ++b) {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        dst[q] = c0[q];
-        dst[4 + q] = c1[q];
+        for (int l = 0; l < 4; ++l) dst[4 * b + l] = kid[b][l];
       }
     }
+    w *= a;
     buf ^= 1;
     __syncthreads();
   }
 
-  // depth-first per thread: leaf q of node tid lands at tid * 2^m + q
-  const int m = log_cb - lb;
-  if (tid < (1 << lb)) {
+  // depth-first per thread over the m levels left: leaf q of node tid
+  // lands at tid * per + q, q's digits (last level least significant)
+  // naming the branch taken at each level
+  const int m = sc.levels - sc.bfs_end;
+  const int per = 1 << (sc.log_cb - sc.log_w);
+  if (tid < w) {
     const uint32_t* src = nodes[buf] + 4 * tid;
     uint32_t node[4] = {src[0], src[1], src[2], src[3]};
-    uint32_t sib[kMaxDfs > 0 ? kMaxDfs : 1][4];
-    uint32_t c0[4], c1[4];
-    for (int d = 0; d < m; ++d) {
-      expand_node<PRF>(node, cws[0], cws[1],
-                       2 * (depth - 1 - (f_levels + k + d)), c0, c1);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        sib[d][q] = c1[q];
-        node[q] = c0[q];
-      }
-    }
-    leaves[tid << m] = node[0];
-    for (int q = 1; q < (1 << m); ++q) {
-      // the lowest set bit of q is the level that turns right
-      const int d0 = m - __ffs(q);
-#pragma unroll
-      for (int l = 0; l < 4; ++l) node[l] = sib[d0][l];
-      for (int d = d0 + 1; d < m; ++d) {
-        expand_node<PRF>(node, cws[0], cws[1],
-                         2 * (depth - 1 - (f_levels + k + d)), c0, c1);
-#pragma unroll
-        for (int l = 0; l < 4; ++l) {
-          sib[d][l] = c1[l];
-          node[l] = c0[l];
+    uint32_t sib[BIN ? kMaxDfsBinary : kMaxDfs][kA - 1][4];
+    int d_start = 0;
+    for (int q = 0; q < per; ++q) {
+      if (q > 0) {
+        // the deepest level whose digit is not 0 turns right: resume from
+        // its stored sibling
+        int d0, dig;
+        if constexpr (BIN) {
+          d0 = m - __ffs(q);
+          dig = 1;
+        } else {
+          d0 = m - 1;
+          int rest = q;
+          dig = rest & ((1 << sc.lg[sc.bfs_end + d0]) - 1);
+          while (dig == 0) {
+            rest >>= sc.lg[sc.bfs_end + d0];
+            --d0;
+            dig = rest & ((1 << sc.lg[sc.bfs_end + d0]) - 1);
+          }
         }
+#pragma unroll
+        for (int l = 0; l < 4; ++l) node[l] = sib[d0][dig - 1][l];
+        d_start = d0 + 1;
       }
-      leaves[(tid << m) + q] = node[0];
+      for (int d = d_start; d < m; ++d) {
+        const int j = sc.bfs_end + d;
+        const int a = BIN ? 2 : 1 << sc.lg[j];
+        uint32_t kid[kA][4];
+        expand_node<PRF, kA>(node, a, sc.off[j], cws[0], cws[1], kid);
+        for (int b = 1; b < a; ++b) {
+#pragma unroll
+          for (int l = 0; l < 4; ++l) sib[d][b - 1][l] = kid[b][l];
+        }
+#pragma unroll
+        for (int l = 0; l < 4; ++l) node[l] = kid[0][l];
+      }
+      leaves[tid * per + q] = node[0];
     }
   }
   __syncthreads();
 
   // contract the CB leaves with table rows row0 .. row0 + CB - 1
-  const int cb = 1 << log_cb;
+  const int cb = 1 << sc.log_cb;
   const long long row0 =
-      ((long long)f << (depth - f_levels)) + (s_idx << log_cb);
+      ((long long)f << sc.log_c) + (s_idx << sc.log_cb);
   for (int e0 = 0; e0 < e_total; e0 += kThreads) {
     int ew = 1;  // lanes per table row: a power of two covering the columns
     while (ew < e_total - e0 && ew < kThreads) ew <<= 1;
@@ -306,27 +368,99 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Check a schedule and fill its split: the block subtrees are the last
+// log_cb bits of the levels, the breadth-first phase takes levels while
+// the width stays <= 256.  Sets bin if every level below the block root
+// is binary.  Returns false if an arity or slot is out of range, the
+// frontier does not match f_lv, the schedule does not split at log_cb or
+// it needs more depth-first levels than the kernel holds.
+bool split_schedule(Sched& sc, int f_cnt, int f_lv, int log_cb, bool& bin) {
+  if (sc.levels < 1 || sc.levels > kMaxLevels || f_lv < 0 ||
+      f_lv > sc.levels || log_cb < 0 || log_cb > kMaxLogBlockLeaves)
+    return false;
+  int f_bits = 0;
+  for (int j = 0; j < sc.levels; ++j) {
+    if (sc.lg[j] < 1 || sc.lg[j] > 2 || sc.off[j] < 0 ||
+        sc.off[j] + (1 << sc.lg[j]) > kMaxSlots)
+      return false;
+    if (j < f_lv) f_bits += sc.lg[j];
+  }
+  if (f_bits > 30 || f_cnt != 1 << f_bits) return false;
+  sc.f_lv = f_lv;
+  sc.log_cb = log_cb;
+  int j = sc.levels, bits = 0;
+  while (j > f_lv && bits < log_cb) bits += sc.lg[--j];
+  if (bits != log_cb) return false;
+  sc.s_lv = j;
+  sc.log_s = 0;
+  for (j = f_lv; j < sc.s_lv; ++j) sc.log_s += sc.lg[j];
+  sc.log_c = sc.log_s + log_cb;
+  sc.log_w = 0;
+  for (j = sc.s_lv; j < sc.levels && sc.log_w + sc.lg[j] <= kLogThreads; ++j)
+    sc.log_w += sc.lg[j];
+  sc.bfs_end = j;
+  bin = true;
+  for (j = sc.s_lv; j < sc.levels; ++j) bin = bin && sc.lg[j] == 1;
+  return sc.levels - sc.bfs_end <= (bin ? kMaxDfsBinary : kMaxDfs);
+}
+
+template <int P, bool BIN>
+void launch_kernel(dim3 grid, cudaStream_t st, const void* frontier,
+                   const void* cw1, const void* cw2, const void* table,
+                   void* out, int batch, int f_cnt, int e_total,
+                   const Sched& sc) {
+  subtree_kernel<P, BIN><<<grid, kThreads, 0, st>>>(
+      (const uint32_t*)frontier, (const uint32_t*)cw1, (const uint32_t*)cw2,
+      (const int32_t*)table, (uint32_t*)out, batch, f_cnt, e_total, sc);
+}
+
+template <int P>
+void launch_prf(bool bin, dim3 grid, cudaStream_t st, const void* frontier,
+                const void* cw1, const void* cw2, const void* table,
+                void* out, int batch, int f_cnt, int e_total,
+                const Sched& sc) {
+  if (bin) {
+    launch_kernel<P, true>(grid, st, frontier, cw1, cw2, table, out, batch,
+                           f_cnt, e_total, sc);
+  } else {
+    launch_kernel<P, false>(grid, st, frontier, cw1, cw2, table, out, batch,
+                            f_cnt, e_total, sc);
+  }
+}
+
 }  // namespace
 
-// frontier [B, F, 4], cw1/cw2 [B, 64, 4], table [N, E] (bit-reversed
-// rows), out [B, E] zeroed by the caller; N = 2^depth, F = 2^f_levels,
-// block subtrees of 2^log_cb leaves.  Returns the launch's cudaError_t.
-extern "C" int subtree_contract_launch(const void* frontier, const void* cw1,
-                                       const void* cw2, const void* table,
-                                       void* out, int batch, int f_cnt,
-                                       int depth, int f_levels, int log_cb,
-                                       int e_total, int prf, void* stream) {
-  const int log_s = depth - f_levels - log_cb;
-  if (batch <= 0 || log_s < 0 || log_cb > kMaxLogBlockLeaves || e_total <= 0)
+// One tree of `levels` eval levels: level j (0 = the root's) has arity
+// 1 << lg[j] (2 or 4) and reads codeword slots off[j] .. off[j] + arity - 1
+// of cw1/cw2 [B, 64, 4] (the binary tree's wire layout: off[j] =
+// 2 (levels-1-j); a radix-4 tree's: cw_offsets(ars)[j]).  frontier
+// [B, F, 4] holds the nodes at level f_lv (F = the product of the first
+// f_lv arities), table [N, E] rows in digit-reversed order, out [B, E]
+// zeroed by the caller, block subtrees of 2^log_cb leaves (a product of
+// trailing arities).  Returns the launch's cudaError_t.
+extern "C" int subtree_contract_launch(
+    const void* frontier, const void* cw1, const void* cw2, const void* table,
+    void* out, int batch, int f_cnt, int levels, const int* lg,
+    const int* off, int f_lv, int log_cb, int e_total, int prf,
+    void* stream) {
+  Sched sc{};
+  if (levels < 1 || levels > kMaxLevels) return (int)cudaErrorInvalidValue;
+  sc.levels = levels;
+  for (int j = 0; j < levels; ++j) {
+    sc.lg[j] = lg[j];
+    sc.off[j] = off[j];
+  }
+  bool bin = false;
+  if (batch <= 0 || e_total <= 0 ||
+      !split_schedule(sc, f_cnt, f_lv, log_cb, bin) || sc.log_s > 30)
     return (int)cudaErrorInvalidValue;
-  const long long blocks = ((long long)batch * f_cnt) << log_s;
+  const long long blocks = ((long long)batch * f_cnt) << sc.log_s;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks);
   cudaStream_t st = (cudaStream_t)stream;
-#define DPF_LAUNCH(P)                                                       \
-  subtree_kernel<P><<<grid, kThreads, 0, st>>>(                             \
-      (const uint32_t*)frontier, (const uint32_t*)cw1, (const uint32_t*)cw2, \
-      (const int32_t*)table, (uint32_t*)out, batch, f_cnt, depth, f_levels, \
-      log_s, log_cb, e_total)
+#define DPF_LAUNCH(P)                                                     \
+  launch_prf<P>(bin, grid, st, frontier, cw1, cw2, table, out, batch, f_cnt, \
+                e_total, sc)
   switch (prf) {
     case 1: DPF_LAUNCH(1); break;
     case 2: DPF_LAUNCH(2); break;

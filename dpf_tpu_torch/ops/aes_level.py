@@ -1,37 +1,45 @@
-"""One binary GGM level under AES-128: plain version and kernel K1.
+"""One GGM level of arity 2 or 4 under AES-128: plain version and K1.
 
-Port of ``dpf_tpu/ops/aes_planes.py::aes_level_step_pallas`` at arity 2:
+Port of ``dpf_tpu/ops/aes_planes.py::aes_level_step_pallas``:
 
-    child[2j+b] = AES_{seed_j}(b) + (lsb(seed_j) ? cw2[b] : cw1[b])  mod 2^128
+    child[a*j+b] = AES_{seed_j}(b) + (lsb(seed_j) ? cw2[b] : cw1[b])  mod 2^128
 
-seeds ``[B, w, 4]``, this level's codewords ``cw1_lvl``/``cw2_lvl``
-``[B, 2, 4]`` (branch, limb) -> children ``[B, 2w, 4]`` node-major, all
-int32 limb tensors read as uint32.  The TPU kernel bit-slices 32 keys
-into planes; the card's kernel (``csrc/aes_level.cu``) runs one thread
-per node with shared-memory T-tables and gives the same bits.
+for ``b < a``: seeds ``[B, w, 4]``, this level's codewords
+``cw1_lvl``/``cw2_lvl`` ``[B, a, 4]`` (branch, limb) -> children
+``[B, a*w, 4]`` node-major, all int32 limb tensors read as uint32.
+Arity 2 serves the binary tree and the binary base level of a radix-4
+tree at odd depth, arity 4 the radix-4 levels.  The TPU kernel
+bit-slices 32 keys into planes; the card's kernel
+(``csrc/aes_level.cu``) runs one thread per node with shared-memory
+T-tables and gives the same bits.
 
 * ``aes_level_step_plain`` -- the plain version (gather-S-box AES,
   ``core/prf.py``), used for CPU tensors and as the kernel's oracle.
 * ``aes_level_step`` -- the wrapper: CUDA tensors launch K1, CPU
-  tensors take the plain version.  Arity 4 comes with radix-4.
+  tensors take the plain version.  It counts arity-2 launches in
+  ``launches`` and arity-4 launches in ``launches_a4``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..core.expand import _level_step_pair
+from ..core.expand import _level_step_multi
 from ..core.prf_ref import PRF_AES128
 from . import cuda_build
 
 
 def aes_level_step_plain(seeds: torch.Tensor, cw1_lvl: torch.Tensor,
-                         cw2_lvl: torch.Tensor) -> torch.Tensor:
-    """[B, w, 4] seeds, [B, 2, 4] codewords -> [B, 2w, 4] children."""
-    return _level_step_pair(seeds, cw1_lvl, cw2_lvl, PRF_AES128)
+                         cw2_lvl: torch.Tensor,
+                         arity: int = 2) -> torch.Tensor:
+    """[B, w, 4] seeds, [B, a, 4] codewords -> [B, a*w, 4] children."""
+    return _level_step_multi(seeds, cw1_lvl, cw2_lvl, PRF_AES128, arity)
 
 
-def _check(seeds, cw1_lvl, cw2_lvl) -> None:
+def _check(seeds, cw1_lvl, cw2_lvl, arity) -> None:
+    if arity not in (2, 4):
+        raise ValueError("aes_level_step: arity must be 2 or 4, got %r"
+                         % (arity,))
     for t in (seeds, cw1_lvl, cw2_lvl):
         if t.dtype != torch.int32:
             raise TypeError("aes_level_step takes int32 limb tensors")
@@ -41,9 +49,9 @@ def _check(seeds, cw1_lvl, cw2_lvl) -> None:
         raise ValueError("seeds must be [B, w, 4], got %s"
                          % (tuple(seeds.shape),))
     for cw in (cw1_lvl, cw2_lvl):
-        if tuple(cw.shape) != (seeds.shape[0], 2, 4):
-            raise ValueError("level codewords must be [B, 2, 4], got %s"
-                             % (tuple(cw.shape),))
+        if tuple(cw.shape) != (seeds.shape[0], arity, 4):
+            raise ValueError("level codewords must be [B, %d, 4], got %s"
+                             % (arity, tuple(cw.shape)))
     # the kernel's layout, checked on every device so CPU runs catch it
     if not seeds.is_contiguous():
         raise ValueError("aes_level_step: seeds must be contiguous")
@@ -53,23 +61,29 @@ def _check(seeds, cw1_lvl, cw2_lvl) -> None:
 
 
 def aes_level_step(seeds: torch.Tensor, cw1_lvl: torch.Tensor,
-                   cw2_lvl: torch.Tensor) -> torch.Tensor:
+                   cw2_lvl: torch.Tensor, arity: int = 2) -> torch.Tensor:
     """One AES-128 GGM level; K1 on CUDA tensors, plain on CPU ones."""
-    _check(seeds, cw1_lvl, cw2_lvl)
+    _check(seeds, cw1_lvl, cw2_lvl, arity)
     if seeds.device.type == "cpu":
-        return aes_level_step_plain(seeds, cw1_lvl, cw2_lvl)
+        return aes_level_step_plain(seeds, cw1_lvl, cw2_lvl, arity)
     if seeds.device.type != "cuda":
         raise ValueError("aes_level_step: unsupported device %s"
                          % seeds.device)
     bsz, w, _ = seeds.shape
-    out = torch.empty((bsz, 2 * w, 4), dtype=torch.int32, device=seeds.device)
+    out = torch.empty((bsz, arity * w, 4), dtype=torch.int32,
+                      device=seeds.device)
     with torch.cuda.device(seeds.device):
         cuda_build.launch(
             "aes_level", "aes_level_launch", seeds.data_ptr(),
             cw1_lvl.data_ptr(), cw2_lvl.data_ptr(), cw1_lvl.stride(0),
-            out.data_ptr(), bsz, w, torch.cuda.current_stream().cuda_stream)
-    aes_level_step.launches += 1
+            out.data_ptr(), bsz, w, arity,
+            torch.cuda.current_stream().cuda_stream)
+    if arity == 4:
+        aes_level_step.launches_a4 += 1
+    else:
+        aes_level_step.launches += 1
     return out
 
 
-aes_level_step.launches = 0
+aes_level_step.launches = 0      # arity-2 launches
+aes_level_step.launches_a4 = 0   # arity-4 launches

@@ -33,12 +33,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_IP = ctypes.POINTER(ctypes.c_int)
 
 # source stem -> (C entry -> argtypes, error-string entry)
 SOURCES = {
-    "aes_level": ({"aes_level_launch": [_P, _P, _P, _LL, _P, _LL, _LL, _P]},
+    "aes_level": ({"aes_level_launch": [_P, _P, _P, _LL, _P, _LL, _LL, _I,
+                                        _P]},
                   "aes_level_error_string"),
-    "subtree": ({"subtree_contract_launch": [_P] * 5 + [_I] * 7 + [_P]},
+    "subtree": ({"subtree_contract_launch": [_P] * 5 + [_I] * 3
+                 + [_IP] * 2 + [_I] * 4 + [_P]},
                 "subtree_contract_error_string"),
     "contract": ({"contract_i32_launch": [_P, _LL, _LL, _P, _P, _LL, _LL,
                                           _I, _I, _P]},

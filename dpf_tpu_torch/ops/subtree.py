@@ -1,8 +1,12 @@
-"""Fused GGM subtree expansion + table contraction: plain version and K2.
+"""Fused GGM subtree expansion + table contraction: plain versions and K2.
 
 Port of ``dpf_tpu/ops/pallas_level.py::subtree_contract_pallas``
-(binary schedule) for the stream-cipher PRFs: Salsa20-12, ChaCha20-12
-and the block-PRG ids 4/5.
+(binary schedule) and ``subtree_contract_pallas_mixed`` (radix-4
+schedule) for the stream-cipher PRFs: Salsa20-12, ChaCha20-12 and the
+block-PRG ids 4/5.  Both trees are a schedule of (arity, first codeword
+slot) per eval level, taken by one plain engine (``_contract_plain``) and
+by the one CUDA kernel (``csrc/subtree.cu``); each entry point counts its
+own launches.
 
 frontier ``[B, F, 4]`` (the seeds of the F = 2^f_levels nodes at level
 ``f_levels``), the full codeword arrays ``cw1``/``cw2`` ``[B, 64, 4]``
@@ -10,18 +14,28 @@ and the bit-reversed table ``[N, E]`` -> ``[B, E]`` int32 shares:
 ``sum_f leaves(f) . table[f*C:(f+1)*C]`` mod 2^32 with C = N/F.
 
 * ``subtree_contract_plain`` -- the plain version: level steps in
-  groups of frontier nodes, then the plain product.
+  groups of block subtrees, then the plain product.
 * ``subtree_contract`` -- the wrapper: CUDA tensors launch K2
   (``csrc/subtree.cu``), CPU tensors take the plain version.
   ``block_leaves`` (<= 4096) is the kernel's tile: the leaves one block
   expands and contracts; it does not change a bit of the result.
+* ``subtree_contract_mixed`` / ``subtree_contract_mixed_plain`` -- the
+  same over a radix-4 tree of eval-order arities ``ars``: the frontier
+  holds the nodes at eval level ``f_lv``, codewords sit at
+  ``radix4.cw_offsets(ars)`` and the table is digit-reversed
+  (``radix4.mixed_reverse_indices``).  ``block_leaves`` must be a product
+  of trailing arities.
 """
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
-from ..core.expand import SUBTREE_PRFS, _level_step, choose_group
+from ..core.expand import SUBTREE_PRFS, _level_step_multi, choose_group
+from ..core.radix4 import _suffix_chunk, cw_offsets
 from . import cuda_build
 from .matmul128 import dot_i32_plain
 
@@ -43,7 +57,8 @@ def _log2(x: int, what: str) -> int:
     return x.bit_length() - 1
 
 
-def _shapes(frontier, cw1, cw2, table_perm, depth, f_levels, prf_method):
+def _operands(frontier, cw1, cw2, table_perm, prf_method):
+    """Checks shared by both schedules -> (B, F, N, E)."""
     if prf_method not in SUBTREE_PRFS:
         raise ValueError("subtree_contract serves PRF ids %s, got %r"
                          % (SUBTREE_PRFS, prf_method))
@@ -53,15 +68,19 @@ def _shapes(frontier, cw1, cw2, table_perm, depth, f_levels, prf_method):
         if t.device != frontier.device:
             raise ValueError("subtree_contract operands on different devices")
     bsz, f_cnt, _ = frontier.shape
-    n, e = table_perm.shape
-    if n != 1 << depth or f_cnt != 1 << f_levels or f_levels > depth:
-        raise ValueError("table of %d rows and frontier of %d nodes do not "
-                         "match depth %d, f_levels %d"
-                         % (n, f_cnt, depth, f_levels))
     for cw in (cw1, cw2):
         if tuple(cw.shape) != (bsz, 64, 4):
             raise ValueError("codewords must be [B, 64, 4], got %s"
                              % (tuple(cw.shape),))
+    return (bsz, f_cnt) + tuple(table_perm.shape)
+
+
+def _shapes(frontier, cw1, cw2, table_perm, depth, f_levels, prf_method):
+    bsz, f_cnt, n, e = _operands(frontier, cw1, cw2, table_perm, prf_method)
+    if n != 1 << depth or f_cnt != 1 << f_levels or f_levels > depth:
+        raise ValueError("table of %d rows and frontier of %d nodes do not "
+                         "match depth %d, f_levels %d"
+                         % (n, f_cnt, depth, f_levels))
     return bsz, f_cnt, n, e
 
 
@@ -72,30 +91,82 @@ def _check_layout(*tensors) -> None:
             raise ValueError("subtree_contract: operands must be contiguous")
 
 
-def subtree_contract_plain(frontier, cw1, cw2, table_perm, *, depth: int,
-                           f_levels: int, prf_method: int,
-                           block_leaves: int | None = None) -> torch.Tensor:
-    """Plain PyTorch: expand every frontier subtree with plain level steps,
-    a group of subtrees at a time, and contract the low limbs."""
+def _binary_schedule(depth: int) -> list:
+    """(arity, first codeword slot) per eval level of the binary tree:
+    the wire layout stores level j's pair at slot 2 (depth-1-j)."""
+    return [(2, 2 * (depth - 1 - j)) for j in range(depth)]
+
+
+def _binary_split(frontier, cw1, cw2, table_perm, depth, f_levels,
+                  prf_method, block_leaves):
+    """Checks of the binary schedule -> (B, E, s_lv, CB): block subtrees
+    of CB leaves hang from eval level s_lv."""
     bsz, f_cnt, n, e = _shapes(frontier, cw1, cw2, table_perm, depth,
                                f_levels, prf_method)
     c = n // f_cnt
-    cb = min(block_leaves or subtree_chunk_leaves(c), c)
-    split = f_levels + _log2(c // cb, "leaves per frontier node / "
-                             "block_leaves")
+    cb = min(block_leaves or subtree_chunk_leaves(c), c, MAX_BLOCK_LEAVES)
+    _log2(cb, "block_leaves")
+    return bsz, e, f_levels + _log2(c // cb, "leaves per frontier node / "
+                                    "block_leaves"), cb
+
+
+def _contract_plain(frontier, cw1, cw2, table_perm, sched, f_lv, s_lv, cb,
+                    prf_method) -> torch.Tensor:
+    """The plain engine of both trees: walk the frontier to the block
+    subtrees' roots with plain level steps of the (arity, offset)
+    schedule, expand a group of block subtrees at a time, and contract
+    the low limbs."""
+    def level(s, j):
+        a, o = sched[j]
+        return _level_step_multi(s, cw1[:, o:o + a], cw2[:, o:o + a],
+                                 prf_method, a)
+
     seeds = frontier
-    for lv in range(f_levels, split):
-        seeds = _level_step(seeds, cw1, cw2, depth - 1 - lv, prf_method)
-    nodes = n // cb
+    for j in range(f_lv, s_lv):
+        seeds = level(seeds, j)
+    nodes = table_perm.shape[0] // cb
     g = choose_group(nodes, cb)
-    acc = torch.zeros((bsz, e), dtype=torch.int32, device=frontier.device)
+    acc = torch.zeros((frontier.shape[0], table_perm.shape[1]),
+                      dtype=torch.int32, device=frontier.device)
     for start in range(0, nodes, g):
         s = seeds[:, start:start + g, :]
-        for lv in range(split, depth):
-            s = _level_step(s, cw1, cw2, depth - 1 - lv, prf_method)
+        for j in range(s_lv, len(sched)):
+            s = level(s, j)
         acc = acc + dot_i32_plain(s[..., 0],
                                   table_perm[start * cb:(start + g) * cb])
     return acc
+
+
+def _contract_cuda(frontier, cw1, cw2, table_perm, sched, f_lv, cb,
+                   prf_method) -> torch.Tensor:
+    """Launch K2 over the (arity, offset) schedule -> [B, E] int32."""
+    if frontier.device.type != "cuda":
+        raise ValueError("subtree_contract: unsupported device %s"
+                         % frontier.device)
+    levels = len(sched)
+    lg = (ctypes.c_int * levels)(*(a.bit_length() - 1 for a, _ in sched))
+    off = (ctypes.c_int * levels)(*(o for _, o in sched))
+    bsz, e = frontier.shape[0], table_perm.shape[1]
+    out = torch.zeros((bsz, e), dtype=torch.int32, device=frontier.device)
+    with torch.cuda.device(frontier.device):
+        cuda_build.launch(
+            "subtree", "subtree_contract_launch", frontier.data_ptr(),
+            cw1.data_ptr(), cw2.data_ptr(), table_perm.data_ptr(),
+            out.data_ptr(), bsz, frontier.shape[1], levels, lg, off, f_lv,
+            cb.bit_length() - 1, e, prf_method,
+            torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+def subtree_contract_plain(frontier, cw1, cw2, table_perm, *, depth: int,
+                           f_levels: int, prf_method: int,
+                           block_leaves: int | None = None) -> torch.Tensor:
+    """Plain PyTorch over the binary tree (``_contract_plain``)."""
+    _, _, s_lv, cb = _binary_split(frontier, cw1, cw2, table_perm, depth,
+                                   f_levels, prf_method, block_leaves)
+    return _contract_plain(frontier, cw1, cw2, table_perm,
+                           _binary_schedule(depth), f_levels, s_lv, cb,
+                           prf_method)
 
 
 def subtree_contract(frontier, cw1, cw2, table_perm, *, depth: int,
@@ -103,29 +174,75 @@ def subtree_contract(frontier, cw1, cw2, table_perm, *, depth: int,
                      block_leaves: int | None = None) -> torch.Tensor:
     """Fused subtree expand + contract; K2 on CUDA tensors, plain on CPU
     ones.  Returns [B, E] int32."""
-    bsz, f_cnt, n, e = _shapes(frontier, cw1, cw2, table_perm, depth,
-                               f_levels, prf_method)
+    _, _, s_lv, cb = _binary_split(frontier, cw1, cw2, table_perm, depth,
+                                   f_levels, prf_method, block_leaves)
     _check_layout(frontier, cw1, cw2, table_perm)
+    sched = _binary_schedule(depth)
     if frontier.device.type == "cpu":
-        return subtree_contract_plain(
-            frontier, cw1, cw2, table_perm, depth=depth, f_levels=f_levels,
-            prf_method=prf_method, block_leaves=block_leaves)
-    if frontier.device.type != "cuda":
-        raise ValueError("subtree_contract: unsupported device %s"
-                         % frontier.device)
-    c = n // f_cnt
-    cb = min(block_leaves or subtree_chunk_leaves(c), c,
-             MAX_BLOCK_LEAVES)
-    log_cb = _log2(cb, "block_leaves")
-    out = torch.zeros((bsz, e), dtype=torch.int32, device=frontier.device)
-    with torch.cuda.device(frontier.device):
-        cuda_build.launch(
-            "subtree", "subtree_contract_launch", frontier.data_ptr(),
-            cw1.data_ptr(), cw2.data_ptr(), table_perm.data_ptr(),
-            out.data_ptr(), bsz, f_cnt, depth, f_levels, log_cb, e,
-            prf_method, torch.cuda.current_stream().cuda_stream)
+        return _contract_plain(frontier, cw1, cw2, table_perm, sched,
+                               f_levels, s_lv, cb, prf_method)
+    out = _contract_cuda(frontier, cw1, cw2, table_perm, sched, f_levels,
+                         cb, prf_method)
     subtree_contract.launches += 1
     return out
 
 
 subtree_contract.launches = 0
+
+
+def _mixed_split(frontier, cw1, cw2, table_perm, ars, f_lv, prf_method,
+                 block_leaves):
+    """Checks of the radix-4 schedule -> (B, E, s_lv, CB): block subtrees
+    of CB leaves hang from eval level s_lv."""
+    bsz, f_cnt, n, e = _operands(frontier, cw1, cw2, table_perm, prf_method)
+    ars = tuple(ars)
+    if any(a not in (2, 4) for a in ars) or not 0 <= f_lv < len(ars):
+        raise ValueError("arities %r with f_lv %d: need arities of 2 or 4 "
+                         "and f_lv below their count" % (ars, f_lv))
+    if n != int(np.prod(ars)) or f_cnt != int(np.prod(ars[:f_lv])):
+        raise ValueError("table of %d rows and frontier of %d nodes do not "
+                         "match arities %r, f_lv %d" % (n, f_cnt, ars, f_lv))
+    if sum(ars) > 64:
+        raise ValueError("arities %r need more than 64 codeword slots"
+                         % (ars,))
+    target = MAX_BLOCK_LEAVES if block_leaves is None else block_leaves
+    j, cb = _suffix_chunk(ars[f_lv:], target)
+    if (block_leaves is not None and cb != block_leaves) or \
+            cb > MAX_BLOCK_LEAVES:
+        raise ValueError("block_leaves (%d) must be a product of trailing "
+                         "arities %r, at most %d"
+                         % (target, ars[f_lv:], MAX_BLOCK_LEAVES))
+    return bsz, e, f_lv + j, cb
+
+
+def subtree_contract_mixed_plain(frontier, cw1, cw2, table_perm, *, ars,
+                                 f_lv: int, prf_method: int,
+                                 block_leaves: int | None = None
+                                 ) -> torch.Tensor:
+    """Plain PyTorch over the radix-4 tree (``_contract_plain``)."""
+    _, _, s_lv, cb = _mixed_split(frontier, cw1, cw2, table_perm, ars, f_lv,
+                                  prf_method, block_leaves)
+    return _contract_plain(frontier, cw1, cw2, table_perm,
+                           list(zip(ars, cw_offsets(ars))), f_lv, s_lv, cb,
+                           prf_method)
+
+
+def subtree_contract_mixed(frontier, cw1, cw2, table_perm, *, ars,
+                           f_lv: int, prf_method: int,
+                           block_leaves: int | None = None) -> torch.Tensor:
+    """Fused radix-4 subtree expand + contract; K2 on CUDA tensors, plain
+    on CPU ones.  Returns [B, E] int32."""
+    _, _, s_lv, cb = _mixed_split(frontier, cw1, cw2, table_perm, ars, f_lv,
+                                  prf_method, block_leaves)
+    _check_layout(frontier, cw1, cw2, table_perm)
+    sched = list(zip(ars, cw_offsets(ars)))
+    if frontier.device.type == "cpu":
+        return _contract_plain(frontier, cw1, cw2, table_perm, sched, f_lv,
+                               s_lv, cb, prf_method)
+    out = _contract_cuda(frontier, cw1, cw2, table_perm, sched, f_lv, cb,
+                         prf_method)
+    subtree_contract_mixed.launches += 1
+    return out
+
+
+subtree_contract_mixed.launches = 0

@@ -21,7 +21,7 @@ def _sync(device: torch.device) -> None:
 
 def test_dpf_perf(N=16384, batch=512, entrysize=16, prf=None, reps=10,
                   keys_distinct=None, quiet=False, check=False,
-                  device=None):
+                  config=None, device=None):
     """Measure batched eval throughput; returns the result dict.
 
     ``keys_distinct`` distinct key pairs (default: ``batch``) are minted
@@ -30,10 +30,12 @@ def test_dpf_perf(N=16384, batch=512, entrysize=16, prf=None, reps=10,
 
     check=True recovers every row of the tiled batch from both servers'
     shares before timing and raises unless each equals its table row.
+    ``config``: an ``EvalConfig`` (e.g. ``EvalConfig(radix=4)``); ``prf``
+    wins over its ``prf_method``.
     """
     from ..api import DPF
 
-    dpf = DPF(prf=prf, device=device)
+    dpf = DPF(prf=prf, config=config, device=device)
     if keys_distinct is None:
         keys_distinct = batch
     # odd multiplier is bijective mod the pow2 table size: indices are
@@ -68,6 +70,7 @@ def test_dpf_perf(N=16384, batch=512, entrysize=16, prf=None, reps=10,
         "batch_size": batch,
         "entry_size": entrysize,
         "prf": dpf.prf_method_string,
+        "radix": dpf.radix,
         "device": (torch.cuda.get_device_name(dpf.device)
                    if dpf.device.type == "cuda" else "cpu"),
         "keys_distinct": keys_distinct,

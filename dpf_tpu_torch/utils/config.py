@@ -1,10 +1,11 @@
 """Runtime evaluation config.
 
 Port of the ``dpf_tpu/utils/config.py`` ``EvalConfig`` fields this
-package reads: ``prf_method`` and ``batch_size``.  ``radix`` and
-``scheme`` are accepted so that configs written for the JAX package
-construct here, and ``DPF`` rejects every value but the binary log-N
-construction until radix-4 and sqrt-N are ported.
+package reads: ``prf_method``, ``batch_size`` and ``radix`` (2, the
+binary tree, or 4, the radix-4 tree).  ``scheme`` is accepted so that
+configs written for the JAX package construct here, and ``DPF`` rejects
+every value but ``"logn"`` until sqrt-N and the tuning cache are
+ported.
 """
 
 from __future__ import annotations
@@ -18,5 +19,5 @@ class EvalConfig:
     prf_method: int = 3   # PRF_AES128; 0..3 = reference ids, 4/5 = the
     #                       Salsa20/ChaCha20 block-PRG variants
     batch_size: int = 512  # keys per device dispatch (reference parity)
-    radix: int = 2         # only 2 is served (radix-4: ROADMAP Queue 1 item 8)
+    radix: int = 2         # 2 = reference-wire binary GGM, 4 = radix-4
     scheme: str = "logn"   # only "logn" is served (sqrt-N: Queue 1 item 9)

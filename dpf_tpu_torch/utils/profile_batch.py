@@ -22,8 +22,11 @@ import time
 import numpy as np
 import torch
 
-CONFIGS = (  # (prf id, N): the full-width and headline configurations
-    (3, 1 << 20), (2, 1 << 20), (3, 1 << 16))
+# (prf id, N, radix): the full-width and headline configurations, and
+# the stream ciphers in both trees
+CONFIGS = (
+    (3, 1 << 20, 2), (2, 1 << 20, 2), (3, 1 << 16, 2), (5, 1 << 20, 2),
+    (3, 1 << 20, 4), (2, 1 << 20, 4), (5, 1 << 20, 4))
 
 
 def _device_us(evt) -> float:
@@ -34,10 +37,11 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_config(prf: int, n: int, batch: int = 512, entry: int = 16,
-                   distinct: int = 16) -> dict:
+def profile_config(prf: int, n: int, radix: int = 2, batch: int = 512,
+                   entry: int = 16, distinct: int = 16) -> dict:
     from ..api import DPF
-    dpf = DPF(prf=prf)
+    from .config import EvalConfig
+    dpf = DPF(prf=prf, config=EvalConfig(radix=radix))
     table = np.random.default_rng(1).integers(0, 2 ** 31, (n, entry),
                                               dtype=np.int32)
     dpf.eval_init(table)
@@ -61,7 +65,8 @@ def profile_config(prf: int, n: int, batch: int = 512, entry: int = 16,
             kernels[evt.key] = {"ms": us / 1e3, "count": evt.count}
     device_ms = sum(k["ms"] for k in kernels.values())
     return {
-        "prf": dpf.prf_method_string, "N": n, "E": entry, "B": batch,
+        "prf": dpf.prf_method_string, "radix": radix, "N": n, "E": entry,
+        "B": batch,
         "wall_ms": wall_ms,
         "device_ms": device_ms if kernels else None,
         "busy_share": device_ms / wall_ms if kernels else None,
@@ -78,8 +83,8 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    for prf, n in CONFIGS:
-        print(json.dumps(profile_config(prf, n)), flush=True)
+    for prf, n, radix in CONFIGS:
+        print(json.dumps(profile_config(prf, n, radix)), flush=True)
     print(smi)
 
 

@@ -154,8 +154,10 @@ def test_more_keys_than_batch_size():
 def test_unported_constructions_raise():
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         dpf_tpu_torch.DPF(scheme="sqrtn", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        dpf_tpu_torch.DPF(config=EvalConfig(radix=4), device="cpu")
+    radix4 = dpf_tpu_torch.DPF(config=EvalConfig(radix=4), device="cpu")
+    assert radix4.radix == 4 and radix4.prf_method == dpf_tpu_torch.PRF_AES128
+    with pytest.raises(ValueError, match="radix"):
+        dpf_tpu_torch.DPF(config=EvalConfig(radix=8), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
         dpf_tpu_torch.DPF(scheme="auto", device="cpu")
     with pytest.raises(ValueError):

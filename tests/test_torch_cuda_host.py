@@ -106,7 +106,7 @@ def _host_source(src: str) -> str:
         i = src.find("<<<", pos)
         if i < 0:
             return "".join(out) + src[pos:]
-        start = pos + re.search(r"([A-Za-z_]\w*(?:<\w+>)?)$",
+        start = pos + re.search(r"([A-Za-z_]\w*(?:<[\w, ]+>)?)$",
                                 src[pos:i]).start(1)
         j = src.index(">>>", i)
         cfg = [c.strip() for c in src[i + 3:j].split(",")]
@@ -156,17 +156,26 @@ def _rnd(rng, *shape):
                                          dtype=np.int64).astype(np.int32))
 
 
+@pytest.mark.parametrize("arity", [2, 4])
 @pytest.mark.parametrize("bsz,w", [(1, 1), (3, 5), (2, 300)])
-def test_aes_level_kernel_on_host(host_libs, bsz, w):
+def test_aes_level_kernel_on_host(host_libs, bsz, w, arity):
     rng = np.random.default_rng(bsz * 1000 + w)
     seeds, cw1, cw2 = _rnd(rng, bsz, w, 4), _rnd(rng, bsz, 64, 4), \
         _rnd(rng, bsz, 64, 4)
-    c1, c2 = cw1[:, 14:16], cw2[:, 14:16]
-    out = torch.empty(bsz, 2 * w, 4, dtype=torch.int32)
+    c1, c2 = cw1[:, 14:14 + arity], cw2[:, 14:14 + arity]
+    out = torch.empty(bsz, arity * w, 4, dtype=torch.int32)
     assert host_libs["aes_level"].aes_level_launch(
         seeds.data_ptr(), c1.data_ptr(), c2.data_ptr(), c1.stride(0),
-        out.data_ptr(), bsz, w, None) == 0
-    assert torch.equal(out, aes_level.aes_level_step_plain(seeds, c1, c2))
+        out.data_ptr(), bsz, w, arity, None) == 0
+    assert torch.equal(out, aes_level.aes_level_step_plain(seeds, c1, c2,
+                                                           arity))
+
+
+def test_aes_level_kernel_on_host_rejects_bad_arity(host_libs):
+    z = torch.zeros(1, 4, 4, dtype=torch.int32)
+    assert host_libs["aes_level"].aes_level_launch(
+        z.data_ptr(), z.data_ptr(), z.data_ptr(), 16, z.data_ptr(), 1, 1, 3,
+        None) != 0
 
 
 @pytest.mark.parametrize("bsz,k,e,inc", [(1, 7, 1, 1), (3, 300, 3, 1),
@@ -181,6 +190,17 @@ def test_contract_kernel_on_host(host_libs, bsz, k, e, inc):
         a.data_ptr(), a.stride(0), a.stride(1), t.data_ptr(), out.data_ptr(),
         bsz, k, e, 4, None) == 0
     assert torch.equal(out, matmul128.dot_i32_plain(a, t))
+
+
+def _subtree_launch(lib, fr, cw1, cw2, tbl, out, sched, f_lv, log_cb,
+                    method):
+    """Call K2's C entry with a schedule of (arity, first slot) pairs."""
+    lg = (ctypes.c_int * len(sched))(*(a.bit_length() - 1 for a, _ in sched))
+    off = (ctypes.c_int * len(sched))(*(o for _, o in sched))
+    return lib.subtree_contract_launch(
+        fr.data_ptr(), cw1.data_ptr(), cw2.data_ptr(), tbl.data_ptr(),
+        out.data_ptr(), out.shape[0], fr.shape[1], len(sched), lg, off,
+        f_lv, log_cb, out.shape[1], method, None)
 
 
 @pytest.mark.parametrize("method", subtree.SUBTREE_PRFS)
@@ -198,10 +218,9 @@ def test_subtree_kernel_on_host(host_libs, method, bsz, depth, f_levels, cb,
     cw1, cw2, tbl = _rnd(rng, bsz, 64, 4), _rnd(rng, bsz, 64, 4), \
         _rnd(rng, n, e)
     out = torch.zeros(bsz, e, dtype=torch.int32)
-    assert host_libs["subtree"].subtree_contract_launch(
-        fr.data_ptr(), cw1.data_ptr(), cw2.data_ptr(), tbl.data_ptr(),
-        out.data_ptr(), bsz, 1 << f_levels, depth, f_levels,
-        cb.bit_length() - 1, e, method, None) == 0
+    assert _subtree_launch(host_libs["subtree"], fr, cw1, cw2, tbl, out,
+                           subtree._binary_schedule(depth), f_levels,
+                           cb.bit_length() - 1, method) == 0
     assert torch.equal(out, subtree.subtree_contract_plain(
         fr, cw1, cw2, tbl, depth=depth, f_levels=f_levels,
         prf_method=method))
@@ -209,6 +228,48 @@ def test_subtree_kernel_on_host(host_libs, method, bsz, depth, f_levels, cb,
 
 def test_subtree_kernel_on_host_rejects_bad_prf(host_libs):
     z = torch.zeros(1, 64, 4, dtype=torch.int32)
-    assert host_libs["subtree"].subtree_contract_launch(
-        z.data_ptr(), z.data_ptr(), z.data_ptr(), z.data_ptr(), z.data_ptr(),
-        1, 1, 7, 0, 7, 1, 3, None) != 0
+    assert _subtree_launch(host_libs["subtree"], z[:, :1], z, z, z, z[:, 0],
+                           subtree._binary_schedule(7), 0, 7, 3) != 0
+
+
+@pytest.mark.parametrize("method", subtree.SUBTREE_PRFS)
+@pytest.mark.parametrize("bsz,depth,f_lv,cb,e", [
+    (2, 11, 0, 2048, 3),     # odd depth, one block covers the binary level
+    (3, 9, 1, 64, 16),       # odd depth, frontier below the binary level
+    (2, 7, 0, 4, 5),         # walk through the binary level, BFS only
+    (2, 8, 0, 16, 2),        # even depth, two-level path walk
+    (1, 10, 2, 64, 1),       # frontier of 16, no path walk
+    (1, 12, 0, 4096, 4),     # BFS to 256 nodes, then depth-first
+])
+def test_subtree_mixed_kernel_on_host(host_libs, method, bsz, depth, f_lv,
+                                      cb, e):
+    from dpf_tpu_torch.core import radix4
+    rng = np.random.default_rng(depth * 10 + method + 1000)
+    n = 1 << depth
+    ars = radix4.arities(n)
+    f_cnt = int(np.prod(ars[:f_lv]))
+    fr = _rnd(rng, bsz, f_cnt, 4)
+    cw1, cw2, tbl = _rnd(rng, bsz, 64, 4), _rnd(rng, bsz, 64, 4), \
+        _rnd(rng, n, e)
+    out = torch.zeros(bsz, e, dtype=torch.int32)
+    assert _subtree_launch(host_libs["subtree"], fr, cw1, cw2, tbl, out,
+                           list(zip(ars, radix4.cw_offsets(ars))), f_lv,
+                           cb.bit_length() - 1, method) == 0
+    assert torch.equal(out, subtree.subtree_contract_mixed_plain(
+        fr, cw1, cw2, tbl, ars=ars, f_lv=f_lv, prf_method=method,
+        block_leaves=cb))
+
+
+@pytest.mark.parametrize("f_cnt,sched,log_cb,prf", [
+    (1, [(4, 0)] * 4, 3, 2),            # 2^3 leaves: not a product of 4s
+    (1, [(4, 0)] * 4, 8, 3),            # PRF id 3 (AES) has no subtree kernel
+    (2, [(4, 0)] * 4, 8, 2),            # frontier count does not match f_lv
+    (1, [(2, 0)] * 33, 1, 2),           # more levels than the kernel holds
+    (1, [(4, 62), (4, 0)], 4, 2),       # codeword slots past the 64th
+    (1, [(8, 0), (2, 0)], 4, 2),        # arity 8
+])
+def test_subtree_mixed_kernel_on_host_rejects_bad_schedule(
+        host_libs, f_cnt, sched, log_cb, prf):
+    z = torch.zeros(2, 64, 4, dtype=torch.int32)
+    assert _subtree_launch(host_libs["subtree"], z[:1, :f_cnt], z, z, z,
+                           z[:1, 0, :1], sched, 0, log_cb, prf) != 0
