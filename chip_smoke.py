@@ -13,21 +13,27 @@ Phases (any failure raises and the script exits non-zero):
    and spills per kernel;
 2. hold each kernel against its plain PyTorch version on the card, bit
    for bit: small shapes, ragged batches (B = 1, 3, 33), odd and even
-   depths for the radix-4 subtree kernel, and the main paths' shapes
-   (B = 512, N = 2^20, E = 16); time kernel, plain version and, for the
+   depths for the radix-4 subtree kernel, every PRF id and a row base
+   for the sqrt-N grid kernel, and the main paths' shapes (B = 512,
+   N = 2^20, E = 16); time kernel, plain version and, for the
    contraction, the ``torch._int_mm`` byte-limb decomposition as the
-   library yardstick;
-3. the sample flow for PRF ids 0-5, binary tree at N = 16384 and radix-4
-   tree at N = 16384 and 8192 (odd depth): two ``DPF`` servers answer 8
-   distinct indices, the client recovers each row exactly, and the
-   shares equal the CPU oracle ``eval_cpu``;
-4. full width: binary AES-128 and ChaCha20 and radix-4 AES-128 and
-   ChaCha20-BLK at N = 2^20, E = 16, B = 512 (64 distinct key pairs
-   tiled to the batch, every recovered row checked), and AES-128 in both
-   trees at the headline configuration N = 65536, E = 16, B = 512;
-5. launch counts: phases 3-4 run once per path (binary, then radix-4),
-   every count set to 0 just before the path and read just after; each
-   kernel of a path must have been launched in its run, and the launches
+   library yardstick; the ChaCha level step (on no path) at K1's widest
+   shape;
+3. the sample flow for PRF ids 0-5, binary tree at N = 16384, radix-4
+   tree and sqrt-N grid at N = 16384 and 8192 (odd depth): two ``DPF``
+   servers answer 8 distinct indices, the client recovers each row
+   exactly, and the shares, the one-hot expansion and the point
+   evaluation on the card equal the CPU oracle ``eval_cpu``;
+4. full width: binary AES-128 and ChaCha20, radix-4 AES-128 and
+   ChaCha20-BLK, sqrt-N AES-128 and ChaCha20-BLK at N = 2^20, E = 16,
+   B = 512 (64 distinct key pairs tiled to the batch, 16 for sqrt-N,
+   whose keygen is ~0.35 s a pair in Python; every recovered row
+   checked), and AES-128 in the three constructions at the headline
+   configuration N = 65536, E = 16, B = 512;
+5. launch counts: phases 3-4 run once per path (binary, radix-4, then
+   sqrt-N), every count set to 0 just before the path and read just
+   after; each kernel of a path must have been launched in its run, the
+   sqrt-N path once per 512-key batch and nothing else, and the launches
    per 512-key batch of each full-width configuration are printed.
 
 The last lines are the card's name and power limit, one
@@ -58,6 +64,11 @@ OPS_AES_NODE_A4 = 10 * 22 + 4 * (9 * 60 + 52) + 4 * 10 + 10
 # Salsa/ChaCha-12 core block = 48 quarter rounds x 12 ops + 16 adds
 OPS_CORE_BLOCK = 48 * 12 + 16
 OPS_CHILD_ADD = 12           # add128 + codeword select per child
+# sqrt-N grid cell: one AES block (9 x 60 + 52, a quarter key schedule:
+# one serves a quad of rows) or one core block (a quarter for the
+# block-PRG ids), then select + add (3) and 2 per table column
+OPS_AES_BLOCK = 9 * 60 + 52
+OPS_AES_SCHEDULE = 10 * 22
 
 
 def log(*a):
@@ -65,6 +76,7 @@ def log(*a):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -73,8 +85,9 @@ def main() -> int:
 
     import dpf_tpu_torch
     from dpf_tpu_torch import DPF, EvalConfig
-    from dpf_tpu_torch.core import radix4
-    from dpf_tpu_torch.ops import aes_level, cuda_build, matmul128, subtree
+    from dpf_tpu_torch.core import radix4, sqrtn
+    from dpf_tpu_torch.ops import (aes_level, cuda_build, matmul128,
+                                   sqrt_grid, subtree)
     from dpf_tpu_torch.utils.bench import test_dpf_perf
 
     dev = torch.device("cuda")
@@ -149,7 +162,8 @@ def main() -> int:
     log("phase 2 kernels against their plain versions")
     errs = {"aes_level_step": 0, "aes_level_step_a4": 0,
             "subtree_contract": 0, "subtree_contract_mixed": 0,
-            "contract_i32": 0}
+            "contract_i32": 0, "sqrt_grid_contract": 0,
+            "chacha_level_step": 0}
     rows = {}
 
     # K1: AES level step; the AES path's widest call at N = 2^20, B = 512
@@ -330,6 +344,97 @@ def main() -> int:
     del fr, cw1, cw2, tbl, tbl1, want
     torch.cuda.empty_cache()
 
+    # K5: the ChaCha20 level step, on no path; held and timed at K1's
+    # widest shape so the two level kernels compare row by row
+    for bsz, w in ((3, 5), (1, 1), (33, 64), (512, 1 << 17)):
+        seeds, cw1, cw2 = rnd(bsz, w, 4), rnd(bsz, 64, 4), rnd(bsz, 64, 4)
+        c1, c2 = cw1[:, 6:8], cw2[:, 6:8]
+        errs["chacha_level_step"] |= held(
+            "K5 chacha_level_step B=%d w=%d" % (bsz, w),
+            subtree.chacha_level_step(seeds, c1, c2),
+            subtree.chacha_level_step_plain(seeds, c1, c2))
+    nodes = bsz * w
+    rows["chacha_level_step"] = dict(
+        ms=cuda_ms(lambda: subtree.chacha_level_step(seeds, c1, c2), 10),
+        plain_ms=cuda_ms(lambda: subtree.chacha_level_step_plain(
+            seeds, c1, c2), 1),
+        library_ms=None,
+        bytes=nodes * 16 + 2 * bsz * 2 * 16 + 2 * nodes * 16,
+        ops=nodes * (2 * OPS_CORE_BLOCK + 2 * OPS_CHILD_ADD),
+        shape="B=%d w=%d -> 2w (one level)" % (bsz, w))
+    k5_launches = subtree.chacha_level_step.launches
+    del seeds, cw1, cw2, c1, c2
+
+    # K4: the sqrt-N grid; seeds and codewords are views of one wire
+    # buffer at its key stride, as the server hands them over
+    def sqrt_case(bsz, n, e=16):
+        k, r = sqrtn.default_split(n)
+        wire = rnd(bsz, 4 * (k + 2 * r))
+        return (wire[:, :4 * k].unflatten(1, (k, 4)),
+                wire[:, 4 * k:4 * (k + r)].unflatten(1, (r, 4)),
+                wire[:, 4 * (k + r):].unflatten(1, (r, 4)), rnd(n, e))
+
+    def sqrt_ops(prf, cells, e):
+        per = {0: 4, 3: OPS_AES_BLOCK + OPS_AES_SCHEDULE // 4,
+               4: OPS_CORE_BLOCK // 4, 5: OPS_CORE_BLOCK // 4}
+        return cells * (per.get(prf, OPS_CORE_BLOCK) + 3 + 2 * e)
+
+    for prf in range(6):
+        for bsz, n, row0, rc in ((1, 1 << 11, 0, None), (3, 1 << 13, 0, None),
+                                 (33, 1 << 14, 0, None), (3, 1 << 13, 64, 4)):
+            seeds, cw1, cw2, tbl = sqrt_case(bsz, n)
+            kw = dict(prf_method=prf, row0=row0, row_chunk=rc)
+            errs["sqrt_grid_contract"] |= held(
+                "K4 sqrt_grid_contract prf=%d B=%d N=2^%d row0=%d"
+                % (prf, bsz, n.bit_length() - 1, row0),
+                sqrt_grid.sqrt_grid_contract(seeds, cw1, cw2, tbl, **kw),
+                sqrt_grid.sqrt_grid_contract_plain(seeds, cw1, cw2, tbl,
+                                                   **kw))
+    bsz, n = 512, 1 << 20
+    seeds, cw1, cw2, tbl = sqrt_case(bsz, n)
+    k, r = sqrtn.default_split(n)
+    rc = sqrt_grid.sqrt_row_chunk(r, k, sqrtn.clamp_row_chunk(None, r, k,
+                                                              bsz))
+    sqrt_rows = {}
+    for prf in (dpf_tpu_torch.PRF_CHACHA20_BLK, dpf_tpu_torch.PRF_AES128,
+                dpf_tpu_torch.PRF_CHACHA20):
+        kw = dict(prf_method=prf, row_chunk=rc)
+        t0 = time.perf_counter()
+        want = sqrt_grid.sqrt_grid_contract_plain(seeds, cw1, cw2, tbl, **kw)
+        sync()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        errs["sqrt_grid_contract"] |= held(
+            "K4 sqrt_grid_contract prf=%d B=512 N=2^20" % prf,
+            sqrt_grid.sqrt_grid_contract(seeds, cw1, cw2, tbl, **kw), want)
+        sqrt_rows[prf] = dict(
+            ms=cuda_ms(lambda: sqrt_grid.sqrt_grid_contract(
+                seeds, cw1, cw2, tbl, **kw), 5),
+            plain_ms=plain_ms, library_ms=None,
+            bytes=bsz * k * 16 + 2 * bsz * r * 16 + n * 16 * 4
+            + bsz * 16 * 4,
+            ops=sqrt_ops(prf, bsz * n, 16),
+            shape="prf %d sqrt-N B=%d N=2^20 (K=R=%d, rc=%d) E=16"
+                  % (prf, bsz, k, rc))
+        log_row("sqrt_grid_contract", sqrt_rows[prf])
+        del want
+    # the row holds AES-128, the default PRF
+    rows["sqrt_grid_contract"] = sqrt_rows[dpf_tpu_torch.PRF_AES128]
+    # the same ChaCha20-BLK launch with one table column: the grid is
+    # unchanged and the table traffic (read once per 8 keys, from L2)
+    # falls 16x, so the difference bounds what the contraction costs
+    tbl1 = tbl[:, :1].contiguous()
+    kw = dict(prf_method=dpf_tpu_torch.PRF_CHACHA20_BLK, row_chunk=rc)
+    errs["sqrt_grid_contract"] |= held(
+        "K4 sqrt_grid_contract prf=5 B=512 N=2^20 E=1",
+        sqrt_grid.sqrt_grid_contract(seeds, cw1, cw2, tbl1, **kw),
+        sqrt_grid.sqrt_grid_contract_plain(seeds, cw1, cw2, tbl1, **kw))
+    log("  K4 sqrt_grid_contract prf=5 B=512 N=2^20: E=1 ms %.4f, "
+        "E=16 ms %.4f" % (cuda_ms(lambda: sqrt_grid.sqrt_grid_contract(
+            seeds, cw1, cw2, tbl1, **kw), 5),
+            sqrt_rows[dpf_tpu_torch.PRF_CHACHA20_BLK]["ms"]))
+    del seeds, cw1, cw2, tbl, tbl1
+    torch.cuda.empty_cache()
+
     for name, r in rows.items():
         log_row(name, r)
 
@@ -340,7 +445,9 @@ def main() -> int:
         "aes_level_step_a4": aes_level.aes_level_step,
         "subtree_contract": subtree.subtree_contract,
         "subtree_contract_mixed": subtree.subtree_contract_mixed,
-        "contract_i32": matmul128.dot_i32}
+        "contract_i32": matmul128.dot_i32,
+        "sqrt_grid_contract": sqrt_grid.sqrt_grid_contract,
+        "chacha_level_step": subtree.chacha_level_step}
 
     def count_attr(name):
         return "launches_a4" if name == "aes_level_step_a4" else "launches"
@@ -356,12 +463,13 @@ def main() -> int:
     table3 = rng.integers(0, 2 ** 31, (n3, 16), dtype=np.int64).astype(
         np.int32)
 
-    def sample_flow(radix, n, prfs=range(6)):
+    def sample_flow(radix, n, prfs=range(6), scheme="logn"):
         """Phase 3: two servers answer 8 indices for each PRF id; exact
         rows, shares equal to eval_cpu."""
         table = table3[:n]
         idx = [int(i) for i in rng.choice(n, 8, replace=False)]
-        cfg = EvalConfig(radix=radix)
+        cfg = EvalConfig(radix=radix, scheme=scheme)
+        label = "sqrt-N " if scheme == "sqrtn" else "radix %d" % radix
         for prf in prfs:
             client = DPF(prf=prf, config=cfg, device="cpu")
             pairs = [client.gen(i, n, seed=b"smoke-%d-%d" % (prf, i))
@@ -379,41 +487,52 @@ def main() -> int:
             ub = sb.cpu().numpy().view(np.uint32)
             rec = (ua - ub).view(np.int32)
             if not (rec == table[idx]).all():
-                raise AssertionError("radix %d N=%d prf %d: recovered rows "
-                                     "differ" % (radix, n, prf))
-            oracle = server_a.eval_cpu([p[0] for p in pairs]).numpy()
+                raise AssertionError("%s N=%d prf %d: recovered rows "
+                                     "differ" % (label, n, prf))
+            keys_a = [p[0] for p in pairs]
+            oracle = server_a.eval_cpu(keys_a).numpy()
             if not (oracle == sa.cpu().numpy()).all():
-                raise AssertionError("radix %d N=%d prf %d: GPU shares "
-                                     "differ from eval_cpu" % (radix, n, prf))
-            log("  radix %d N=%-6d prf %d %-12s 8 rows recovered exactly, "
-                "shares == eval_cpu (both servers %.1f ms)"
-                % (radix, n, prf, server_a.prf_method_string, 1e3 * dt))
+                raise AssertionError("%s N=%d prf %d: GPU shares "
+                                     "differ from eval_cpu" % (label, n, prf))
+            hot = server_a.eval_cpu(keys_a, one_hot_only=True).numpy()
+            if not ((server_a.eval_one_hot(keys_a).cpu().numpy() == hot).all()
+                    and (server_a.eval_points(keys_a, idx).cpu().numpy()
+                         == hot[:, idx]).all()):
+                raise AssertionError("%s N=%d prf %d: one-hot or point "
+                                     "shares on the card differ from "
+                                     "eval_cpu" % (label, n, prf))
+            log("  %s N=%-6d prf %d %-12s 8 rows recovered exactly, "
+                "shares, one-hot and points == eval_cpu (both servers "
+                "%.1f ms)" % (label, n, prf, server_a.prf_method_string,
+                              1e3 * dt))
 
     per_batch = {}
 
-    def full_width(radix, prf, n4, reps):
+    def full_width(radix, prf, n4, reps, scheme="logn", distinct=64):
         """Phase 4 through the user's entry points; launches per batch
         from the counts of this configuration alone."""
         before = read_counts()
         r = test_dpf_perf(N=n4, batch=512, entrysize=16, prf=prf, reps=reps,
-                          keys_distinct=64, check=True, quiet=True,
-                          config=EvalConfig(radix=radix))
+                          keys_distinct=distinct, check=True, quiet=True,
+                          config=EvalConfig(radix=radix, scheme=scheme))
         batches = 3 + reps           # check (two servers), warm-up, reps
-        key = "%s radix-%d N=%d" % (r["prf"], radix, n4)
+        tree = "sqrtn" if scheme == "sqrtn" else "radix-%d" % radix
+        key = "%s %s N=%d" % (r["prf"], tree, n4)
         per_batch[key] = {k: (v - before[k]) / batches
                           for k, v in read_counts().items()
                           if v != before[k]}
-        log("  %-8s radix %d N=%-8d E=16 B=512: %.1f dpfs/s (%.2f ms/batch, "
-            "recovery exact) on %s" % (r["prf"], radix, n4,
-                                       r["dpfs_per_sec"], r["ms_per_batch"],
-                                       smi))
+        log("  %-8s %s N=%-8d E=16 B=512 (%d distinct keys): %.1f dpfs/s "
+            "(%.2f ms/batch, recovery exact) on %s"
+            % (r["prf"], tree, n4, distinct, r["dpfs_per_sec"],
+               r["ms_per_batch"], smi))
         log("    launches per batch: %s" % per_batch[key])
         log("  " + json.dumps(r))
 
     path_kernels = {
         "binary": ("aes_level_step", "subtree_contract", "contract_i32"),
         "radix4": ("aes_level_step", "aes_level_step_a4",
-                   "subtree_contract_mixed", "contract_i32")}
+                   "subtree_contract_mixed", "contract_i32"),
+        "sqrtn": ("sqrt_grid_contract",)}
     by_path = {}
 
     # the binary path
@@ -444,6 +563,22 @@ def main() -> int:
         full_width(4, prf, n4, reps)
     by_path["radix4"] = read_counts()
 
+    # the sqrt-N path
+    zero_counts()
+    log("phase 3 sqrt-N sample flow, N=16384 (K=R=128) and N=8192 (K=128, "
+        "R=64), E=16, 8 indices, PRF ids 0-5")
+    sample_flow(2, n3, scheme="sqrtn")
+    sample_flow(2, n3 // 2, scheme="sqrtn")
+    log("phase 4 sqrt-N full width (16 distinct key pairs tiled to B=512 "
+        "at N=2^20, 64 at N=65536: sqrt-N keygen is pure Python, ~0.35 s "
+        "a pair at 2^20; every row checked)")
+    for prf, n4, reps, distinct in (
+            (dpf_tpu_torch.PRF_AES128, 1 << 20, 3, 16),
+            (dpf_tpu_torch.PRF_CHACHA20_BLK, 1 << 20, 5, 16),
+            (dpf_tpu_torch.PRF_AES128, 65536, 10, 64)):
+        full_width(2, prf, n4, reps, scheme="sqrtn", distinct=distinct)
+    by_path["sqrtn"] = read_counts()
+
     # 5. launch counts of each path
     for path, counts in by_path.items():
         log("phase 5 launches during the %s path (phases 3-4): %s"
@@ -452,6 +587,14 @@ def main() -> int:
             if counts[k] <= 0:
                 raise AssertionError("kernel %s was never launched on the "
                                      "%s path" % (k, path))
+    others = {k: v for k, v in by_path["sqrtn"].items()
+              if k != "sqrt_grid_contract" and v}
+    if others:
+        raise AssertionError("the sqrt-N path launched %s" % others)
+    for key, counts in per_batch.items():
+        if " sqrtn " in key and counts != {"sqrt_grid_contract": 1.0}:
+            raise AssertionError("%s: launches per batch %s, not one K4"
+                                 % (key, counts))
 
     meta = {
         "aes_level_step": ("dpf_tpu_torch/csrc/aes_level.cu",
@@ -464,11 +607,18 @@ def main() -> int:
                                    "dpf_tpu/ops/pallas_level.py:442"),
         "contract_i32": ("dpf_tpu_torch/csrc/contract.cu",
                          "dpf_tpu/ops/matmul128.py:29"),
+        "sqrt_grid_contract": ("dpf_tpu_torch/csrc/sqrt_grid.cu",
+                               "dpf_tpu/ops/pallas_sqrt.py:312"),
+        "chacha_level_step": ("dpf_tpu_torch/csrc/chacha_level.cu",
+                              "dpf_tpu/ops/pallas_level.py:251"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
         r = rows[name]
         launches = {p: c[name] for p, c in by_path.items() if c[name]}
+        if name == "chacha_level_step":
+            # on no path: its launches are phase 2's
+            launches = {"phase 2": k5_launches}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(launches.values()),
@@ -478,6 +628,7 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"]})
     log(json.dumps({"launches_per_batch": per_batch}))
+    log("chip_smoke: %.1f s" % (time.perf_counter() - t_start))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,14 @@
 """User-facing DPF API on PyTorch and CUDA.
 
-Port of ``dpf_tpu/api.py::DPF`` for the log-N constructions: the binary
-GGM tree (the reference's wire format) and, with
-``config=EvalConfig(radix=4)``, the radix-4 tree (``core/radix4.py``).
-``gen`` / ``eval_init`` / ``eval_gpu`` (alias ``eval_tpu``) /
-``eval_cpu`` / ``eval_one_hot`` / ``eval_points`` / ``eval_free``,
-constants ``ENTRY_SIZE`` / ``BATCH_SIZE`` / ``PRF_*``, 524-int32 keys.
-Shares are bit-identical to ``dpf_tpu``'s.
+Port of ``dpf_tpu/api.py::DPF`` for its three constructions: the binary
+GGM tree (the reference's wire format, 524-int32 keys), with
+``config=EvalConfig(radix=4)`` the radix-4 tree (``core/radix4.py``),
+and with ``scheme="sqrtn"`` the sqrt-N grid (``core/sqrtn.py``,
+``(4 + K + 2R) * 4``-int32 keys).  ``gen`` / ``eval_init`` /
+``eval_gpu`` (alias ``eval_tpu``) / ``eval_cpu`` / ``eval_one_hot`` /
+``eval_points`` / ``eval_free``, constants ``ENTRY_SIZE`` /
+``BATCH_SIZE`` / ``PRF_*``.  Shares are bit-identical to ``dpf_tpu``'s;
+a key of one construction sent to a server of another raises.
 
 The server runs on the device given at construction: ``device=None``
 means ``"cuda"`` and raises when CUDA is absent; ``device="cpu"`` runs
@@ -22,7 +24,7 @@ import os
 import numpy as np
 import torch
 
-from .core import evalref, expand, keygen, radix4, u128
+from .core import evalref, expand, keygen, radix4, sqrtn, u128
 from .core.prf_ref import (PRF_AES128, PRF_CHACHA20, PRF_CHACHA20_BLK,
                            PRF_DUMMY, PRF_NAMES, PRF_SALSA20,
                            PRF_SALSA20_BLK)
@@ -56,9 +58,8 @@ def _check_construction(scheme: str, radix: int) -> None:
                          "(got %r)" % (scheme,))
     if radix not in (2, 4):
         raise ValueError("radix must be 2 or 4")
-    if scheme == "sqrtn":
-        raise NotImplementedError("scheme='sqrtn' is not ported yet "
-                                  "(ROADMAP Queue 1 item 9, sqrt-N)")
+    if scheme == "sqrtn" and radix == 4:
+        raise ValueError("scheme='sqrtn' has no radix; use radix=2")
     if scheme == "auto":
         raise NotImplementedError("scheme='auto' needs the tuning cache, "
                                   "not ported yet (ROADMAP Queue 1 item 16)")
@@ -83,17 +84,21 @@ class DPF(object):
     def __init__(self, prf=None, strict=True, config=None, scheme=None,
                  device=None):
         """config: optional ``utils.config.EvalConfig`` (``prf_method``,
-        ``batch_size``, ``radix``).  device: where the server evaluates
-        (None = CUDA)."""
+        ``batch_size``, ``radix``, ``scheme``, ``row_chunk``).  scheme:
+        ``"logn"`` or ``"sqrtn"``, overrides the config's.  device:
+        where the server evaluates (None = CUDA)."""
         radix, sch = 2, "logn"
+        self.row_chunk = None
         if config is not None:
             if prf is None:
                 prf = config.prf_method
             self.BATCH_SIZE = config.batch_size
             radix, sch = config.radix, config.scheme
+            self.row_chunk = config.row_chunk
         if scheme is not None:
             sch = scheme
         _check_construction(sch, radix)
+        self.scheme = sch
         self.radix = radix
         self.device = resolve_device(device)
         self.prf_method = self.DEFAULT_PRF if prf is None else prf
@@ -102,8 +107,9 @@ class DPF(object):
         self.prf_method_string = PRF_NAMES[self.prf_method]
         self.strict = strict          # enforce reference shape limits
         self.table = None             # original table (numpy int32)
-        self.table_device = None      # permuted table on self.device
-        #                               (bit- or digit-reversed rows)
+        self.table_device = None      # table on self.device: rows
+        #                               bit- or digit-reversed (log-N),
+        #                               natural order (sqrt-N)
         self.table_num_entries = None
         self.table_effective_entry_size = None
         self.buffers = None           # reference-API compat handle
@@ -130,7 +136,8 @@ class DPF(object):
 
         With strict=False a non-power-of-two n is allowed: keys cover the
         next power-of-two domain, matching eval_init's zero padding.
-        Returns two [524] int32 CPU tensors."""
+        Returns two int32 CPU tensors: [524] for the log-N trees,
+        [(4 + K + 2R) * 4] for sqrt-N."""
         if isinstance(k, (list, tuple, np.ndarray, torch.Tensor)) and \
                 np.ndim(k) >= 1:
             raise NotImplementedError("batched keygen is not ported yet "
@@ -138,8 +145,12 @@ class DPF(object):
         n = self._check_gen_domain(int(k), int(n))
         if seed is None:
             seed = os.urandom(128)
-        make = (radix4.generate_keys_r4 if self.radix == 4
-                else keygen.generate_keys)
+        if self.scheme == "sqrtn":
+            make = sqrtn.generate_sqrt_keys
+        elif self.radix == 4:
+            make = radix4.generate_keys_r4
+        else:
+            make = keygen.generate_keys
         k0, k1 = make(int(k), n, seed, self.prf_method)
         return (torch.from_numpy(k0.serialize()),
                 torch.from_numpy(k1.serialize()))
@@ -147,8 +158,9 @@ class DPF(object):
     # ----------------------------------------------------------- eval_init
 
     def eval_init(self, table):
-        """Upload a [N, E] integer table; pre-permutes rows for BFS order
-        (bit-reversed, or digit-reversed for radix 4).
+        """Upload a [N, E] integer table; the log-N trees pre-permute rows
+        for BFS order (bit-reversed, or digit-reversed for radix 4), the
+        sqrt-N grid takes them in natural order.
 
         With strict=False, non-power-of-two N is zero-padded to the next
         power of two (matching gen's domain rounding)."""
@@ -176,7 +188,9 @@ class DPF(object):
         self.table = np.ascontiguousarray(tbl)
         self.table_num_entries = n
         self.table_effective_entry_size = e
-        if self.radix == 4:
+        if self.scheme == "sqrtn":
+            permuted = self.table
+        elif self.radix == 4:
             perm = radix4.mixed_reverse_indices(radix4.arities(n))
             permuted = np.ascontiguousarray(self.table[perm])
         else:
@@ -190,13 +204,14 @@ class DPF(object):
     def eval_gpu(self, keys) -> torch.Tensor:
         """Batched server evaluation on the device.
 
-        keys: a list of [524] int32 keys (tensors or arrays) or one
-        [B, 524] array.  Batches of at most ``BATCH_SIZE`` keys, each
-        padded to a power of two by repeating its last key.  Returns
+        keys: a list of wire keys (tensors or arrays) or one [B, W]
+        array.  Batches of at most ``BATCH_SIZE`` keys, each padded to a
+        power of two by repeating its last key.  Returns
         [len(keys), entry_size] int32 shares on the server's device."""
         if self.table_device is None:
             raise RuntimeError("Must call `eval_init` before `eval_gpu`")
-        wire = keygen.stack_wire_keys(keys)
+        wire = (sqrtn.stack_sqrt_wire_keys(keys) if self.scheme == "sqrtn"
+                else keygen.stack_wire_keys(keys))
         results = []
         for i in range(0, wire.shape[0], self.BATCH_SIZE):
             cur = wire[i:i + self.BATCH_SIZE]
@@ -206,14 +221,17 @@ class DPF(object):
     # The JAX package's name for the same call.
     eval_tpu = eval_gpu
 
-    def _decode(self, keys) -> keygen.PackedKeys:
-        """Wire keys -> packed batch of this server's construction: a
-        radix-4 key sent to a binary server raises, and the reverse."""
+    def _decode(self, keys):
+        """Wire keys -> packed batch of this server's construction
+        (``keygen.PackedKeys`` or ``sqrtn.PackedSqrtKeys``): a key of
+        another construction raises."""
+        if self.scheme == "sqrtn":
+            return sqrtn.decode_sqrt_keys_batched(keys)
         if self.radix == 4:
             return radix4.decode_mixed_keys_batched(keys)
         return keygen.decode_keys_batched(keys)
 
-    def _decode_batch(self, keys) -> keygen.PackedKeys:
+    def _decode_batch(self, keys):
         """Wire keys -> packed batch, validated against the table."""
         pk = self._decode(keys)
         n = self.table_num_entries
@@ -229,6 +247,8 @@ class DPF(object):
     def _eval_batch(self, wire: np.ndarray) -> torch.Tensor:
         pk = self._decode_batch(wire)
         n_real = pk.batch
+        if self.scheme == "sqrtn":
+            return self._eval_batch_sqrt(wire, pk)[:n_real]
         pk = pk.pad_to(u128.next_pow2(n_real))
         cw1, cw2, last = self._device_keys(pk)
         knobs = self.resolved_eval_knobs(pk.batch)
@@ -245,6 +265,23 @@ class DPF(object):
                 chunk_leaves=knobs["chunk_leaves"])
         return out[:n_real]
 
+    def _eval_batch_sqrt(self, wire: np.ndarray,
+                         pk: sqrtn.PackedSqrtKeys) -> torch.Tensor:
+        """The wire buffer goes to the device as it is and is padded and
+        sliced there; K4 reads seeds and codewords at the wire's key
+        stride.  An explicit ``row_chunk`` passes straight through (an
+        invalid pin raises), else the scan's heuristic chunk is clamped
+        to the batch's split and the kernel's cell cap."""
+        bsz = u128.next_pow2(pk.batch)
+        seeds, cw1, cw2 = sqrtn.device_sqrt_keys(wire, pk, self.device,
+                                                 pad_to=bsz)
+        rc = self.row_chunk
+        if rc is None:
+            rc = sqrtn.clamp_row_chunk(None, pk.n_codewords, pk.n_keys, bsz)
+        return sqrtn.eval_contract_batched(
+            seeds, cw1, cw2, self.table_device, prf_method=self.prf_method,
+            row_chunk=rc)
+
     def resolved_eval_knobs(self, batch: int) -> dict:
         """Program knobs for one dispatch batch size: the heuristic branch
         of ``dpf_tpu``'s resolution under ``kernel_impl="pallas"`` (the
@@ -257,6 +294,8 @@ class DPF(object):
         n = self.table_num_entries
         if n is None:
             raise RuntimeError("Must call `eval_init` before resolving")
+        if self.scheme == "sqrtn":
+            return self._resolved_sqrt_knobs(n, batch)
         if self.prf_method in expand.SUBTREE_PRFS:
             from .ops.subtree import subtree_chunk_leaves
             chunk, kernel = subtree_chunk_leaves(n), "subtree_contract"
@@ -272,11 +311,29 @@ class DPF(object):
         return {"chunk_leaves": chunk, "kernel": kernel,
                 "kernel_resolved_from": "heuristic"}
 
+    def _resolved_sqrt_knobs(self, n: int, batch: int) -> dict:
+        """The sqrt-N branch: every PRF id goes to K4.  ``row_chunk`` is
+        the config's pin or None (resolved per batch from the keys'
+        split); ``row_chunk_effective`` is the K4 grid step the
+        default split gets at this batch size."""
+        from .ops.sqrt_grid import sqrt_row_chunk
+        k, r = sqrtn.default_split(n)
+        rc = self.row_chunk
+        eff = sqrt_row_chunk(r, k, rc if rc is not None else
+                             sqrtn.clamp_row_chunk(None, r, k, batch))
+        return {"row_chunk": rc, "row_chunk_effective": eff,
+                "kernel": "sqrt_grid_contract",
+                "kernel_resolved_from": "heuristic"}
+
     # ------------------------------------------------- one-hot and points
 
     def eval_one_hot(self, keys) -> torch.Tensor:
         """Full one-hot expansion: [len(keys), N] int32 shares in natural
         index order, on the server's device.  Memory O(batch x N)."""
+        if self.scheme == "sqrtn":
+            return torch.stack([sqrtn.eval_grid(k, self.prf_method,
+                                                self.device)
+                                for k in self._sqrt_batch(keys)])
         pk = self._decode(keys)
         cw1, cw2, last = self._device_keys(pk)
         if self.radix == 4:
@@ -288,8 +345,14 @@ class DPF(object):
     def eval_points(self, keys, indices) -> torch.Tensor:
         """Sparse evaluation: each key at the given indices only.
         Returns [len(keys), len(indices)] int32 one-hot shares."""
-        pk = self._decode(keys)
         idx = _to_numpy(indices).astype(np.int64)
+        if self.scheme == "sqrtn":
+            sk = self._sqrt_batch(keys)
+            if idx.ndim != 1 or (idx >= sk[0].n).any() or (idx < 0).any():
+                raise ValueError("indices must be 1D and < n=%d" % sk[0].n)
+            return sqrtn.eval_points_sqrt(sk, idx, self.prf_method,
+                                          self.device)
+        pk = self._decode(keys)
         if idx.ndim != 1 or (idx >= pk.n).any() or (idx < 0).any():
             raise ValueError("indices must be 1D and < n=%d" % pk.n)
         cw1, cw2, last = self._device_keys(pk)
@@ -304,10 +367,13 @@ class DPF(object):
 
     def eval_cpu(self, keys, one_hot_only=False) -> torch.Tensor:
         """Host reference evaluation (plain PyTorch on the CPU: one key at
-        a time for the binary tree, the whole batch through the plain
-        level steps for radix 4), whatever the server's device.  Returns
-        CPU tensors."""
-        if self.radix == 4:
+        a time for the binary tree and the sqrt-N grid, the whole batch
+        through the plain level steps for radix 4), whatever the server's
+        device.  Returns CPU tensors."""
+        if self.scheme == "sqrtn":
+            hots = np.stack([sqrtn.eval_grid(k, self.prf_method).numpy()
+                             for k in self._sqrt_batch(keys)])
+        elif self.radix == 4:
             pk = radix4.decode_mixed_keys_batched(keys)
             hots = radix4.expand_leaves_mixed(
                 *(from_u32(a) for a in (pk.cw1, pk.cw2, pk.last)), n=pk.n,
@@ -326,6 +392,17 @@ class DPF(object):
         prod = hots.view(np.uint32) @ self.table.view(np.uint32)
         return torch.from_numpy(prod.view(np.int32))
 
+    def _sqrt_batch(self, keys) -> list:
+        """Deserialize a sqrt-N key batch and check its split is
+        uniform."""
+        if not len(keys):
+            raise ValueError("empty key batch")
+        sk = [sqrtn.deserialize_sqrt_key(k) for k in keys]
+        for k in sk:
+            if (k.n, k.n_keys) != (sk[0].n, sk[0].n_keys):
+                raise ValueError("keys for mixed sqrt-N splits")
+        return sk
+
     # ------------------------------------------------------------ eval_free
 
     def eval_free(self, buffers=None):
@@ -334,10 +411,12 @@ class DPF(object):
 
     def __repr__(self):
         if self.table_device is None:
-            return ("DPF(_uninitialized_, prf_method=%s, device=%s)"
-                    % (self.prf_method_string, self.device))
-        return ("DPF(entries=%d, entry_size=%d, prf_method=%s, radix=%d, "
-                "device=%s)" % (self.table_num_entries,
-                                self.table_effective_entry_size,
-                                self.prf_method_string, self.radix,
-                                self.device))
+            return ("DPF(_uninitialized_, prf_method=%s, scheme=%s, "
+                    "device=%s)" % (self.prf_method_string, self.scheme,
+                                    self.device))
+        return ("DPF(entries=%d, entry_size=%d, prf_method=%s, scheme=%s, "
+                "radix=%d, device=%s)" % (self.table_num_entries,
+                                          self.table_effective_entry_size,
+                                          self.prf_method_string,
+                                          self.scheme, self.radix,
+                                          self.device))

@@ -86,9 +86,13 @@ def _wire_words(k) -> np.ndarray:
     return np.asarray(k, dtype=np.int32).reshape(-1)
 
 
-def stack_wire_keys(keys) -> np.ndarray:
+def stack_wire_keys(keys, words: int | None = KEY_WORDS) -> np.ndarray:
     """Key batch (list of flat int32 array-likes, torch tensors included,
-    or one [B, 524] array) -> one contiguous [B, 524] int32 buffer."""
+    or one [B, W] array) -> one contiguous [B, W] int32 buffer.
+
+    ``words`` is the required wire width; None accepts any width the
+    batch agrees on (the sqrt-N codec's O(sqrt N)-sized keys; there a
+    ragged batch raises the stacking ``ValueError``)."""
     if len(keys) == 0:
         raise ValueError("empty key batch")
     if isinstance(keys, np.ndarray) and keys.ndim == 2:
@@ -100,9 +104,9 @@ def stack_wire_keys(keys) -> np.ndarray:
             arr = np.stack([_wire_words(k) for k in keys])
         if arr.ndim != 2:
             arr = arr.reshape(len(keys), -1)
-    if arr.shape[1] != KEY_WORDS:
+    if words is not None and arr.shape[1] != words:
         raise ValueError("DPF key must be %d int32 words, got %d"
-                         % (KEY_WORDS, arr.shape[1]))
+                         % (words, arr.shape[1]))
     return np.ascontiguousarray(arr)
 
 

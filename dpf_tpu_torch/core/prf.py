@@ -3,9 +3,12 @@
 Port of ``prf_v`` / ``prf_pair`` / ``prf_multi`` in
 ``dpf_tpu/core/prf.py`` for PRF ids 0-5.  Each function maps a batch of
 128-bit seeds (trailing axis = 4 little-endian 32-bit limbs, int32
-tensors read as uint32, see ``core/u32.py``) and a static position
-``pos`` (0..3 in the GGM walk)
-to a batch of 128-bit outputs, bit-identical to ``core/prf_ref.py``.
+tensors read as uint32, see ``core/u32.py``) and a position ``pos`` to
+a batch of 128-bit outputs, bit-identical to ``core/prf_ref.py``.
+``pos`` is a Python int (the branch 0..3 of the GGM walk) or an int32
+tensor of positions below 2^32, read as uint32, that broadcasts against
+``seeds[..., 0]`` (the rows of the sqrt-N grid; JAX's ``_pos_word`` /
+``_pos_bytes``).
 
 These are the plain versions the CUDA kernels are held against: the
 kernels in ``csrc/`` re-implement the same ciphers per thread.
@@ -27,12 +30,26 @@ def _const(zero: torch.Tensor, value: int) -> torch.Tensor:
     return zero + i32(value)
 
 
+def _pos_word(zero: torch.Tensor, pos, word: int) -> torch.Tensor:
+    """32-bit word ``word`` of the 128-bit position, broadcast like
+    ``zero``: a tensor position is below 2^32, so only word 0 is set."""
+    if isinstance(pos, torch.Tensor):
+        return zero + pos if word == 0 else zero
+    return _const(zero, (int(pos) >> (32 * word)) & 0xFFFFFFFF)
+
+
 # ---------------------------------------------------------------------------
 # DUMMY
 # ---------------------------------------------------------------------------
 
-def prf_dummy_v(seeds: torch.Tensor, pos: int) -> torch.Tensor:
+def prf_dummy_v(seeds: torch.Tensor, pos) -> torch.Tensor:
     """seed * (pos+4242) + (pos+4242) mod 2^128."""
+    if isinstance(pos, torch.Tensor):
+        t = pos + 4242                  # row indices < 2^32 - 4242
+        prod = u128.mul128_small(seeds, t)
+        zero = torch.zeros_like(prod[..., 0])
+        tb = torch.stack([zero + t, zero, zero, zero], dim=-1)
+        return u128.add128(prod, tb)
     t = int(pos) + 4242
     tb = torch.zeros_like(seeds)
     tb[..., 0] = t
@@ -50,10 +67,12 @@ def _salsa_qr(x, a, b, c, d):
     x[a] = x[a] ^ rotl(x[d] + x[c], 18)
 
 
-def _salsa20_12_words(seeds: torch.Tensor, ctr: int):
+def _salsa20_12_words(seeds: torch.Tensor, ctr):
     """Full 16-word Salsa20/12 block: key in words 1..4 (MSW first),
     64-bit counter in words 8..9 (high word first)."""
     zero = torch.zeros_like(seeds[..., 0])
+    if isinstance(ctr, torch.Tensor):
+        zero = zero + torch.zeros_like(ctr)
     x = [zero] * 16
     x[0] = _const(zero, _SIGMA[0])
     x[5] = _const(zero, _SIGMA[1])
@@ -61,8 +80,8 @@ def _salsa20_12_words(seeds: torch.Tensor, ctr: int):
     x[15] = _const(zero, _SIGMA[3])
     x[1], x[2], x[3], x[4] = (seeds[..., 3], seeds[..., 2], seeds[..., 1],
                               seeds[..., 0])
-    x[8] = _const(zero, (ctr >> 32) & 0xFFFFFFFF)
-    x[9] = _const(zero, ctr & 0xFFFFFFFF)
+    x[8] = _pos_word(zero, ctr, 1)
+    x[9] = _pos_word(zero, ctr, 0)
     init = list(x)
     for _ in range(6):  # 6 double rounds = 12 rounds
         _salsa_qr(x, 0, 4, 8, 12)
@@ -76,7 +95,7 @@ def _salsa20_12_words(seeds: torch.Tensor, ctr: int):
     return [x[i] + init[i] for i in range(16)]
 
 
-def prf_salsa20_12_v(seeds: torch.Tensor, pos: int) -> torch.Tensor:
+def prf_salsa20_12_v(seeds: torch.Tensor, pos) -> torch.Tensor:
     """12-round Salsa20 core; output words 4..1 as limbs 0..3."""
     out = _salsa20_12_words(seeds, pos)
     return torch.stack([out[4], out[3], out[2], out[1]], dim=-1)
@@ -93,15 +112,17 @@ def _chacha_qr(x, a, b, c, d):
     x[b] = rotl(x[b] ^ x[c], 7)
 
 
-def _chacha20_12_words(seeds: torch.Tensor, ctr: int):
+def _chacha20_12_words(seeds: torch.Tensor, ctr):
     """Full 16-word ChaCha20/12 block: key in words 4..7 (MSW first),
     64-bit counter in words 12..13 (high word first)."""
     zero = torch.zeros_like(seeds[..., 0])
+    if isinstance(ctr, torch.Tensor):
+        zero = zero + torch.zeros_like(ctr)
     x = [_const(zero, _SIGMA[i]) for i in range(4)] + [zero] * 12
     x[4], x[5], x[6], x[7] = (seeds[..., 3], seeds[..., 2], seeds[..., 1],
                               seeds[..., 0])
-    x[12] = _const(zero, (ctr >> 32) & 0xFFFFFFFF)
-    x[13] = _const(zero, ctr & 0xFFFFFFFF)
+    x[12] = _pos_word(zero, ctr, 1)
+    x[13] = _pos_word(zero, ctr, 0)
     init = list(x)
     for _ in range(6):  # 12 rounds
         _chacha_qr(x, 0, 4, 8, 12)
@@ -115,7 +136,7 @@ def _chacha20_12_words(seeds: torch.Tensor, ctr: int):
     return [x[i] + init[i] for i in range(16)]
 
 
-def prf_chacha20_12_v(seeds: torch.Tensor, pos: int) -> torch.Tensor:
+def prf_chacha20_12_v(seeds: torch.Tensor, pos) -> torch.Tensor:
     """12-round ChaCha core; output words 7..4 as limbs 0..3."""
     out = _chacha20_12_words(seeds, pos)
     return torch.stack([out[7], out[6], out[5], out[4]], dim=-1)
@@ -135,15 +156,25 @@ def _blk_group(out, g: int) -> torch.Tensor:
     return torch.stack([out[g + 3], out[g + 2], out[g + 1], out[g]], dim=-1)
 
 
-def _prf_blk(words_fn, seeds: torch.Tensor, pos: int) -> torch.Tensor:
-    return _blk_group(words_fn(seeds, int(pos) >> 2), 4 * (int(pos) & 3))
+def _prf_blk(words_fn, seeds: torch.Tensor, pos) -> torch.Tensor:
+    """A static position slices its word group; a tensor position picks
+    the group ``pos & 3`` of the block at counter ``pos >> 2`` per
+    element."""
+    if not isinstance(pos, torch.Tensor):
+        return _blk_group(words_fn(seeds, int(pos) >> 2), 4 * (int(pos) & 3))
+    out = words_fn(seeds, shr(pos, 2))
+    sel = (pos & 3)[..., None]
+    res = _blk_group(out, 0)
+    for g in (1, 2, 3):
+        res = torch.where(sel == g, _blk_group(out, 4 * g), res)
+    return res
 
 
-def prf_salsa20_12_blk_v(seeds: torch.Tensor, pos: int) -> torch.Tensor:
+def prf_salsa20_12_blk_v(seeds: torch.Tensor, pos) -> torch.Tensor:
     return _prf_blk(_salsa20_12_words, seeds, pos)
 
 
-def prf_chacha20_12_blk_v(seeds: torch.Tensor, pos: int) -> torch.Tensor:
+def prf_chacha20_12_blk_v(seeds: torch.Tensor, pos) -> torch.Tensor:
     return _prf_blk(_chacha20_12_words, seeds, pos)
 
 
@@ -185,11 +216,22 @@ def _mix_columns(st):
     return ns
 
 
+def _pos_bytes(zero: torch.Tensor, pos) -> list:
+    """16 little-endian plaintext bytes of a position (int or tensor),
+    as ints or tensors; None for a zero byte of an int position."""
+    if isinstance(pos, torch.Tensor):
+        return [zero + (shr(pos, 8 * k) & 0xFF) for k in range(4)] + \
+            [None] * 12
+    pt = (int(pos) & ((1 << 128) - 1)).to_bytes(16, "little")
+    return [b or None for b in pt]
+
+
 def aes128_multi(seeds: torch.Tensor, positions) -> tuple:
-    """FIPS-197 AES-128 of each plaintext position in ``positions`` under
-    the per-seed key (key = seed LE bytes, plaintext = position LE bytes,
-    ciphertext re-read LE).  The key schedule is computed once and
-    shared by all positions, one round key live at a time."""
+    """FIPS-197 AES-128 of each plaintext position in ``positions`` (ints
+    or int32 tensors below 2^32 that broadcast against ``seeds[..., 0]``)
+    under the per-seed key (key = seed LE bytes, plaintext = position LE
+    bytes, ciphertext re-read LE).  The key schedule is computed once
+    and shared by all positions, one round key live at a time."""
     sbox = torch.tensor(SBOX, dtype=torch.int32, device=seeds.device)
 
     def sub(v):
@@ -197,10 +239,13 @@ def aes128_multi(seeds: torch.Tensor, positions) -> tuple:
 
     rk = _bytes_of_limbs(seeds)
     zero = torch.zeros_like(seeds[..., 0])
+    for pos in positions:
+        if isinstance(pos, torch.Tensor):
+            zero = zero + torch.zeros_like(pos)
     sts = []
     for pos in positions:
-        pt = (int(pos) & ((1 << 128) - 1)).to_bytes(16, "little")
-        sts.append([rk[i] ^ pt[i] if pt[i] else rk[i] + zero
+        pt = _pos_bytes(zero, pos)
+        sts.append([rk[i] ^ pt[i] if pt[i] is not None else rk[i] + zero
                     for i in range(16)])
     rcon = 1
     for rnd in range(1, 11):
@@ -218,7 +263,7 @@ def aes128_multi(seeds: torch.Tensor, positions) -> tuple:
     return tuple(_limbs_of_bytes(st) for st in sts)
 
 
-def prf_aes128_v(seeds: torch.Tensor, pos: int) -> torch.Tensor:
+def prf_aes128_v(seeds: torch.Tensor, pos) -> torch.Tensor:
     return aes128_multi(seeds, (pos,))[0]
 
 
@@ -236,8 +281,9 @@ PRF_V = {
 }
 
 
-def prf_v(method: int, seeds: torch.Tensor, pos: int) -> torch.Tensor:
-    """Vectorized PRF of one static position."""
+def prf_v(method: int, seeds: torch.Tensor, pos) -> torch.Tensor:
+    """Vectorized PRF of one position: a Python int, or an int32 tensor
+    of positions that broadcasts against ``seeds[..., 0]``."""
     return PRF_V[method](seeds, pos)
 
 

@@ -90,13 +90,20 @@ def _mul32_parts(a: torch.Tensor, b: torch.Tensor):
     return hi, a * b
 
 
-def mul128_small(a: torch.Tensor, c: int) -> torch.Tensor:
-    """(a * c) mod 2^128 for a static uint32-ranged ``c``."""
-    b = torch.full_like(a[..., 0], c if c < (1 << 31) else c - (1 << 32))
+def mul128_small(a: torch.Tensor, c) -> torch.Tensor:
+    """(a * c) mod 2^128 for a uint32-ranged ``c``: a Python int, or an
+    int32 tensor read as uint32 that broadcasts against ``a[..., 0]``
+    (per-row positions of the sqrt-N grid)."""
+    zero = torch.zeros_like(a[..., 0])
+    if isinstance(c, torch.Tensor):
+        b = zero + c
+        zero = torch.zeros_like(b)
+    else:
+        b = zero + (c if c < (1 << 31) else c - (1 << 32))
     r = []
-    carry = torch.zeros_like(a[..., 0])
+    carry = zero
     for i in range(NLIMBS):
-        hi, lo = _mul32_parts(a[..., i], b)
+        hi, lo = _mul32_parts(a[..., i] + zero, b)
         s = lo + carry
         r.append(s)
         carry = hi + ult(s, lo).to(torch.int32)

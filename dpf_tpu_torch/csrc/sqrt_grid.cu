@@ -1,0 +1,272 @@
+// K4 sqrt_grid_contract: the sqrt-N PRF grid of each key fused with the
+// contraction against the natural-order table, every PRF id 0-5.
+//
+// Replaces the TPU kernel dpf_tpu/ops/pallas_sqrt.py::
+// sqrt_grid_contract_pallas (body _make_sqrt_kernel), which takes PRF ids
+// 1, 2, 4 and 5; for AES-128 (3) and DUMMY (0) the JAX package runs the
+// XLA scan core/sqrtn.py::_eval_contract_batched_jit, which gives the same
+// bits, so here they are template instances of the same kernel.  For key b
+// and cell x = r K + c of the [R, K] grid:
+//
+//   leaf32[b, x] = low32(PRF(seed[b, c], row0 + r)) + (lsb(seed[b, c]) ?
+//                  cw2 : cw1)[b, r].limb0                        mod 2^32
+//   out[b, e]    = sum_x leaf32[b, x] * table[x, e]                mod 2^32
+//
+// Only the low limb is contracted and 128-bit adds carry upward only, so
+// the codeword add needs the low limb alone; the ciphers still run whole.
+// Cell x meets table row x directly (natural order, no permutation).
+//
+// The TPU kernel walks a grid (key tile of 32, row tile) in order and
+// carries the [TB, E] sum across the sequential row axis.  Blocks on the
+// card run in no order, so here:
+//
+//   * one block per (tile of kKeys = 8 keys, row chunk of rc rows); rc is
+//     the TPU kernel's row tile (ops/sqrt_grid.sqrt_row_chunk: R halved
+//     down to 2048 cells, at least 4 rows).  Key tiles vary fastest, so
+//     the blocks that run together read the same table rows from L2;
+//   * the block walks its row chunk in sub-tiles of at most 1024 cells:
+//     ct = min(K, 256) columns by 4 (256 / ct) rows, each thread one
+//     column and one quad of 4 consecutive rows.  A quad is one core block
+//     for the block-PRG ids (4, 5: row 4q + g takes block words
+//     [4g..4g+3] most significant first, so its low limb is word 4g + 3),
+//     one key schedule shared by 4 encryptions for AES (the seed is the
+//     key and the row the plaintext: the reverse of K1, where one seed's
+//     schedule serves the A children), and 4 core blocks for Salsa and
+//     ChaCha.  Rows past the chunk or past R are masked, so any R works;
+//     a quad starts at a multiple of 4 whenever row0 does;
+//   * the block writes the 8 keys' leaves of a sub-tile to shared memory,
+//     then each thread multiplies them by table rows for one column e,
+//     reading each table value once for all 8 keys (E = 16: 16 lanes of
+//     rows), and keeps 8 sums in registers across the sub-tiles;
+//   * at the end the block reduces the lanes in shared memory and
+//     atomically adds [8, E] into the zeroed [B, E] output.  int32
+//     addition wraps mod 2^32 and is associative, so the order of the
+//     atomics changes no bit.
+//
+// Bound on the H100: operations.  A cell costs ~592 32-bit operations of
+// one ChaCha/Salsa/AES block (a quarter of that for ids 4 and 5) plus ~35
+// of select, add and contraction at E = 16, against 64 table bytes read
+// from L2; over B N = 2^29 cells at B = 512, N = 2^20 that is ~5 ms for
+// ChaCha20 or AES and ~1.5 ms for ChaCha20-BLK at 67 TFLOP/s.  Serving 8
+// keys per table read cuts the table traffic from B x 64 MiB (32 GiB) to
+// 4 GiB per batch.
+
+#include "aes_ttable.cuh"
+#include "dpf_common.cuh"
+#include "stream_cipher.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kKeys = 8;                       // keys per block
+constexpr int kTileCells = 4 * kThreads;       // cells per sub-tile
+
+// Low limbs of PRF(s, pos0 + g) for g = 0..3 (ids 0, 3, 4, 5; ids 1 and 2
+// take one core block per row in the kernel).  pos0 is a multiple of 4 for
+// the block-PRG ids.
+template <int PRF>
+__device__ __forceinline__ void quad_low_limbs(const uint32_t s[4],
+                                               uint32_t pos0,
+                                               const uint32_t* T,
+                                               uint32_t v[4]) {
+  if constexpr (PRF == 4 || PRF == 5) {
+    uint32_t o[16];
+    dpf::core_block<PRF>(s, pos0 >> 2, o);
+#pragma unroll
+    for (int g = 0; g < 4; ++g) v[g] = o[4 * g + 3];
+  } else if constexpr (PRF == 3) {
+    uint32_t rk[4] = {s[0], s[1], s[2], s[3]};
+    uint32_t st[4][4];  // plaintext pos0 + g xor the first round key
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      st[g][0] = s[0] ^ (pos0 + (uint32_t)g);
+      st[g][1] = s[1];
+      st[g][2] = s[2];
+      st[g][3] = s[3];
+    }
+    uint32_t rcon = 1u;
+#pragma unroll 1
+    for (int r = 1; r < 10; ++r) {
+      dpf::next_round_key(T, rk, rcon);
+      rcon = ((rcon << 1) ^ ((rcon >> 7) * 0x11bu)) & 0xffu;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) dpf::aes_round(T, st[g], rk);
+    }
+    dpf::next_round_key(T, rk, rcon);
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      dpf::aes_final_round(T, st[g], rk);
+      v[g] = st[g][0];
+    }
+  } else {
+    // DUMMY: seed * t + t mod 2^128 with t = pos + 4242, low limb only
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const uint32_t t = pos0 + (uint32_t)g + 4242u;
+      v[g] = s[0] * t + t;
+    }
+  }
+}
+
+template <int PRF>
+__global__ void __launch_bounds__(kThreads)
+    sqrt_grid_kernel(const uint32_t* __restrict__ seeds, long long ld_seed,
+                     const uint32_t* __restrict__ cw1,
+                     const uint32_t* __restrict__ cw2, long long ld_cw,
+                     const int32_t* __restrict__ table,
+                     uint32_t* __restrict__ out, int batch, int k, int r,
+                     int rc, int e_total, uint32_t row0) {
+  __shared__ uint32_t T[256];
+  __shared__ uint32_t leaves[kKeys][kTileCells];
+  __shared__ uint32_t red[kKeys][kThreads];
+  if (PRF == 3) dpf::aes_build_ttable(T);  // first sub-tile's barrier syncs
+
+  const int tid = threadIdx.x;
+  const int key0 = blockIdx.x * kKeys;
+  const int r_begin = blockIdx.y * rc;
+  const int r_end = min(r, r_begin + rc);
+  const int e0 = blockIdx.z * kThreads;
+  int ew = 1;  // lanes per table row: a power of two covering the columns
+  while (ew < e_total - e0 && ew < kThreads) ew <<= 1;
+  const int e = e0 + tid % ew;
+  const int lane = tid / ew;
+  const int lanes = kThreads / ew;
+
+  const int ct = min(k, kThreads);   // columns per sub-tile
+  const int quads = kThreads / ct;   // row quads per sub-tile
+  const int rt = 4 * quads;          // rows per sub-tile
+  const int cells = rt * ct;
+  const int j = tid % ct;            // this thread's column and quad
+  const int qd = tid / ct;
+
+  uint32_t acc[kKeys];
+#pragma unroll
+  for (int kb = 0; kb < kKeys; ++kb) acc[kb] = 0u;
+
+  for (int lr0 = r_begin; lr0 < r_end; lr0 += rt) {
+    for (int c0 = 0; c0 < k; c0 += ct) {
+      __syncthreads();  // the last sub-tile's leaves are consumed
+      // phase 1: the leaves of 8 keys x this sub-tile, rows lr0 + 4 qd + g
+      const int row = lr0 + 4 * qd;
+      const int col = c0 + j;
+      if (qd < quads) {
+#pragma unroll 1
+        for (int kb = 0; kb < kKeys; ++kb) {
+          const int key = key0 + kb;
+          uint32_t* dst = &leaves[kb][4 * qd * ct + j];
+          if (key >= batch || col >= k || row >= r_end) {
+#pragma unroll
+            for (int g = 0; g < 4; ++g) dst[g * ct] = 0u;
+            continue;
+          }
+          const uint32_t* sp = seeds + key * ld_seed + 4LL * col;
+          const uint32_t s[4] = {sp[0], sp[1], sp[2], sp[3]};
+          const uint32_t* cw = ((s[0] & 1u) ? cw2 : cw1) + key * ld_cw;
+          const uint32_t pos0 = row0 + (uint32_t)row;
+          if constexpr (PRF == 1 || PRF == 2) {
+#pragma unroll 1
+            for (int g = 0; g < 4; ++g) {
+              uint32_t o[16];
+              dpf::core_block<PRF>(s, pos0 + (uint32_t)g, o);
+              const uint32_t v = PRF == 2 ? o[7] : o[4];
+              dst[g * ct] = row + g < r_end ? v + cw[4LL * (row + g)] : 0u;
+            }
+          } else {
+            uint32_t v[4];
+            quad_low_limbs<PRF>(s, pos0, T, v);
+#pragma unroll
+            for (int g = 0; g < 4; ++g)
+              dst[g * ct] = row + g < r_end ? v[g] + cw[4LL * (row + g)] : 0u;
+          }
+        }
+      }
+      __syncthreads();
+      // phase 2: each table value once for the 8 keys; cell p of the
+      // sub-tile is row lr0 + p / ct, column c0 + p % ct
+      if (e < e_total) {
+        for (int p = lane; p < cells; p += lanes) {
+          const int lr = lr0 + p / ct;
+          const int cc = c0 + p % ct;
+          if (lr < r_end && cc < k) {
+            const uint32_t t =
+                (uint32_t)table[((long long)lr * k + cc) * e_total + e];
+#pragma unroll
+            for (int kb = 0; kb < kKeys; ++kb) acc[kb] += leaves[kb][p] * t;
+          }
+        }
+      }
+    }
+  }
+
+  // reduce the lanes of each (key, column) and add into the output
+#pragma unroll
+  for (int kb = 0; kb < kKeys; ++kb) red[kb][tid] = acc[kb];
+  __syncthreads();
+  for (int i = tid; i < kKeys * ew; i += kThreads) {
+    const int kb = i / ew;
+    const int col_e = e0 + i % ew;
+    const int key = key0 + kb;
+    if (key < batch && col_e < e_total) {
+      uint32_t sum = 0u;
+      for (int l = 0; l < lanes; ++l) sum += red[kb][l * ew + i % ew];
+      atomicAdd(&out[(long long)key * e_total + col_e], sum);
+    }
+  }
+}
+
+template <int P>
+void launch_kernel(dim3 grid, cudaStream_t st, const void* seeds,
+                   long long ld_seed, const void* cw1, const void* cw2,
+                   long long ld_cw, const void* table, void* out, int batch,
+                   int k, int r, int rc, int e_total, uint32_t row0) {
+  sqrt_grid_kernel<P><<<grid, kThreads, 0, st>>>(
+      (const uint32_t*)seeds, ld_seed, (const uint32_t*)cw1,
+      (const uint32_t*)cw2, ld_cw, (const int32_t*)table, (uint32_t*)out,
+      batch, k, r, rc, e_total, row0);
+}
+
+}  // namespace
+
+// seeds [B, K, 4] with key stride ld_seed, cw1/cw2 [B, R, 4] with key
+// stride ld_cw (in 32-bit words; row and limb axes contiguous), table
+// [R K, E] contiguous, out [B, E] zeroed by the caller; rows are
+// row0 .. row0 + R - 1, grid steps of rc rows (rc < R: a multiple of 4
+// for the block-PRG ids, whose row0 must be a multiple of 4 too).
+// Returns the launch's cudaError_t.
+extern "C" int sqrt_grid_launch(const void* seeds, long long ld_seed,
+                                const void* cw1, const void* cw2,
+                                long long ld_cw, const void* table, void* out,
+                                int batch, int k, int r, int rc, int e_total,
+                                long long row0, int prf, void* stream) {
+  const bool blk = prf == 4 || prf == 5;
+  if (batch <= 0 || k <= 0 || r <= 0 || e_total <= 0 || rc <= 0 ||
+      rc > r || row0 < 0 || row0 > 0xffffffffLL ||
+      (blk && ((row0 & 3) || (rc < r && rc % 4))))
+    return (int)cudaErrorInvalidValue;
+  const long long key_tiles = (batch + kKeys - 1) / kKeys;
+  const long long row_chunks = (r + (long long)rc - 1) / rc;
+  const long long e_chunks = (e_total + kThreads - 1) / kThreads;
+  if (key_tiles > 0x7fffffffLL || row_chunks > 65535 || e_chunks > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)key_tiles, (unsigned)row_chunks,
+                  (unsigned)e_chunks);
+  cudaStream_t st = (cudaStream_t)stream;
+#define DPF_LAUNCH(P)                                                      \
+  launch_kernel<P>(grid, st, seeds, ld_seed, cw1, cw2, ld_cw, table, out, \
+                   batch, k, r, rc, e_total, (uint32_t)row0)
+  switch (prf) {
+    case 0: DPF_LAUNCH(0); break;
+    case 1: DPF_LAUNCH(1); break;
+    case 2: DPF_LAUNCH(2); break;
+    case 3: DPF_LAUNCH(3); break;
+    case 4: DPF_LAUNCH(4); break;
+    case 5: DPF_LAUNCH(5); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef DPF_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* sqrt_grid_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

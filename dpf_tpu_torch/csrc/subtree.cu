@@ -42,13 +42,11 @@
 // per key; the table (N x E x 4 bytes) is read once per key but served
 // from L2.
 //
-// Cipher layouts (core/prf.py): ChaCha puts the seed in words 7..4 (limb
-// 0 in word 7) and the position in word 13, output words 7..4; Salsa puts
-// the seed in words 4..1 and the position in word 9, output words 4..1
-// (12 rounds despite the name); block-PRG child b is block words
-// [4b..4b+3], most significant word first.
+// The cipher cores and their layouts are in stream_cipher.cuh, shared
+// with K4 and K5.
 
 #include "dpf_common.cuh"
+#include "stream_cipher.cuh"
 
 namespace {
 
@@ -79,92 +77,13 @@ struct Sched {
   int off[kMaxLevels];
 };
 
-constexpr uint32_t kSigma0 = 0x65787061u, kSigma1 = 0x6E642033u,
-                   kSigma2 = 0x322D6279u, kSigma3 = 0x7465206Bu;
-
-#define CHACHA_QR(a, b, c, d)            \
-  x[a] += x[b];                          \
-  x[d] = dpf::rotl32(x[d] ^ x[a], 16);   \
-  x[c] += x[d];                          \
-  x[b] = dpf::rotl32(x[b] ^ x[c], 12);   \
-  x[a] += x[b];                          \
-  x[d] = dpf::rotl32(x[d] ^ x[a], 8);    \
-  x[c] += x[d];                          \
-  x[b] = dpf::rotl32(x[b] ^ x[c], 7);
-
-#define SALSA_QR(a, b, c, d)                 \
-  x[b] ^= dpf::rotl32(x[a] + x[d], 7);       \
-  x[c] ^= dpf::rotl32(x[b] + x[a], 9);       \
-  x[d] ^= dpf::rotl32(x[c] + x[b], 13);      \
-  x[a] ^= dpf::rotl32(x[d] + x[c], 18);
-
-__device__ __forceinline__ void chacha_block(const uint32_t s[4], uint32_t pos,
-                                             uint32_t o[16]) {
-  const uint32_t init[16] = {kSigma0, kSigma1, kSigma2, kSigma3,
-                             s[3],    s[2],    s[1],    s[0],
-                             0u,      0u,      0u,      0u,
-                             0u,      pos,     0u,      0u};
-  uint32_t x[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) x[i] = init[i];
-#pragma unroll
-  for (int r = 0; r < 6; ++r) {
-    CHACHA_QR(0, 4, 8, 12)
-    CHACHA_QR(1, 5, 9, 13)
-    CHACHA_QR(2, 6, 10, 14)
-    CHACHA_QR(3, 7, 11, 15)
-    CHACHA_QR(0, 5, 10, 15)
-    CHACHA_QR(1, 6, 11, 12)
-    CHACHA_QR(2, 7, 8, 13)
-    CHACHA_QR(3, 4, 9, 14)
-  }
-#pragma unroll
-  for (int i = 0; i < 16; ++i) o[i] = x[i] + init[i];
-}
-
-__device__ __forceinline__ void salsa_block(const uint32_t s[4], uint32_t pos,
-                                            uint32_t o[16]) {
-  const uint32_t init[16] = {kSigma0, s[3], s[2],    s[1],
-                             s[0],    kSigma1, 0u,   0u,
-                             0u,      pos,  kSigma2, 0u,
-                             0u,      0u,   0u,      kSigma3};
-  uint32_t x[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) x[i] = init[i];
-#pragma unroll
-  for (int r = 0; r < 6; ++r) {
-    SALSA_QR(0, 4, 8, 12)
-    SALSA_QR(5, 9, 13, 1)
-    SALSA_QR(10, 14, 2, 6)
-    SALSA_QR(15, 3, 7, 11)
-    SALSA_QR(0, 1, 2, 3)
-    SALSA_QR(5, 6, 7, 4)
-    SALSA_QR(10, 11, 8, 9)
-    SALSA_QR(15, 12, 13, 14)
-  }
-#pragma unroll
-  for (int i = 0; i < 16; ++i) o[i] = x[i] + init[i];
-}
-
-// PRF ids: 1 Salsa20-12, 2 ChaCha20-12, 4 Salsa20-12 block-PRG,
-// 5 ChaCha20-12 block-PRG.
-template <int PRF>
-__device__ __forceinline__ void core_block(const uint32_t s[4], uint32_t pos,
-                                           uint32_t o[16]) {
-  if (PRF == 2 || PRF == 5) {
-    chacha_block(s, pos, o);
-  } else {
-    salsa_block(s, pos, o);
-  }
-}
-
 // PRF(seed, br) for one branch br in {0, 1, 2, 3}, as little-endian limbs.
 template <int PRF>
 __device__ __forceinline__ void prf_child(const uint32_t s[4], uint32_t br,
                                           uint32_t v[4]) {
   uint32_t o[16];
   if (PRF == 4 || PRF == 5) {
-    core_block<PRF>(s, 0u, o);
+    dpf::core_block<PRF>(s, 0u, o);
 #pragma unroll
     for (uint32_t g = 0; g < 4; ++g) {
       if (g == br) {
@@ -175,10 +94,10 @@ __device__ __forceinline__ void prf_child(const uint32_t s[4], uint32_t br,
       }
     }
   } else if (PRF == 2) {
-    chacha_block(s, br, o);
+    dpf::chacha_block(s, br, o);
     v[0] = o[7]; v[1] = o[6]; v[2] = o[5]; v[3] = o[4];
   } else {
-    salsa_block(s, br, o);
+    dpf::salsa_block(s, br, o);
     v[0] = o[4]; v[1] = o[3]; v[2] = o[2]; v[3] = o[1];
   }
 }
@@ -195,7 +114,7 @@ __device__ __forceinline__ void expand_node(const uint32_t s[4], int a,
   const uint32_t* cw = ((s[0] & 1u) ? cw2s : cw1s) + 4 * off;
   if constexpr (PRF == 4 || PRF == 5) {
     uint32_t o[16];
-    core_block<PRF>(s, 0u, o);
+    dpf::core_block<PRF>(s, 0u, o);
 #pragma unroll
     for (int b = 0; b < A; ++b) {
       const uint32_t v[4] = {o[4 * b + 3], o[4 * b + 2], o[4 * b + 1],

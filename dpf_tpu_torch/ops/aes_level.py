@@ -36,15 +36,18 @@ def aes_level_step_plain(seeds: torch.Tensor, cw1_lvl: torch.Tensor,
     return _level_step_multi(seeds, cw1_lvl, cw2_lvl, PRF_AES128, arity)
 
 
-def _check(seeds, cw1_lvl, cw2_lvl, arity) -> None:
+def check_level_operands(seeds, cw1_lvl, cw2_lvl, arity,
+                         name="aes_level_step") -> None:
+    """The layout a level-step kernel takes, checked on every device:
+    seeds [B, w, 4] contiguous, codewords [B, arity, 4] with contiguous
+    (branch, limb) axes and equal strides."""
     if arity not in (2, 4):
-        raise ValueError("aes_level_step: arity must be 2 or 4, got %r"
-                         % (arity,))
+        raise ValueError("%s: arity must be 2 or 4, got %r" % (name, arity))
     for t in (seeds, cw1_lvl, cw2_lvl):
         if t.dtype != torch.int32:
-            raise TypeError("aes_level_step takes int32 limb tensors")
+            raise TypeError("%s takes int32 limb tensors" % name)
         if t.device != seeds.device:
-            raise ValueError("aes_level_step operands on different devices")
+            raise ValueError("%s operands on different devices" % name)
     if seeds.dim() != 3 or seeds.shape[2] != 4:
         raise ValueError("seeds must be [B, w, 4], got %s"
                          % (tuple(seeds.shape),))
@@ -52,18 +55,17 @@ def _check(seeds, cw1_lvl, cw2_lvl, arity) -> None:
         if tuple(cw.shape) != (seeds.shape[0], arity, 4):
             raise ValueError("level codewords must be [B, %d, 4], got %s"
                              % (arity, tuple(cw.shape)))
-    # the kernel's layout, checked on every device so CPU runs catch it
     if not seeds.is_contiguous():
-        raise ValueError("aes_level_step: seeds must be contiguous")
+        raise ValueError("%s: seeds must be contiguous" % name)
     if cw1_lvl.stride() != cw2_lvl.stride() or cw1_lvl.stride()[1:] != (4, 1):
-        raise ValueError("aes_level_step: codewords need contiguous "
-                         "(branch, limb) axes and equal strides")
+        raise ValueError("%s: codewords need contiguous (branch, limb) axes "
+                         "and equal strides" % name)
 
 
 def aes_level_step(seeds: torch.Tensor, cw1_lvl: torch.Tensor,
                    cw2_lvl: torch.Tensor, arity: int = 2) -> torch.Tensor:
     """One AES-128 GGM level; K1 on CUDA tensors, plain on CPU ones."""
-    _check(seeds, cw1_lvl, cw2_lvl, arity)
+    check_level_operands(seeds, cw1_lvl, cw2_lvl, arity)
     if seeds.device.type == "cpu":
         return aes_level_step_plain(seeds, cw1_lvl, cw2_lvl, arity)
     if seeds.device.type != "cuda":

@@ -46,6 +46,12 @@ SOURCES = {
     "contract": ({"contract_i32_launch": [_P, _LL, _LL, _P, _P, _LL, _LL,
                                           _I, _I, _P]},
                  "contract_i32_error_string"),
+    "sqrt_grid": ({"sqrt_grid_launch": [_P, _LL, _P, _P, _LL, _P, _P]
+                   + [_I] * 5 + [_LL, _I, _P]},
+                  "sqrt_grid_error_string"),
+    "chacha_level": ({"chacha_level_launch": [_P, _P, _P, _LL, _P, _LL, _LL,
+                                              _P]},
+                     "chacha_level_error_string"),
 }
 
 

@@ -1,0 +1,159 @@
+"""Fused sqrt-N PRF grid + table contraction: plain version and K4.
+
+Port of ``dpf_tpu/ops/pallas_sqrt.py::sqrt_grid_contract_pallas``.  For
+each key ``b`` and cell ``x = r*K + c`` of the ``[R, K]`` grid the leaf
+share is ``PRF(seeds[b, c], row0 + r) + (lsb(seeds[b, c]) ? cw2 : cw1)
+[b, r]`` mod 2^128; its low 32 bits are contracted against the
+natural-order table row ``x``:
+
+    out[b, e] = sum_x leaf32[b, x] * table[x, e]   (mod 2^32)
+
+seeds ``[B, K, 4]``, codewords ``[B, R, 4]`` (int32 limbs read as
+uint32, any key stride), table ``[R*K, E]`` int32 -> ``[B, E]`` int32.
+``row0`` is the absolute row of the table's first row (the per-shard
+row base of the JAX launcher); positions are ``row0 + r``.  Only the low
+limb is contracted and 128-bit adds carry upward only, so the codeword
+add needs the low limb alone.
+
+* ``sqrt_grid_contract_plain`` -- the plain version: the port of the
+  JAX row-chunked scan (``sqrtn._eval_contract_batched_jit``), a
+  ``[B, rc, K]`` slab of PRF values per step.
+* ``sqrt_grid_contract`` -- the wrapper: CUDA tensors launch K4
+  (``csrc/sqrt_grid.cu``) for every PRF id 0-5 (the TPU kernel takes
+  ids 1, 2, 4, 5; JAX runs AES and DUMMY through the scan, which gives
+  the same bits), CPU tensors take the plain version.
+
+The Mosaic-only variant knobs of the TPU launcher (``grid_order``,
+``dim_semantics``, ``limbs``, ``cw_add``) are not ported (ROADMAP Queue
+1 item 16).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core import sqrtn
+from ..core.prf import _BLK_WORDS
+from ..core.prf_ref import PRF_NAMES
+from . import cuda_build
+from .matmul128 import dot_i32_plain
+
+# the TPU kernel's cell budget per row tile (PALLAS_SQRT_MAX_CELLS); here
+# it sets the rows of K4's grid step, not a memory bound
+MAX_CELLS = 2048
+
+
+def sqrt_grid_unsupported(prf_method: int, r: int,
+                          row0: int = 0) -> str | None:
+    """Why the grid kernel cannot take this call (None = it can).
+
+    The block-PRG ids evaluate one core block per four rows, so the
+    four rows of a block must not straddle a call: ``row0`` must be a
+    multiple of 4 for them.  K4's threads own whole quads of absolute
+    rows and mask the rows past R, so the TPU kernel's ``R % 4`` rule
+    (``pallas_sqrt_unsupported``) does not apply to the row count."""
+    if prf_method not in PRF_NAMES:
+        return "unknown PRF id %r" % (prf_method,)
+    if prf_method in _BLK_WORDS and int(row0) % 4:
+        return ("block-PRG sqrt-N grid kernel needs row0 (%d) to be a "
+                "multiple of 4 (one core block serves 4 rows; R=%d)"
+                % (int(row0), r))
+    return None
+
+
+def sqrt_row_chunk(r: int, k: int, row_chunk: int | None = None) -> int:
+    """Grid rows per K4 grid step (port of ``pallas_sqrt_row_chunk``):
+    explicit values obey the shared row-chunk rules
+    (``sqrtn._resolve_row_chunk``) and are then halved down to the cell
+    cap; None starts from R.  The bits do not depend on it."""
+    rc = r if row_chunk is None else sqrtn._resolve_row_chunk(r, k, 1,
+                                                              row_chunk)
+    # halving preserves "divides R"; the %8 guard keeps rc a multiple of
+    # 4 all the way down to the 4-row interleave floor
+    while rc * k > MAX_CELLS and rc > sqrtn.ROW_CHUNK_FLOOR and rc % 8 == 0:
+        rc //= 2
+    return rc
+
+
+def _check(seeds, cw1, cw2, table, prf_method, row0) -> tuple:
+    """Shapes, types, devices and layout -> (B, K, R, E); raises on what
+    the kernel does not take, on every device."""
+    for t in (seeds, cw1, cw2, table):
+        if t.dtype != torch.int32:
+            raise TypeError("sqrt_grid_contract takes int32 tensors")
+        if t.device != seeds.device:
+            raise ValueError("sqrt_grid_contract operands on different "
+                             "devices")
+    if seeds.dim() != 3 or seeds.shape[2] != 4:
+        raise ValueError("seeds must be [B, K, 4], got %s"
+                         % (tuple(seeds.shape),))
+    bsz, k, _ = seeds.shape
+    if cw1.dim() != 3 or cw1.shape[0] != bsz or cw1.shape[2] != 4 or \
+            cw2.shape != cw1.shape:
+        raise ValueError("codewords must be [B, R, 4], got %s and %s"
+                         % (tuple(cw1.shape), tuple(cw2.shape)))
+    r = cw1.shape[1]
+    if table.dim() != 2 or table.shape[0] != r * k:
+        raise ValueError("table must be [R*K, E] = [%d, E], got %s"
+                         % (r * k, tuple(table.shape)))
+    if not 0 <= int(row0) < 1 << 32:
+        raise ValueError("row0 (%d) must be a uint32" % int(row0))
+    reason = sqrt_grid_unsupported(prf_method, r, row0)
+    if reason:
+        raise ValueError(reason)
+    # the kernel's layout, checked on every device so CPU runs catch it
+    if seeds.stride()[1:] != (4, 1) or cw1.stride()[1:] != (4, 1) or \
+            cw1.stride() != cw2.stride() or not table.is_contiguous():
+        raise ValueError("sqrt_grid_contract: seeds and codewords need "
+                         "contiguous (row, limb) axes and equal codeword "
+                         "strides; the table must be contiguous")
+    return bsz, k, r, table.shape[1]
+
+
+def sqrt_grid_contract_plain(seeds, cw1, cw2, table, *, prf_method: int,
+                             row_chunk: int | None = None,
+                             row0: int = 0) -> torch.Tensor:
+    """Plain PyTorch: ``row_chunk`` rows at a time (None = the scan's
+    ``choose_row_chunk``), the low limb of PRF + selected codeword, and
+    the wrapping int32 product against the chunk's table rows."""
+    bsz, k, r, e = _check(seeds, cw1, cw2, table, prf_method, row0)
+    rc = sqrtn._resolve_row_chunk(r, k, bsz, row_chunk)
+    sel = (seeds[:, None, :, 0] & 1).bool()                # [B, 1, K]
+    acc = torch.zeros((bsz, e), dtype=torch.int32, device=seeds.device)
+    for lo in range(0, r, rc):
+        vals = sqrtn._grid_vals(
+            prf_method, lambda nr: seeds[:, None].expand(bsz, nr, k, 4), rc,
+            row0=int(row0) + lo, device=seeds.device)      # [B, rc, K, 4]
+        cw = torch.where(sel, cw2[:, lo:lo + rc, None, 0],
+                         cw1[:, lo:lo + rc, None, 0])      # [B, rc, K]
+        leaves = (vals[..., 0] + cw).reshape(bsz, rc * k)
+        acc = acc + dot_i32_plain(leaves, table[lo * k:(lo + rc) * k])
+    return acc
+
+
+def sqrt_grid_contract(seeds, cw1, cw2, table, *, prf_method: int,
+                       row_chunk: int | None = None,
+                       row0: int = 0) -> torch.Tensor:
+    """Fused sqrt-N grid expand + contract; K4 on CUDA tensors, plain on
+    CPU ones.  Returns [B, E] int32."""
+    bsz, k, r, e = _check(seeds, cw1, cw2, table, prf_method, row0)
+    if seeds.device.type == "cpu":
+        return sqrt_grid_contract_plain(seeds, cw1, cw2, table,
+                                        prf_method=prf_method,
+                                        row_chunk=row_chunk, row0=row0)
+    if seeds.device.type != "cuda":
+        raise ValueError("sqrt_grid_contract: unsupported device %s"
+                         % seeds.device)
+    rc = sqrt_row_chunk(r, k, row_chunk)
+    out = torch.zeros((bsz, e), dtype=torch.int32, device=seeds.device)
+    with torch.cuda.device(seeds.device):
+        cuda_build.launch(
+            "sqrt_grid", "sqrt_grid_launch", seeds.data_ptr(),
+            seeds.stride(0), cw1.data_ptr(), cw2.data_ptr(), cw1.stride(0),
+            table.data_ptr(), out.data_ptr(), bsz, k, r, rc, e, int(row0),
+            prf_method, torch.cuda.current_stream().cuda_stream)
+    sqrt_grid_contract.launches += 1
+    return out
+
+
+sqrt_grid_contract.launches = 0

@@ -25,6 +25,14 @@ and the bit-reversed table ``[N, E]`` -> ``[B, E]`` int32 shares:
   ``radix4.cw_offsets(ars)`` and the table is digit-reversed
   (``radix4.mixed_reverse_indices``).  ``block_leaves`` must be a product
   of trailing arities.
+* ``chacha_level_step`` / ``chacha_level_step_plain`` -- one ChaCha20-12
+  GGM level, the port of ``pallas_level.chacha_level_step_pallas``:
+  seeds ``[B, w, 4]`` and the level's codewords ``[B, 2, 4]`` ->
+  children ``[B, 2w, 4]``, child b of node j at ``2j + b``, with the
+  full 128-bit codeword add.  CUDA tensors launch K5
+  (``csrc/chacha_level.cu``).  Like the JAX function it is on no path:
+  it is kept to hold and time one level of the stream cipher against
+  K1's AES level.
 """
 
 from __future__ import annotations
@@ -35,8 +43,10 @@ import numpy as np
 import torch
 
 from ..core.expand import SUBTREE_PRFS, _level_step_multi, choose_group
+from ..core.prf_ref import PRF_CHACHA20
 from ..core.radix4 import _suffix_chunk, cw_offsets
 from . import cuda_build
+from .aes_level import check_level_operands
 from .matmul128 import dot_i32_plain
 
 MAX_BLOCK_LEAVES = 4096   # leaves one K2 block keeps in shared memory
@@ -246,3 +256,34 @@ def subtree_contract_mixed(frontier, cw1, cw2, table_perm, *, ars,
 
 
 subtree_contract_mixed.launches = 0
+
+
+def chacha_level_step_plain(seeds: torch.Tensor, cw1_lvl: torch.Tensor,
+                            cw2_lvl: torch.Tensor) -> torch.Tensor:
+    """[B, w, 4] seeds, [B, 2, 4] codewords -> [B, 2w, 4] children."""
+    return _level_step_multi(seeds, cw1_lvl, cw2_lvl, PRF_CHACHA20, 2)
+
+
+def chacha_level_step(seeds: torch.Tensor, cw1_lvl: torch.Tensor,
+                      cw2_lvl: torch.Tensor) -> torch.Tensor:
+    """One ChaCha20-12 GGM level; K5 on CUDA tensors, plain on CPU
+    ones."""
+    check_level_operands(seeds, cw1_lvl, cw2_lvl, 2, "chacha_level_step")
+    if seeds.device.type == "cpu":
+        return chacha_level_step_plain(seeds, cw1_lvl, cw2_lvl)
+    if seeds.device.type != "cuda":
+        raise ValueError("chacha_level_step: unsupported device %s"
+                         % seeds.device)
+    bsz, w, _ = seeds.shape
+    out = torch.empty((bsz, 2 * w, 4), dtype=torch.int32,
+                      device=seeds.device)
+    with torch.cuda.device(seeds.device):
+        cuda_build.launch(
+            "chacha_level", "chacha_level_launch", seeds.data_ptr(),
+            cw1_lvl.data_ptr(), cw2_lvl.data_ptr(), cw1_lvl.stride(0),
+            out.data_ptr(), bsz, w, torch.cuda.current_stream().cuda_stream)
+    chacha_level_step.launches += 1
+    return out
+
+
+chacha_level_step.launches = 0

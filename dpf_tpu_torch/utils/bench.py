@@ -30,8 +30,9 @@ def test_dpf_perf(N=16384, batch=512, entrysize=16, prf=None, reps=10,
 
     check=True recovers every row of the tiled batch from both servers'
     shares before timing and raises unless each equals its table row.
-    ``config``: an ``EvalConfig`` (e.g. ``EvalConfig(radix=4)``); ``prf``
-    wins over its ``prf_method``.
+    ``config``: an ``EvalConfig`` (e.g. ``EvalConfig(radix=4)`` or
+    ``EvalConfig(scheme="sqrtn")``); ``prf`` wins over its
+    ``prf_method``.
     """
     from ..api import DPF
 
@@ -70,6 +71,7 @@ def test_dpf_perf(N=16384, batch=512, entrysize=16, prf=None, reps=10,
         "batch_size": batch,
         "entry_size": entrysize,
         "prf": dpf.prf_method_string,
+        "scheme": dpf.scheme,
         "radix": dpf.radix,
         "device": (torch.cuda.get_device_name(dpf.device)
                    if dpf.device.type == "cuda" else "cpu"),
@@ -78,7 +80,7 @@ def test_dpf_perf(N=16384, batch=512, entrysize=16, prf=None, reps=10,
         "elapsed_s": elapsed,
         "ms_per_batch": 1e3 * elapsed / reps,
         "dpfs_per_sec": batch * reps / elapsed,
-        "key_size_bytes": 2096,
+        "key_size_bytes": 4 * int(keys[0].numel()),
         "checked": bool(check),
     }
     if not quiet:

@@ -1,11 +1,11 @@
 """Runtime evaluation config.
 
 Port of the ``dpf_tpu/utils/config.py`` ``EvalConfig`` fields this
-package reads: ``prf_method``, ``batch_size`` and ``radix`` (2, the
-binary tree, or 4, the radix-4 tree).  ``scheme`` is accepted so that
-configs written for the JAX package construct here, and ``DPF`` rejects
-every value but ``"logn"`` until sqrt-N and the tuning cache are
-ported.
+package reads: ``prf_method``, ``batch_size``, ``radix`` (2, the binary
+tree, or 4, the radix-4 tree), ``scheme`` (``"logn"``, the GGM trees,
+or ``"sqrtn"``, the sqrt-N grid) and ``row_chunk`` (sqrt-N grid rows per
+step of the grid kernel).  ``DPF`` serves ``"logn"`` and ``"sqrtn"``;
+``"auto"`` needs the tuning cache, not ported yet, and raises.
 """
 
 from __future__ import annotations
@@ -20,4 +20,7 @@ class EvalConfig:
     #                       Salsa20/ChaCha20 block-PRG variants
     batch_size: int = 512  # keys per device dispatch (reference parity)
     radix: int = 2         # 2 = reference-wire binary GGM, 4 = radix-4
-    scheme: str = "logn"   # only "logn" is served (sqrt-N: Queue 1 item 9)
+    scheme: str = "logn"   # "logn" (GGM tree) | "sqrtn" (core/sqrtn.py)
+    row_chunk: int | None = None  # sqrtn: grid rows per step (None =
+    #                       auto; an explicit pin passes straight through
+    #                       and raises if it does not divide R)

@@ -3,8 +3,9 @@
 Runs one warm ``DPF.eval_gpu`` batch per configuration under
 ``torch.profiler`` (CPU + CUDA activities) and prints, per
 configuration, the wall time of the batch, the device time summed per
-kernel name, and the device busy share (summed kernel time over wall
-time; kernels do not overlap on one stream).  Needs a CUDA card:
+kernel name, the device busy share (summed kernel time over wall time;
+kernels do not overlap on one stream) and the host time (wall minus
+device).  Needs a CUDA card:
 
     python -m dpf_tpu_torch.utils.profile_batch
 
@@ -22,11 +23,15 @@ import time
 import numpy as np
 import torch
 
-# (prf id, N, radix): the full-width and headline configurations, and
-# the stream ciphers in both trees
+# (prf id, N, radix, scheme): the full-width and headline configurations,
+# the stream ciphers in both trees, and the sqrt-N grid
 CONFIGS = (
-    (3, 1 << 20, 2), (2, 1 << 20, 2), (3, 1 << 16, 2), (5, 1 << 20, 2),
-    (3, 1 << 20, 4), (2, 1 << 20, 4), (5, 1 << 20, 4))
+    (3, 1 << 20, 2, "logn"), (2, 1 << 20, 2, "logn"),
+    (3, 1 << 16, 2, "logn"), (5, 1 << 20, 2, "logn"),
+    (3, 1 << 20, 4, "logn"), (2, 1 << 20, 4, "logn"),
+    (5, 1 << 20, 4, "logn"),
+    (3, 1 << 20, 2, "sqrtn"), (5, 1 << 20, 2, "sqrtn"),
+    (2, 1 << 20, 2, "sqrtn"), (3, 1 << 16, 2, "sqrtn"))
 
 
 def _device_us(evt) -> float:
@@ -37,11 +42,12 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_config(prf: int, n: int, radix: int = 2, batch: int = 512,
-                   entry: int = 16, distinct: int = 16) -> dict:
+def profile_config(prf: int, n: int, radix: int = 2, scheme: str = "logn",
+                   batch: int = 512, entry: int = 16,
+                   distinct: int = 16) -> dict:
     from ..api import DPF
     from .config import EvalConfig
-    dpf = DPF(prf=prf, config=EvalConfig(radix=radix))
+    dpf = DPF(prf=prf, config=EvalConfig(radix=radix, scheme=scheme))
     table = np.random.default_rng(1).integers(0, 2 ** 31, (n, entry),
                                               dtype=np.int32)
     dpf.eval_init(table)
@@ -65,10 +71,12 @@ def profile_config(prf: int, n: int, radix: int = 2, batch: int = 512,
             kernels[evt.key] = {"ms": us / 1e3, "count": evt.count}
     device_ms = sum(k["ms"] for k in kernels.values())
     return {
-        "prf": dpf.prf_method_string, "radix": radix, "N": n, "E": entry,
+        "prf": dpf.prf_method_string, "scheme": scheme, "radix": radix,
+        "N": n, "E": entry,
         "B": batch,
         "wall_ms": wall_ms,
         "device_ms": device_ms if kernels else None,
+        "host_ms": wall_ms - device_ms if kernels else None,
         "busy_share": device_ms / wall_ms if kernels else None,
         "kernels": dict(sorted(kernels.items(),
                                key=lambda kv: -kv[1]["ms"])),
@@ -83,8 +91,8 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    for prf, n, radix in CONFIGS:
-        print(json.dumps(profile_config(prf, n, radix)), flush=True)
+    for prf, n, radix, scheme in CONFIGS:
+        print(json.dumps(profile_config(prf, n, radix, scheme)), flush=True)
     print(smi)
 
 

@@ -152,8 +152,11 @@ def test_more_keys_than_batch_size():
 
 
 def test_unported_constructions_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        dpf_tpu_torch.DPF(scheme="sqrtn", device="cpu")
+    sq = dpf_tpu_torch.DPF(scheme="sqrtn", device="cpu")
+    assert sq.scheme == "sqrtn" and sq.radix == 2
+    with pytest.raises(ValueError, match="no radix"):
+        dpf_tpu_torch.DPF(scheme="sqrtn", config=EvalConfig(radix=4),
+                          device="cpu")
     radix4 = dpf_tpu_torch.DPF(config=EvalConfig(radix=4), device="cpu")
     assert radix4.radix == 4 and radix4.prf_method == dpf_tpu_torch.PRF_AES128
     with pytest.raises(ValueError, match="radix"):

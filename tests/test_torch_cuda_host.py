@@ -23,7 +23,8 @@ import numpy as np
 import pytest
 import torch
 
-from dpf_tpu_torch.ops import aes_level, cuda_build, matmul128, subtree
+from dpf_tpu_torch.ops import (aes_level, cuda_build, matmul128, sqrt_grid,
+                               subtree)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -273,3 +274,60 @@ def test_subtree_mixed_kernel_on_host_rejects_bad_schedule(
     z = torch.zeros(2, 64, 4, dtype=torch.int32)
     assert _subtree_launch(host_libs["subtree"], z[:1, :f_cnt], z, z, z,
                            z[:1, 0, :1], sched, 0, log_cb, prf) != 0
+
+
+def _sqrt_launch(lib, seeds, cw1, cw2, tbl, out, rc, row0, method):
+    return lib.sqrt_grid_launch(
+        seeds.data_ptr(), seeds.stride(0), cw1.data_ptr(), cw2.data_ptr(),
+        cw1.stride(0), tbl.data_ptr(), out.data_ptr(), out.shape[0],
+        seeds.shape[1], cw1.shape[1], rc, out.shape[1], row0, method, None)
+
+
+@pytest.mark.parametrize("method", range(6))
+@pytest.mark.parametrize("bsz,k,r,rc,e,row0", [
+    (3, 32, 16, 16, 5, 0),      # K < the block's 256 threads, one step
+    (1, 64, 32, 4, 16, 0),      # odd log N (N = 2^11): K != R, 8 steps
+    (9, 512, 8, 4, 3, 8),       # two column sub-tiles, two key tiles
+    (2, 16, 2, 2, 1, 0),        # R = 2: rows of the last quad masked
+    (3, 32, 8, 8, 2, 1 << 31),  # row0 past 2^31
+])
+def test_sqrt_grid_kernel_on_host(host_libs, method, bsz, k, r, rc, e,
+                                  row0):
+    """K4 through the host shim against its plain version: the key
+    stride is the wire's (seeds and codewords are views of one buffer)."""
+    rng = np.random.default_rng(k * 7 + r + method)
+    wire = _rnd(rng, bsz, 4 * (k + 2 * r))
+    seeds = wire[:, :4 * k].unflatten(1, (k, 4))
+    cw1 = wire[:, 4 * k:4 * (k + r)].unflatten(1, (r, 4))
+    cw2 = wire[:, 4 * (k + r):].unflatten(1, (r, 4))
+    tbl = _rnd(rng, r * k, e)
+    out = torch.zeros(bsz, e, dtype=torch.int32)
+    assert _sqrt_launch(host_libs["sqrt_grid"], seeds, cw1, cw2, tbl, out,
+                        rc, row0, method) == 0
+    assert torch.equal(out, sqrt_grid.sqrt_grid_contract_plain(
+        seeds, cw1, cw2, tbl, prf_method=method, row0=row0))
+
+
+@pytest.mark.parametrize("method,rc,row0", [
+    (6, 4, 0),          # unknown PRF id
+    (5, 4, 2),          # block-PRG row0 inside a quad
+    (4, 2, 0),          # block-PRG chunk of 2 rows out of 8
+    (2, 16, 0),         # chunk longer than R
+])
+def test_sqrt_grid_kernel_on_host_rejects(host_libs, method, rc, row0):
+    z = torch.zeros(1, 64, 4, dtype=torch.int32)
+    tbl = torch.zeros(8 * 8, 1, dtype=torch.int32)
+    assert _sqrt_launch(host_libs["sqrt_grid"], z[:, :8], z[:, :8], z[:, :8],
+                        tbl, z[:, 0, :1], rc, row0, method) != 0
+
+
+@pytest.mark.parametrize("bsz,w", [(1, 1), (3, 5), (2, 300)])
+def test_chacha_level_kernel_on_host(host_libs, bsz, w):
+    rng = np.random.default_rng(bsz * 100 + w)
+    seeds, cw = _rnd(rng, bsz, w, 4), _rnd(rng, bsz, 64, 4)
+    c1, c2 = cw[:, 10:12], cw[:, 40:42]
+    out = torch.empty(bsz, 2 * w, 4, dtype=torch.int32)
+    assert host_libs["chacha_level"].chacha_level_launch(
+        seeds.data_ptr(), c1.data_ptr(), c2.data_ptr(), c1.stride(0),
+        out.data_ptr(), bsz, w, None) == 0
+    assert torch.equal(out, subtree.chacha_level_step_plain(seeds, c1, c2))

@@ -21,7 +21,9 @@ def _forbidden(name: str) -> bool:
 def test_import_loads_no_jax_and_no_dpf_tpu():
     code = ("import sys, dpf_tpu_torch, dpf_tpu_torch.interop, "
             "dpf_tpu_torch.sample, dpf_tpu_torch.utils.bench; "
-            "import dpf_tpu_torch.ops.aes_level, dpf_tpu_torch.ops.subtree; "
+            "import dpf_tpu_torch.ops.aes_level, dpf_tpu_torch.ops.subtree, "
+            "dpf_tpu_torch.ops.sqrt_grid, dpf_tpu_torch.core.sqrtn, "
+            "dpf_tpu_torch.utils.profile_batch; "
             "print('\\n'.join(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
