@@ -9,8 +9,9 @@ CUDA toolkit:
 Phases (any failure raises and the script exits non-zero):
 
 1. build every CUDA kernel from ``dpf_tpu_torch/csrc`` (one ``nvcc`` per
-   source, all at once), print the build time and ``ptxas``' registers
-   and spills per kernel;
+   source, all at once), print the build time, ``ptxas``' registers
+   and spills per kernel, and K1's instructions per node from its SASS
+   (``utils/sass_count.py``, where the toolkit has ``cuobjdump``);
 2. hold each kernel against its plain PyTorch version on the card, bit
    for bit: small shapes, ragged batches (B = 1, 3, 33), odd and even
    depths for the radix-4 subtree kernel, every PRF id and a row base
@@ -18,7 +19,9 @@ Phases (any failure raises and the script exits non-zero):
    N = 2^20, E = 16); time kernel, plain version and, for the
    contraction, the ``torch._int_mm`` byte-limb decomposition as the
    library yardstick; the ChaCha level step (on no path) at K1's widest
-   shape;
+   shape; beside each bound, the AES kernels' lookup floor (their
+   shared-memory table lookups at one warp-wide lookup per SM per
+   clock);
 3. the sample flow for PRF ids 0-5, binary tree at N = 16384, radix-4
    tree and sqrt-N grid at N = 16384 and 8192 (odd depth): two ``DPF``
    servers answer 8 distinct indices, the client recovers each row
@@ -34,7 +37,11 @@ Phases (any failure raises and the script exits non-zero):
    sqrt-N), every count set to 0 just before the path and read just
    after; each kernel of a path must have been launched in its run, the
    sqrt-N path once per 512-key batch and nothing else, and the launches
-   per 512-key batch of each full-width configuration are printed.
+   per 512-key batch of each full-width configuration are printed; then
+   one binary and one radix-4 AES batch at N = 2^20 under
+   ``torch.profiler`` give K1's device time summed over a batch's
+   launches, beside the bound and lookup floor summed over the same
+   work.
 
 The last lines are the card's name and power limit, one
 ``{"kernels": [...]}`` line, and ``{"ok": true, "device": {...}}``.
@@ -53,22 +60,36 @@ import time
 import torch
 
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
-PEAK_OPS_PER_S = 67e12       # H100 SXM fp32 non-tensor rate (same sheet)
+# Instruction issue rate: 132 SMs x 4 warp schedulers x 32 lanes x the
+# 1.98 GHz boost clock (H100 SXM data sheet, Hopper architecture white
+# paper).  The kernels' work is 32-bit integer instructions and none is a
+# fused multiply-add, which the 67 TFLOP/s fp32 rate counts as two; the
+# INT32 pipe alone has half this rate (16 lanes per scheduler).
+PEAK_INSTR_PER_S = 132 * 4 * 32 * 1.98e9
+# Shared-memory lookups: one wavefront of 32 banks x 4 bytes per SM per
+# clock, 32 lanes' lookups when no two lanes hit one bank
+LOOKUPS_PER_S = 132 * 32 * 1.98e9
 
-# 32-bit operations per unit of work, counted from the kernels' code
-# (each rotate, shift, mask, table lookup, add, xor or multiply is one):
-# AES-128 node = key schedule (10 x ~22) + A blocks x (9 full rounds x
-# ~60 + final round ~52) + A x add128 (~10) + select, A = 2 or 4
-OPS_AES_NODE = 10 * 22 + 2 * (9 * 60 + 52) + 2 * 10 + 10
-OPS_AES_NODE_A4 = 10 * 22 + 4 * (9 * 60 + 52) + 4 * 10 + 10
+# 32-bit instructions per unit of work, counted from the kernels' code
+# (each byte permute, table lookup, rotate, shift, mask, add, xor or
+# multiply is one).  The AES core (csrc/aes_ttable.cuh): a round is 16
+# lookups x (permute + load) + 4 rotations + 12 xors = 48, the last
+# round 16 x 2 + 12 permutes + 4 xors = 48, a key-schedule step
+# 4 x 2 + 3 permutes + 4 xors = 15; an AES-128 node = key schedule + A
+# blocks + A x add128 (~10) + select, A = 2 or 4
+OPS_AES_BLOCK = 10 * 48
+OPS_AES_SCHEDULE = 10 * 15
+OPS_AES_NODE = OPS_AES_SCHEDULE + 2 * OPS_AES_BLOCK + 2 * 10 + 10
+OPS_AES_NODE_A4 = OPS_AES_SCHEDULE + 4 * OPS_AES_BLOCK + 4 * 10 + 10
+# table lookups: a key schedule takes 40, a block 160
+LOOKUPS_AES_SCHEDULE = 40
+LOOKUPS_AES_BLOCK = 160
 # Salsa/ChaCha-12 core block = 48 quarter rounds x 12 ops + 16 adds
 OPS_CORE_BLOCK = 48 * 12 + 16
 OPS_CHILD_ADD = 12           # add128 + codeword select per child
-# sqrt-N grid cell: one AES block (9 x 60 + 52, a quarter key schedule:
-# one serves a quad of rows) or one core block (a quarter for the
-# block-PRG ids), then select + add (3) and 2 per table column
-OPS_AES_BLOCK = 9 * 60 + 52
-OPS_AES_SCHEDULE = 10 * 22
+# sqrt-N grid cell: one AES block and a quarter key schedule (one serves a
+# quad of rows) or one core block (a quarter for the block-PRG ids), then
+# select + add (3) and 2 per table column
 
 
 def log(*a):
@@ -88,6 +109,7 @@ def main() -> int:
     from dpf_tpu_torch.core import radix4, sqrtn
     from dpf_tpu_torch.ops import (aes_level, cuda_build, matmul128,
                                    sqrt_grid, subtree)
+    from dpf_tpu_torch.utils import profile_batch, sass_count
     from dpf_tpu_torch.utils.bench import test_dpf_perf
 
     dev = torch.device("cuda")
@@ -121,18 +143,28 @@ def main() -> int:
         sync()
         return start.elapsed_time(end) / reps
 
+    def bound(work):
+        """The larger of bytes over the memory rate and instructions over
+        the issue rate, in ms, and which one it is; beside it the lookup
+        floor of the AES kernels (None for the others)."""
+        by_bytes = work["bytes"] / PEAK_BYTES_PER_S
+        by_ops = work["ops"] / PEAK_INSTR_PER_S
+        lookups = work.get("lookups")
+        return (1e3 * max(by_bytes, by_ops),
+                "bytes" if by_bytes >= by_ops else "operations",
+                None if lookups is None else 1e3 * lookups / LOOKUPS_PER_S)
+
     def log_row(name, r):
-        """Fill a timing row's bound (the larger of bytes over the memory
-        rate and operations over the peak rate) and print the row."""
-        r["bound_ms"] = 1e3 * max(r["bytes"] / PEAK_BYTES_PER_S,
-                                  r["ops"] / PEAK_OPS_PER_S)
-        r["bound_by"] = ("bytes" if r["bytes"] / PEAK_BYTES_PER_S
-                         >= r["ops"] / PEAK_OPS_PER_S else "operations")
+        """Fill a timing row's bound and lookup floor and print the row."""
+        r["bound_ms"], r["bound_by"], r["lookup_floor_ms"] = bound(r)
         log("  %-22s %-44s ms %.4f  plain_ms %.2f  bound_ms %.4f (%s)  "
-            "library_ms %s" % (name, r["shape"], r["ms"], r["plain_ms"],
-                               r["bound_ms"], r["bound_by"],
-                               "%.4f" % r["library_ms"]
-                               if r["library_ms"] is not None else "null"))
+            "lookup_floor_ms %s  library_ms %s"
+            % (name, r["shape"], r["ms"], r["plain_ms"], r["bound_ms"],
+               r["bound_by"],
+               "%.4f" % r["lookup_floor_ms"]
+               if r["lookup_floor_ms"] is not None else "null",
+               "%.4f" % r["library_ms"]
+               if r["library_ms"] is not None else "null"))
 
     def held(name, got, want):
         sync()
@@ -157,6 +189,14 @@ def main() -> int:
             if any(w in line for w in ("entry function", "registers",
                                        "spill")):
                 log("  %s: %s" % (name, line.strip()))
+    try:
+        sass = sass_count.k1_counts()
+    except (OSError, subprocess.CalledProcessError, ValueError) as exc:
+        sass = {}
+        log("  K1 SASS: not counted (%s)" % exc)
+    for arity, c in sorted(sass.items()):
+        log("  K1 %s SASS: %d instructions and %d LDS per node (%s)"
+            % (arity, c["instructions"], c["lds"], json.dumps(c)))
 
     # ---------------------------------------- 2. kernels vs plain versions
     log("phase 2 kernels against their plain versions")
@@ -167,8 +207,9 @@ def main() -> int:
     rows = {}
 
     # K1: AES level step; the AES path's widest call at N = 2^20, B = 512
-    # (choose_chunk -> C = 8192, choose_group -> 32 subtrees) is w = 2^17
-    for bsz, w in ((3, 5), (1, 1), (33, 64), (512, 1 << 17)):
+    # (choose_chunk -> C = 8192, choose_group -> 32 subtrees) is w = 2^17.
+    # 5 x 40013 nodes: not a multiple of 32, more than one grid stride
+    for bsz, w in ((3, 5), (1, 1), (33, 64), (5, 40013), (512, 1 << 17)):
         seeds, cw1, cw2 = rnd(bsz, w, 4), rnd(bsz, 64, 4), rnd(bsz, 64, 4)
         c1, c2 = cw1[:, 6:8], cw2[:, 6:8]
         errs["aes_level_step"] |= held(
@@ -183,13 +224,14 @@ def main() -> int:
         library_ms=None,
         bytes=nodes * 16 + 2 * bsz * 2 * 16 + 2 * nodes * 16,
         ops=nodes * OPS_AES_NODE,
+        lookups=nodes * (LOOKUPS_AES_SCHEDULE + 2 * LOOKUPS_AES_BLOCK),
         shape="B=%d w=%d -> 2w (one level)" % (bsz, w))
     del seeds, cw1, cw2, c1, c2
 
     # K1 at arity 4; the radix-4 AES path's widest call at N = 2^20,
     # B = 512 (C = 4096 leaves per frontier node, 64 nodes per group) is
     # w = 2^16 -> 2^18
-    for bsz, w in ((3, 5), (1, 1), (33, 64), (512, 1 << 16)):
+    for bsz, w in ((3, 5), (1, 1), (33, 64), (5, 40013), (512, 1 << 16)):
         seeds, cw1, cw2 = rnd(bsz, w, 4), rnd(bsz, 64, 4), rnd(bsz, 64, 4)
         c1, c2 = cw1[:, 6:10], cw2[:, 6:10]
         errs["aes_level_step_a4"] |= held(
@@ -205,6 +247,7 @@ def main() -> int:
         library_ms=None,
         bytes=nodes * 16 + 2 * bsz * 4 * 16 + 4 * nodes * 16,
         ops=nodes * OPS_AES_NODE_A4,
+        lookups=nodes * (LOOKUPS_AES_SCHEDULE + 4 * LOOKUPS_AES_BLOCK),
         shape="B=%d w=%d -> 4w (one radix-4 level)" % (bsz, w))
     del seeds, cw1, cw2, c1, c2
 
@@ -413,6 +456,8 @@ def main() -> int:
             bytes=bsz * k * 16 + 2 * bsz * r * 16 + n * 16 * 4
             + bsz * 16 * 4,
             ops=sqrt_ops(prf, bsz * n, 16),
+            lookups=bsz * n * (LOOKUPS_AES_BLOCK + LOOKUPS_AES_SCHEDULE // 4)
+            if prf == dpf_tpu_torch.PRF_AES128 else None,
             shape="prf %d sqrt-N B=%d N=2^20 (K=R=%d, rc=%d) E=16"
                   % (prf, bsz, k, rc))
         log_row("sqrt_grid_contract", sqrt_rows[prf])
@@ -596,6 +641,36 @@ def main() -> int:
             raise AssertionError("%s: launches per batch %s, not one K4"
                                  % (key, counts))
 
+    # K1 per 512-key batch: device time summed over a batch's launches
+    # (torch.profiler, one warm batch) beside the bound and lookup floor
+    # of the same work.  A batch expands every inner node of each key's
+    # tree once: B (N - 1) binary nodes, B (N - 1) / 3 radix-4 nodes.
+    for name, radix, arity, ops in (
+            ("aes_level_step", 2, 2, OPS_AES_NODE),
+            ("aes_level_step_a4", 4, 4, OPS_AES_NODE_A4)):
+        n = 1 << 20
+        prof = profile_batch.profile_config(dpf_tpu_torch.PRF_AES128, n,
+                                            radix)
+        k1 = [v for k, v in prof["kernels"].items() if "aes_level_kernel" in k]
+        if not k1:
+            raise AssertionError("no K1 device time recorded for a radix-%d "
+                                 "batch: %s" % (radix, prof["note"]))
+        nodes = 512 * (n - 1) // (arity - 1)
+        launches = sum(v["count"] for v in k1)
+        work = dict(bytes=nodes * 16 * (1 + arity)
+                    + launches * 2 * 512 * arity * 16,
+                    ops=nodes * ops,
+                    lookups=nodes * (LOOKUPS_AES_SCHEDULE
+                                     + arity * LOOKUPS_AES_BLOCK))
+        b_ms, _, floor_ms = bound(work)
+        rows[name].update(batch_ms=sum(v["ms"] for v in k1),
+                          batch_launches=launches, batch_bound_ms=b_ms,
+                          batch_lookup_floor_ms=floor_ms)
+        log("  %s per radix-%d AES batch at N=2^20: %d launches, device "
+            "ms %.4f, bound_ms %.4f, lookup_floor_ms %.4f (batch wall ms "
+            "%.2f)" % (name, radix, launches, rows[name]["batch_ms"], b_ms,
+                       floor_ms, prof["wall_ms"]))
+
     meta = {
         "aes_level_step": ("dpf_tpu_torch/csrc/aes_level.cu",
                            "dpf_tpu/ops/aes_planes.py:408"),
@@ -626,7 +701,14 @@ def main() -> int:
             "max_abs_err": errs[name], "matched": errs[name] == 0,
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shape": r["shape"]})
+            "lookup_floor_ms": r["lookup_floor_ms"],
+            "library_ms": r["library_ms"], "shape": r["shape"],
+            **{k: r[k] for k in ("batch_ms", "batch_launches",
+                                 "batch_bound_ms", "batch_lookup_floor_ms")
+               if k in r},
+            **({"sass_per_node": sass["arity %d" % (4 if "a4" in name
+                                                    else 2)]}
+               if sass and name.startswith("aes_level") else {})})
     log(json.dumps({"launches_per_batch": per_batch}))
     log("chip_smoke: %.1f s" % (time.perf_counter() - t_start))
     log(smi)

@@ -3,9 +3,12 @@
 // Replaces the TPU kernel dpf_tpu/ops/aes_planes.py::aes_level_step_pallas
 // (arity 2 for the binary tree and the binary base level of a radix-4
 // tree at odd depth, arity 4 for the radix-4 levels), which bit-slices
-// 32 keys into uint32 planes for the TPU's vector unit.  Here the cipher
-// is the word-oriented T-table form the upstream GPU-DPF used: one thread
-// per (key, node), the arity a template parameter of one kernel.
+// 32 keys into uint32 planes for the TPU's vector unit.  A bitsliced core
+// does not fit a card thread: with a different key in every lane it needs
+// 128 state words and 128 words of round key live at once, more than the
+// 255 registers a thread has.  Here the cipher is the word-oriented
+// T-table form the upstream GPU-DPF used: one thread per (key, node), the
+// arity a template parameter of one kernel.
 //
 //   child[A j + b] = AES_{seed_j}(b) + (lsb(seed_j) ? cw2 : cw1)[b]  mod 2^128
 //
@@ -15,15 +18,30 @@
 // is one limb, little-endian: byte r of column c = (limb_c >> 8r) & 0xff,
 // and plaintext b is the all-zero block with b in the low byte of limb 0.
 //
-// Bound on the H100: operations.  Each node costs one key schedule and
-// A encryptions, ~160 + 180 A table lookups in shared memory plus ALU
-// work, against 16 (1 + A) bytes of device memory.  The design keeps one
-// 1 KB table (T0; the S-box is byte 1 of it, the other three T-tables
-// are rotations), builds it per block from constant memory, and runs the
-// key schedule on the fly so one round key is live at a time and the A
-// plaintexts share it (at A = 4 the schedule is amortised over twice the
-// children).  Loads and stores are 16 bytes a thread on neighbouring
-// addresses.
+// Bound on the H100: shared-memory lookups and instruction issue.  Each
+// node costs one key schedule (40 S-box lookups) and A encryptions (160
+// lookups each) against 16 (1 + A) bytes of device memory: 360 lookups at
+// A = 2, 680 at A = 4.  The design:
+//
+//   * the AES core of aes_ttable.cuh: a 64 KB table with one copy per
+//     bank, so a warp's lookup is one wavefront whatever the data, two
+//     instructions per lookup and one rotation per round column;
+//   * a persistent grid: as many blocks as fit on the card at once
+//     (SMs x resident blocks per SM, read once per process), each filling
+//     its table once and walking nodes with a grid-stride loop.  A level
+//     with fewer nodes launches only the blocks it needs;
+//   * the key schedule on the fly, shared by the A plaintexts (at A = 4 it
+//     is amortised over twice the children);
+//   * 16-byte loads of the seed and stores of the A children, neighbouring
+//     threads on neighbouring addresses.
+//
+// The SASS of sm_90a (utils/sass_count.py) issues ~1,300 instructions and
+// 360 shared-memory loads per node at A = 2, ~2,300 and 680 at A = 4:
+// at the card's issue rate and one wavefront per SM per clock, the widest
+// level's lookups (2^26 nodes x 360) take longer than its instructions,
+// so the lookups are the floor.
+
+#include <algorithm>
 
 #include "aes_ttable.cuh"
 #include "dpf_common.cuh"
@@ -31,52 +49,83 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMinBlocks = 3;  // 64 KB of table each: 3 fit an SM
 
 template <int A>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     aes_level_kernel(const uint4* __restrict__ seeds,
                      const uint32_t* __restrict__ cw1,
                      const uint32_t* __restrict__ cw2, long long cw_stride_b,
                      uint4* __restrict__ out, long long w, long long total) {
-  __shared__ uint32_t T[256];
-  dpf::aes_build_ttable(T);
+  extern __shared__ uint4 dpf_smem[];
+  uint32_t* const T = reinterpret_cast<uint32_t*>(dpf_smem);
+  dpf::aes_fill_table(T);
   __syncthreads();
+  const dpf::AesTable tab = dpf::aes_table(T);
+  const bool narrow = total <= 0xffffffffLL;  // 32-bit key division
 
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const long long key = idx / w;
+  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       idx < total; idx += (long long)gridDim.x * blockDim.x) {
+    const long long key =
+        narrow ? (long long)((uint32_t)idx / (uint32_t)w) : idx / w;
+    const uint4 sd = seeds[idx];
+    const uint32_t k[4] = {sd.x, sd.y, sd.z, sd.w};
+    uint32_t st[A][4];  // plaintext b: the all-zero block with b in byte 0
+#pragma unroll
+    for (int b = 0; b < A; ++b) {
+      st[b][0] = (uint32_t)b;
+      st[b][1] = st[b][2] = st[b][3] = 0u;
+    }
+    dpf::aes128_encrypt<A>(tab, k, st);
 
-  const uint4 sd = seeds[idx];
-  uint32_t rk[4] = {sd.x, sd.y, sd.z, sd.w};
-  uint32_t st[A][4];  // plaintext b xor the first round key
+    // this level's A codewords for this key, selected by the seed's LSB
+    const uint32_t* cw = ((sd.x & 1u) ? cw2 : cw1) + key * cw_stride_b;
 #pragma unroll
-  for (int b = 0; b < A; ++b) {
-    st[b][0] = sd.x ^ (uint32_t)b;
-    st[b][1] = sd.y;
-    st[b][2] = sd.z;
-    st[b][3] = sd.w;
+    for (int b = 0; b < A; ++b) {
+      const uint32_t c[4] = {cw[4 * b], cw[4 * b + 1], cw[4 * b + 2],
+                             cw[4 * b + 3]};
+      dpf::add128(st[b], st[b], c);
+      out[A * idx + b] = make_uint4(st[b][0], st[b][1], st[b][2], st[b][3]);
+    }
   }
-  uint32_t rcon = 1u;
-#pragma unroll 1
-  for (int r = 1; r < 10; ++r) {
-    dpf::next_round_key(T, rk, rcon);
-    rcon = ((rcon << 1) ^ ((rcon >> 7) * 0x11bu)) & 0xffu;
-#pragma unroll
-    for (int b = 0; b < A; ++b) dpf::aes_round(T, st[b], rk);
-  }
-  dpf::next_round_key(T, rk, rcon);
-#pragma unroll
-  for (int b = 0; b < A; ++b) dpf::aes_final_round(T, st[b], rk);
+}
 
-  // this level's A codewords for this key, selected by the seed's LSB
-  const uint32_t* cw = ((sd.x & 1u) ? cw2 : cw1) + key * cw_stride_b;
-#pragma unroll
-  for (int b = 0; b < A; ++b) {
-    const uint32_t c[4] = {cw[4 * b], cw[4 * b + 1], cw[4 * b + 2],
-                           cw[4 * b + 3]};
-    dpf::add128(st[b], st[b], c);
-    out[A * idx + b] = make_uint4(st[b][0], st[b][1], st[b][2], st[b][3]);
+// Blocks of the persistent grid for arity A: SMs x resident blocks per SM,
+// read once per process (0 with the error if the query failed).
+template <int A>
+struct Grid {
+  int blocks = 0;
+  cudaError_t err = cudaSuccess;
+  Grid() {
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((err = cudaFuncSetAttribute(
+             aes_level_kernel<A>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             dpf::kAesTableBytes)) != cudaSuccess ||
+        (err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, aes_level_kernel<A>, kThreads,
+             dpf::kAesTableBytes)) != cudaSuccess)
+      return;
+    blocks = sms * per_sm;
   }
+};
+
+template <int A>
+int launch(const void* seeds, const void* cw1, const void* cw2,
+           long long cw_stride_b, void* out, long long w, long long total,
+           cudaStream_t stream) {
+  static const Grid<A> grid;  // C++ initialises it once, thread-safely
+  if (grid.err != cudaSuccess) return (int)grid.err;
+  if (grid.blocks <= 0) return (int)cudaErrorInvalidConfiguration;
+  const long long blocks =
+      std::min<long long>((total + kThreads - 1) / kThreads, grid.blocks);
+  aes_level_kernel<A><<<(unsigned)blocks, kThreads, dpf::kAesTableBytes,
+                        stream>>>(
+      (const uint4*)seeds, (const uint32_t*)cw1, (const uint32_t*)cw2,
+      cw_stride_b, (uint4*)out, w, total);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -91,19 +140,9 @@ extern "C" int aes_level_launch(const void* seeds, const void* cw1,
   const long long total = batch * w;
   if (arity != 2 && arity != 4) return (int)cudaErrorInvalidValue;
   if (total <= 0) return (int)cudaSuccess;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-#define DPF_LAUNCH(A)                                                      \
-  aes_level_kernel<A><<<(unsigned)blocks, kThreads, 0,                     \
-                        (cudaStream_t)stream>>>(                           \
-      (const uint4*)seeds, (const uint32_t*)cw1, (const uint32_t*)cw2,     \
-      cw_stride_b, (uint4*)out, w, total)
-  if (arity == 4) {
-    DPF_LAUNCH(4);
-  } else {
-    DPF_LAUNCH(2);
-  }
-#undef DPF_LAUNCH
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  return arity == 4 ? launch<4>(seeds, cw1, cw2, cw_stride_b, out, w, total, st)
+                    : launch<2>(seeds, cw1, cw2, cw_stride_b, out, w, total, st);
 }
 
 extern "C" const char* aes_level_error_string(int code) {

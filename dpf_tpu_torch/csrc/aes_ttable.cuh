@@ -1,12 +1,37 @@
-// T-table AES-128 on little-endian columns, shared by K1 (aes_level.cu) and
-// K4 (sqrt_grid.cu): the form the upstream GPU-DPF used, one 1 KB table T0
-// in shared memory (the S-box is its byte 1, the other three T-tables are
-// rotations) and an on-the-fly key schedule, one round key live at a time.
+// T-table AES-128 on little-endian columns for Hopper, shared by K1
+// (aes_level.cu) and K4's AES instance (sqrt_grid.cu).
 //
 // Conventions (core/prf_ref.py::prf_aes128): the key is the seed's 16
 // little-endian bytes (limb 0 = bytes 0-3), the plaintext is the position's
 // 16 little-endian bytes, the ciphertext is re-read little-endian.  So an
 // AES column is one limb: byte r of column c = (limb_c >> 8r) & 0xff.
+//
+// What bounds a T-table AES on the card is its 16 data-dependent table
+// lookups per round.  With one table in shared memory the 32 lanes of a
+// warp hit random banks, and the warp's lookup replays as often as its
+// busiest bank is hit (3-4 times for 32 random bytes).  This core keeps
+// one copy of the table per bank and lane l reads only copy l, so every
+// lookup of a warp is one shared-memory wavefront whatever the data:
+//
+//   * the table is 256 entries of 256 bytes (64 KB a block): word 64x + l
+//     is T0[x] = (2S, S, S, 3S)[x] for lane l, word 64x + 32 + l is
+//     T2[x] = rotl(T0[x], 16).  Both words of lane l lie in bank l;
+//   * a lookup's byte offset, 256 x + 4 l (T0) or 256 x + 4 l + 128 (T2),
+//     is one byte permute (PRMT) of the state word and the lane's offset,
+//     and the load adds the table's base from a uniform register: two
+//     instructions per lookup;
+//   * rotl is linear over xor, so a round column
+//       T0[a] ^ rotl8(T0[b]) ^ rotl16(T0[c]) ^ rotl24(T0[d])
+//     is T0[a] ^ T2[c] ^ rotl8(T0[b] ^ T2[d]): one rotation, not three;
+//   * the S-box is byte 1 and 2 of T0 and byte 0 and 3 of T2, so the last
+//     round and the key schedule read S already in the byte they need and
+//     merge four lookups with three byte permutes;
+//   * the table is filled with conflict-free stores (a warp's 32 stores
+//     write one entry to its 32 copies) from the S-box in constant memory
+//     read at a warp-uniform index.
+//
+// The key schedule runs on the fly, one round key live at a time, and is
+// shared by every block encrypted under the key.
 #pragma once
 
 #include "dpf_common.cuh"
@@ -32,66 +57,119 @@ static __constant__ uint8_t kSbox[256] = {
     0x8c, 0xa1, 0x89, 0x0d, 0xbf, 0xe6, 0x42, 0x68, 0x41, 0x99, 0x2d, 0x0f, 0xb0, 0x54, 0xbb, 0x16,
 };
 
-// S-box through T0: T0[x] = (2S, S, S, 3S) as bytes 0..3, so S = byte 1.
-__device__ __forceinline__ uint32_t sbox_t(const uint32_t* T, uint32_t x) {
-  return (T[x] >> 8) & 0xffu;
+constexpr int kAesTableWords = 256 * 64;
+constexpr int kAesTableBytes = 4 * kAesTableWords;
+
+// Fill the table with all the block's threads (blockDim.x a multiple of
+// 32); the caller synchronises before the first lookup.  Word i is copy
+// i % 32 of entry i / 64, so a warp's 32 stores go to 32 banks and its
+// S-box reads to one address.
+__device__ __forceinline__ void aes_fill_table(uint32_t* T) {
+  for (int i = threadIdx.x; i < kAesTableWords; i += blockDim.x) {
+    const uint32_t s = kSbox[i >> 6];
+    const uint32_t s2 = ((s << 1) ^ ((s >> 7) * 0x1bu)) & 0xffu;
+    const uint32_t t0 = s2 | (s << 8) | (s << 16) | ((s2 ^ s) << 24);
+    T[i] = (i & 32) ? __byte_perm(t0, 0u, 0x1032) : t0;
+  }
 }
 
-__device__ __forceinline__ uint32_t sub_word(const uint32_t* T, uint32_t w) {
-  return sbox_t(T, w & 0xffu) | (sbox_t(T, (w >> 8) & 0xffu) << 8) |
-         (sbox_t(T, (w >> 16) & 0xffu) << 16) | (sbox_t(T, w >> 24) << 24);
+// A thread's view of the table: its base and its lane's byte offsets
+// into the T0 and T2 halves of an entry.
+struct AesTable {
+  const uint8_t* base;
+  uint32_t t0, t2;
+};
+
+__device__ __forceinline__ AesTable aes_table(const uint32_t* T) {
+  const uint32_t lane4 = 4u * (threadIdx.x & 31u);
+  return {reinterpret_cast<const uint8_t*>(T), lane4, lane4 + 128u};
+}
+
+// The entry at byte R of w, read at the lane offset `lane` (t.t0 or t.t2):
+// PRMT puts the lane offset in byte 0 and byte R of w in byte 1.
+template <int R>
+__device__ __forceinline__ uint32_t lookup(const AesTable& t, uint32_t lane,
+                                           uint32_t w) {
+  return *reinterpret_cast<const uint32_t*>(
+      t.base + __byte_perm(w, lane, 0x5504 | (R << 4)));
+}
+
+// S[byte RA of a] | S[byte RB of b] << 8 | S[byte RC of c] << 16 |
+// S[byte RD of d] << 24, each S read from the half that keeps it in the
+// byte it lands in.
+template <int RA, int RB, int RC, int RD>
+__device__ __forceinline__ uint32_t sub_bytes(const AesTable& t, uint32_t a,
+                                              uint32_t b, uint32_t c,
+                                              uint32_t d) {
+  const uint32_t lo = __byte_perm(lookup<RA>(t, t.t2, a),
+                                  lookup<RB>(t, t.t0, b), 0x7650);
+  const uint32_t hi = __byte_perm(lookup<RC>(t, t.t0, c),
+                                  lookup<RD>(t, t.t2, d), 0x7210);
+  return __byte_perm(lo, hi, 0x7610);
 }
 
 // SubBytes + ShiftRows + MixColumns + AddRoundKey on little-endian columns:
 // byte r of new column c comes from old column (c + r) % 4.
-__device__ __forceinline__ void aes_round(const uint32_t* T, uint32_t s[4],
+__device__ __forceinline__ void aes_round(const AesTable& t, uint32_t s[4],
                                           const uint32_t rk[4]) {
   uint32_t n[4];
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    n[c] = T[s[c] & 0xffu] ^ dpf::rotl32(T[(s[(c + 1) & 3] >> 8) & 0xffu], 8) ^
-           dpf::rotl32(T[(s[(c + 2) & 3] >> 16) & 0xffu], 16) ^
-           dpf::rotl32(T[s[(c + 3) & 3] >> 24], 24) ^ rk[c];
+    const uint32_t bd = lookup<1>(t, t.t0, s[(c + 1) & 3]) ^
+                        lookup<3>(t, t.t2, s[(c + 3) & 3]);
+    n[c] = lookup<0>(t, t.t0, s[c]) ^ lookup<2>(t, t.t2, s[(c + 2) & 3]) ^
+           __funnelshift_l(bd, bd, 8) ^ rk[c];
   }
 #pragma unroll
   for (int c = 0; c < 4; ++c) s[c] = n[c];
 }
 
 // Last round: no MixColumns.
-__device__ __forceinline__ void aes_final_round(const uint32_t* T,
+__device__ __forceinline__ void aes_final_round(const AesTable& t,
                                                 uint32_t s[4],
                                                 const uint32_t rk[4]) {
   uint32_t n[4];
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    n[c] = (sbox_t(T, s[c] & 0xffu) | (sbox_t(T, (s[(c + 1) & 3] >> 8) & 0xffu) << 8) |
-            (sbox_t(T, (s[(c + 2) & 3] >> 16) & 0xffu) << 16) |
-            (sbox_t(T, s[(c + 3) & 3] >> 24) << 24)) ^
-           rk[c];
-  }
+  for (int c = 0; c < 4; ++c)
+    n[c] = sub_bytes<0, 1, 2, 3>(t, s[c], s[(c + 1) & 3], s[(c + 2) & 3],
+                                 s[(c + 3) & 3]) ^ rk[c];
 #pragma unroll
   for (int c = 0; c < 4; ++c) s[c] = n[c];
 }
 
 // One AES-128 key-schedule step: RotWord is a right rotation of a
-// little-endian word, the round constant goes into byte 0.
-__device__ __forceinline__ void next_round_key(const uint32_t* T,
+// little-endian word (byte i of it is byte i + 1 of rk[3]), the round
+// constant goes into byte 0.
+__device__ __forceinline__ void next_round_key(const AesTable& t,
                                                uint32_t rk[4], uint32_t rcon) {
-  const uint32_t t = sub_word(T, (rk[3] >> 8) | (rk[3] << 24)) ^ rcon;
-  rk[0] ^= t;
+  rk[0] ^= sub_bytes<1, 2, 3, 0>(t, rk[3], rk[3], rk[3], rk[3]) ^ rcon;
   rk[1] ^= rk[0];
   rk[2] ^= rk[1];
   rk[3] ^= rk[2];
 }
 
-// Fill T0 from the S-box with all the block's threads; the caller
-// synchronises before the first lookup.
-__device__ __forceinline__ void aes_build_ttable(uint32_t* T) {
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) {
-    const uint32_t s = kSbox[i];
-    const uint32_t s2 = ((s << 1) ^ ((s >> 7) * 0x1bu)) & 0xffu;
-    T[i] = s2 | (s << 8) | (s << 16) | ((s2 ^ s) << 24);
+// P blocks under one AES-128 key: st[p] holds plaintext p on entry and
+// its ciphertext on exit.  The key schedule is computed once for all P.
+template <int P>
+__device__ __forceinline__ void aes128_encrypt(const AesTable& t,
+                                               const uint32_t key[4],
+                                               uint32_t st[P][4]) {
+  uint32_t rk[4] = {key[0], key[1], key[2], key[3]};
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) st[p][c] ^= rk[c];
+  uint32_t rcon = 1u;
+#pragma unroll
+  for (int r = 1; r < 10; ++r) {
+    next_round_key(t, rk, rcon);
+    rcon = ((rcon << 1) ^ ((rcon >> 7) * 0x11bu)) & 0xffu;
+#pragma unroll
+    for (int p = 0; p < P; ++p) aes_round(t, st[p], rk);
   }
+  next_round_key(t, rk, rcon);
+#pragma unroll
+  for (int p = 0; p < P; ++p) aes_final_round(t, st[p], rk);
 }
 
 }  // namespace dpf

@@ -38,18 +38,25 @@
 //     then each thread multiplies them by table rows for one column e,
 //     reading each table value once for all 8 keys (E = 16: 16 lanes of
 //     rows), and keeps 8 sums in registers across the sub-tiles;
-//   * at the end the block reduces the lanes in shared memory and
-//     atomically adds [8, E] into the zeroed [B, E] output.  int32
-//     addition wraps mod 2^32 and is associative, so the order of the
-//     atomics changes no bit.
+//   * at the end the block reduces the lanes in shared memory (in the
+//     leaves' buffer, free by then) and atomically adds [8, E] into the
+//     zeroed [B, E] output.  int32 addition wraps mod 2^32 and is
+//     associative, so the order of the atomics changes no bit;
+//   * shared memory is dynamic and sized per instance: the 32 KB of
+//     leaves for every id, and for AES (id 3) the 64 KB table of
+//     aes_ttable.cuh before them (one copy per bank, so the four
+//     encryptions of a quad never replay a lookup).  96 KB fit two blocks
+//     on an SM.  Half the copies would fit three, but lanes l and l + 16
+//     would share a bank and nearly every lookup would take two
+//     wavefronts: twice the lookup floor for 1.5 times the warps.
 //
 // Bound on the H100: operations.  A cell costs ~592 32-bit operations of
-// one ChaCha/Salsa/AES block (a quarter of that for ids 4 and 5) plus ~35
-// of select, add and contraction at E = 16, against 64 table bytes read
-// from L2; over B N = 2^29 cells at B = 512, N = 2^20 that is ~5 ms for
-// ChaCha20 or AES and ~1.5 ms for ChaCha20-BLK at 67 TFLOP/s.  Serving 8
-// keys per table read cuts the table traffic from B x 64 MiB (32 GiB) to
-// 4 GiB per batch.
+// one ChaCha/Salsa block (a quarter of that for ids 4 and 5) or ~520 of
+// an AES block and a quarter key schedule, plus ~35 of select, add and
+// contraction at E = 16, against 64 table bytes read from L2.  The AES
+// instance also makes 170 table lookups a cell, one shared-memory
+// wavefront per warp each.  Serving 8 keys per table read cuts the table
+// traffic from B x 64 MiB (32 GiB) to 4 GiB per batch.
 
 #include "aes_ttable.cuh"
 #include "dpf_common.cuh"
@@ -61,13 +68,19 @@ constexpr int kThreads = 256;
 constexpr int kKeys = 8;                       // keys per block
 constexpr int kTileCells = 4 * kThreads;       // cells per sub-tile
 
+// Dynamic shared memory of an instance: the AES table, then the leaves.
+template <int PRF>
+constexpr int kTableWords = PRF == 3 ? dpf::kAesTableWords : 0;
+template <int PRF>
+constexpr int kSmemBytes = 4 * (kTableWords<PRF> + kKeys * kTileCells);
+
 // Low limbs of PRF(s, pos0 + g) for g = 0..3 (ids 0, 3, 4, 5; ids 1 and 2
 // take one core block per row in the kernel).  pos0 is a multiple of 4 for
 // the block-PRG ids.
 template <int PRF>
 __device__ __forceinline__ void quad_low_limbs(const uint32_t s[4],
                                                uint32_t pos0,
-                                               const uint32_t* T,
+                                               const dpf::AesTable& tab,
                                                uint32_t v[4]) {
   if constexpr (PRF == 4 || PRF == 5) {
     uint32_t o[16];
@@ -75,29 +88,15 @@ __device__ __forceinline__ void quad_low_limbs(const uint32_t s[4],
 #pragma unroll
     for (int g = 0; g < 4; ++g) v[g] = o[4 * g + 3];
   } else if constexpr (PRF == 3) {
-    uint32_t rk[4] = {s[0], s[1], s[2], s[3]};
-    uint32_t st[4][4];  // plaintext pos0 + g xor the first round key
+    uint32_t st[4][4];  // plaintext pos0 + g
 #pragma unroll
     for (int g = 0; g < 4; ++g) {
-      st[g][0] = s[0] ^ (pos0 + (uint32_t)g);
-      st[g][1] = s[1];
-      st[g][2] = s[2];
-      st[g][3] = s[3];
+      st[g][0] = pos0 + (uint32_t)g;
+      st[g][1] = st[g][2] = st[g][3] = 0u;
     }
-    uint32_t rcon = 1u;
-#pragma unroll 1
-    for (int r = 1; r < 10; ++r) {
-      dpf::next_round_key(T, rk, rcon);
-      rcon = ((rcon << 1) ^ ((rcon >> 7) * 0x11bu)) & 0xffu;
+    dpf::aes128_encrypt<4>(tab, s, st);
 #pragma unroll
-      for (int g = 0; g < 4; ++g) dpf::aes_round(T, st[g], rk);
-    }
-    dpf::next_round_key(T, rk, rcon);
-#pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      dpf::aes_final_round(T, st[g], rk);
-      v[g] = st[g][0];
-    }
+    for (int g = 0; g < 4; ++g) v[g] = st[g][0];
   } else {
     // DUMMY: seed * t + t mod 2^128 with t = pos + 4242, low limb only
 #pragma unroll
@@ -116,10 +115,12 @@ __global__ void __launch_bounds__(kThreads)
                      const int32_t* __restrict__ table,
                      uint32_t* __restrict__ out, int batch, int k, int r,
                      int rc, int e_total, uint32_t row0) {
-  __shared__ uint32_t T[256];
-  __shared__ uint32_t leaves[kKeys][kTileCells];
-  __shared__ uint32_t red[kKeys][kThreads];
-  if (PRF == 3) dpf::aes_build_ttable(T);  // first sub-tile's barrier syncs
+  extern __shared__ uint4 dpf_smem[];
+  uint32_t* const T = reinterpret_cast<uint32_t*>(dpf_smem);
+  auto leaves = reinterpret_cast<uint32_t (*)[kTileCells]>(
+      T + kTableWords<PRF>);
+  if constexpr (PRF == 3) dpf::aes_fill_table(T);  // first sub-tile syncs
+  const dpf::AesTable tab = dpf::aes_table(T);
 
   const int tid = threadIdx.x;
   const int key0 = blockIdx.x * kKeys;
@@ -173,7 +174,7 @@ __global__ void __launch_bounds__(kThreads)
             }
           } else {
             uint32_t v[4];
-            quad_low_limbs<PRF>(s, pos0, T, v);
+            quad_low_limbs<PRF>(s, pos0, tab, v);
 #pragma unroll
             for (int g = 0; g < 4; ++g)
               dst[g * ct] = row + g < r_end ? v[g] + cw[4LL * (row + g)] : 0u;
@@ -198,7 +199,10 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  // reduce the lanes of each (key, column) and add into the output
+  // reduce the lanes of each (key, column) and add into the output; the
+  // sums reuse the leaves' buffer once every thread is done reading it
+  auto red = reinterpret_cast<uint32_t (*)[kThreads]>(leaves);
+  __syncthreads();
 #pragma unroll
   for (int kb = 0; kb < kKeys; ++kb) red[kb][tid] = acc[kb];
   __syncthreads();
@@ -214,15 +218,28 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Shared memory above 48 KB must be allowed per kernel, once per process.
 template <int P>
-void launch_kernel(dim3 grid, cudaStream_t st, const void* seeds,
-                   long long ld_seed, const void* cw1, const void* cw2,
-                   long long ld_cw, const void* table, void* out, int batch,
-                   int k, int r, int rc, int e_total, uint32_t row0) {
-  sqrt_grid_kernel<P><<<grid, kThreads, 0, st>>>(
+cudaError_t allow_smem() {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      sqrt_grid_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes<P>);
+  return err;
+}
+
+template <int P>
+cudaError_t launch_kernel(dim3 grid, cudaStream_t st, const void* seeds,
+                          long long ld_seed, const void* cw1, const void* cw2,
+                          long long ld_cw, const void* table, void* out,
+                          int batch, int k, int r, int rc, int e_total,
+                          uint32_t row0) {
+  const cudaError_t err = allow_smem<P>();
+  if (err != cudaSuccess) return err;
+  sqrt_grid_kernel<P><<<grid, kThreads, kSmemBytes<P>, st>>>(
       (const uint32_t*)seeds, ld_seed, (const uint32_t*)cw1,
       (const uint32_t*)cw2, ld_cw, (const int32_t*)table, (uint32_t*)out,
       batch, k, r, rc, e_total, row0);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -252,19 +269,19 @@ extern "C" int sqrt_grid_launch(const void* seeds, long long ld_seed,
                   (unsigned)e_chunks);
   cudaStream_t st = (cudaStream_t)stream;
 #define DPF_LAUNCH(P)                                                      \
-  launch_kernel<P>(grid, st, seeds, ld_seed, cw1, cw2, ld_cw, table, out, \
-                   batch, k, r, rc, e_total, (uint32_t)row0)
+  return (int)launch_kernel<P>(grid, st, seeds, ld_seed, cw1, cw2, ld_cw,  \
+                               table, out, batch, k, r, rc, e_total,       \
+                               (uint32_t)row0)
   switch (prf) {
-    case 0: DPF_LAUNCH(0); break;
-    case 1: DPF_LAUNCH(1); break;
-    case 2: DPF_LAUNCH(2); break;
-    case 3: DPF_LAUNCH(3); break;
-    case 4: DPF_LAUNCH(4); break;
-    case 5: DPF_LAUNCH(5); break;
+    case 0: DPF_LAUNCH(0);
+    case 1: DPF_LAUNCH(1);
+    case 2: DPF_LAUNCH(2);
+    case 3: DPF_LAUNCH(3);
+    case 4: DPF_LAUNCH(4);
+    case 5: DPF_LAUNCH(5);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef DPF_LAUNCH
-  return (int)cudaGetLastError();
 }
 
 extern "C" const char* sqrt_grid_error_string(int code) {

@@ -5,11 +5,15 @@ There is no GPU and no ``nvcc`` here, so the sources in
 (below) that emulates what they use of CUDA: ``threadIdx``/``blockIdx``
 as thread-locals, ``__syncthreads`` as a ``std::barrier``, ``atomicAdd``
 as an atomic fetch-add, ``__shared__`` as static storage (blocks run one
-after another).  Each ``kernel<<<grid, block, smem, stream>>>(args)``
-launch is rewritten into a loop that runs every block's threads as
-``std::thread``s.  The kernels use no warp-level primitives, so this
-executes exactly their arithmetic and indexing; the results are held
-against the kernels' plain PyTorch versions at small shapes.  It says
+after another), ``extern __shared__`` as a per-launch buffer of the
+launch's dynamic size, ``__byte_perm`` and ``__funnelshift_l`` with
+CUDA's semantics, and a card of two SMs that hold one block each, so a
+persistent grid's grid-stride loop runs more than once.  Each
+``kernel<<<grid, block, smem, stream>>>(args)`` launch is rewritten
+into a loop that runs every block's threads as ``std::thread``s.  The
+kernels use no warp-level primitives, so this executes exactly their
+arithmetic and indexing; the results are held against the kernels'
+plain PyTorch versions at small shapes.  It says
 nothing about speed or about what ``nvcc`` accepts (``chip_smoke.py``
 does that on the card).
 """
@@ -50,7 +54,7 @@ SHIM = r"""
 #define __host__
 #define __forceinline__ inline
 #define __restrict__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __shared__ static
 #define __constant__
 using std::max;
@@ -64,23 +68,56 @@ inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
   return uint4{a, b, c, d};
 }
 typedef void* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaError_t {
+  cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9
+};
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+// a card of 2 SMs, one resident block each
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 2;
+  return cudaSuccess;
+}
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int,
+                                                          size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
+template <class F>
+cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+  const uint64_t in = ((uint64_t)y << 32) | x;
+  uint32_t r = 0;
+  for (int n = 0; n < 4; ++n)
+    r |= (uint32_t)((in >> (8 * ((s >> (4 * n)) & 7))) & 0xff) << (8 * n);
+  return r;
+}
+inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, uint32_t sh) {
+  return (uint32_t)(((((uint64_t)hi << 32) | lo) << (sh & 31)) >> 32);
+}
 inline const char* cudaGetErrorString(cudaError_t e) {
   return e ? "invalid value" : "no error";
 }
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 inline thread_local std::barrier<>* host_barrier = nullptr;
+inline thread_local unsigned char* host_dyn_smem = nullptr;
 inline void __syncthreads() { host_barrier->arrive_and_wait(); }
 inline unsigned atomicAdd(unsigned* p, unsigned v) {
   return std::atomic_ref<unsigned>(*p).fetch_add(v);
 }
 inline int __ffs(int x) { return __builtin_ffs(x); }
-template <class F> void host_launch(dim3 grid, dim3 block, F f) {
+template <class F>
+void host_launch(dim3 grid, dim3 block, size_t smem, F f) {
   const unsigned nt = block.x * block.y * block.z;
   for (unsigned bz = 0; bz < grid.z; ++bz)
     for (unsigned by = 0; by < grid.y; ++by)
       for (unsigned bx = 0; bx < grid.x; ++bx) {
+        std::vector<uint4> dyn(smem / sizeof(uint4) + 1);
         std::barrier<> bar(nt);
         std::vector<std::thread> ts;
         for (unsigned t = 0; t < nt; ++t)
@@ -91,6 +128,7 @@ template <class F> void host_launch(dim3 grid, dim3 block, F f) {
             blockDim = block;
             gridDim = grid;
             host_barrier = &bar;
+            host_dyn_smem = reinterpret_cast<unsigned char*>(dyn.data());
             f();
             bar.arrive_and_drop();
           });
@@ -101,7 +139,11 @@ template <class F> void host_launch(dim3 grid, dim3 block, F f) {
 
 
 def _host_source(src: str) -> str:
-    """Rewrite every ``name<<<cfg>>>(args)`` launch into host_launch."""
+    """Rewrite every ``extern __shared__ T name[];`` into a pointer to the
+    launch's buffer and every ``name<<<cfg>>>(args)`` launch into
+    host_launch."""
+    src = re.sub(r"extern\s+__shared__\s+(\w+)\s+(\w+)\[\];",
+                 r"\1* \2 = reinterpret_cast<\1*>(host_dyn_smem);", src)
     out, pos = [], 0
     while True:
         i = src.find("<<<", pos)
@@ -119,8 +161,9 @@ def _host_source(src: str) -> str:
                 break
             p += 1
         out.append(src[pos:start])
-        out.append("host_launch(dim3(%s), dim3(%s), [&] { %s(%s); })"
-                   % (cfg[0], cfg[1], src[start:i], src[k + 1:p]))
+        out.append("host_launch(dim3(%s), dim3(%s), %s, [&] { %s(%s); })"
+                   % (cfg[0], cfg[1], cfg[2] if len(cfg) > 2 else "0",
+                      src[start:i], src[k + 1:p]))
         pos = p + 1
 
 
@@ -158,7 +201,13 @@ def _rnd(rng, *shape):
 
 
 @pytest.mark.parametrize("arity", [2, 4])
-@pytest.mark.parametrize("bsz,w", [(1, 1), (3, 5), (2, 300)])
+@pytest.mark.parametrize("bsz,w", [
+    (1, 1), (3, 5),          # below one block
+    (2, 300),                # past the 2-block grid's stride of 512
+    (1, 255),                # one block, not a multiple of 32
+    (4, 256),                # exactly two strides
+    (3, 401),                # two strides and a ragged third
+])
 def test_aes_level_kernel_on_host(host_libs, bsz, w, arity):
     rng = np.random.default_rng(bsz * 1000 + w)
     seeds, cw1, cw2 = _rnd(rng, bsz, w, 4), _rnd(rng, bsz, 64, 4), \
@@ -290,6 +339,7 @@ def _sqrt_launch(lib, seeds, cw1, cw2, tbl, out, rc, row0, method):
     (9, 512, 8, 4, 3, 8),       # two column sub-tiles, two key tiles
     (2, 16, 2, 2, 1, 0),        # R = 2: rows of the last quad masked
     (3, 32, 8, 8, 2, 1 << 31),  # row0 past 2^31
+    (9, 16, 2, 2, 3, (1 << 31) + 12),  # R = 2, two key tiles, row0 > 2^31
 ])
 def test_sqrt_grid_kernel_on_host(host_libs, method, bsz, k, r, rc, e,
                                   row0):
