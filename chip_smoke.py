@@ -10,18 +10,25 @@ Phases (any failure raises and the script exits non-zero):
 
 1. build every CUDA kernel from ``dpf_tpu_torch/csrc`` (one ``nvcc`` per
    source, all at once), print the build time, ``ptxas``' registers
-   and spills per kernel, and K1's instructions per node from its SASS
-   (``utils/sass_count.py``, where the toolkit has ``cuobjdump``);
+   and spills per kernel, K1's instructions per node and K2's per leaf,
+   with K2's split between the INT32 and FMA pipes, from their SASS
+   (``utils/sass_count.py``, where the toolkit has ``cuobjdump``; a
+   diagnostic beside the bounds, which are counted from the function);
 2. hold each kernel against its plain PyTorch version on the card, bit
-   for bit: small shapes, ragged batches (B = 1, 3, 33), odd and even
-   depths for the radix-4 subtree kernel, every PRF id and a row base
-   for the sqrt-N grid kernel, and the main paths' shapes (B = 512,
-   N = 2^20, E = 16); time kernel, plain version and, for the
-   contraction, the ``torch._int_mm`` byte-limb decomposition as the
-   library yardstick; the ChaCha level step (on no path) at K1's widest
-   shape; beside each bound, the AES kernels' lookup floor (their
-   shared-memory table lookups at one warp-wide lookup per SM per
-   clock);
+   for bit: small shapes, ragged batches (B = 1, 3, 33; for K2 also
+   B = 2 and ragged key tiles of TB - 1, TB + 1 and 2 TB + 3 keys at
+   TB = 4, and 17 or 33 columns), odd and even depths for the radix-4
+   subtree kernel, every PRF id and a row base for the sqrt-N grid
+   kernel, and the main paths' shapes (B = 512, N = 2^20, E = 16); time
+   kernel, plain version and, for the contraction, the ``torch._int_mm``
+   byte-limb decomposition as the library yardstick; K2's eight instances (PRF ids 1, 2, 4, 5 over
+   the binary and the radix-4 tree) at full width, each also at E = 1
+   (the same expansion, a sixteenth of the contraction); the ChaCha
+   level step (on no path) at K1's widest shape; beside each bound, the
+   AES kernels' lookup floor (their shared-memory table lookups at one
+   warp-wide lookup per SM per clock) and K2's pipe bound (its cipher
+   cores' xors and rotations on the INT32 pipe, its products on the FMA
+   pipe, each at half the issue rate);
 3. the sample flow for PRF ids 0-5, binary tree at N = 16384, radix-4
    tree and sqrt-N grid at N = 16384 and 8192 (odd depth): two ``DPF``
    servers answer 8 distinct indices, the client recovers each row
@@ -69,6 +76,10 @@ PEAK_INSTR_PER_S = 132 * 4 * 32 * 1.98e9
 # Shared-memory lookups: one wavefront of 32 banks x 4 bytes per SM per
 # clock, 32 lanes' lookups when no two lanes hit one bank
 LOOKUPS_PER_S = 132 * 32 * 1.98e9
+# The INT32 pipe (IADD3, LOP3, SHF, PRMT, ...) and the FMA pipe (IMAD):
+# 16 lanes per scheduler each (64 a clock per SM)
+ALU_INSTR_PER_S = PEAK_INSTR_PER_S / 2
+FMA_INSTR_PER_S = PEAK_INSTR_PER_S / 2
 
 # 32-bit instructions per unit of work, counted from the kernels' code
 # (each byte permute, table lookup, rotate, shift, mask, add, xor or
@@ -84,8 +95,11 @@ OPS_AES_NODE_A4 = OPS_AES_SCHEDULE + 4 * OPS_AES_BLOCK + 4 * 10 + 10
 # table lookups: a key schedule takes 40, a block 160
 LOOKUPS_AES_SCHEDULE = 40
 LOOKUPS_AES_BLOCK = 160
-# Salsa/ChaCha-12 core block = 48 quarter rounds x 12 ops + 16 adds
+# Salsa/ChaCha-12 core block = 48 quarter rounds x 12 ops + 16 adds; of
+# a quarter round's 4 adds, 4 xors and 4 rotations, the xors and
+# rotations run on the INT32 pipe only (an add may also be an IMAD)
 OPS_CORE_BLOCK = 48 * 12 + 16
+OPS_CORE_BLOCK_ALU = 48 * 8
 OPS_CHILD_ADD = 12           # add128 + codeword select per child
 # sqrt-N grid cell: one AES block and a quarter key schedule (one serves a
 # quad of rows) or one core block (a quarter for the block-PRG ids), then
@@ -110,7 +124,7 @@ def main() -> int:
     from dpf_tpu_torch.ops import (aes_level, cuda_build, matmul128,
                                    sqrt_grid, subtree)
     from dpf_tpu_torch.utils import profile_batch, sass_count
-    from dpf_tpu_torch.utils.bench import test_dpf_perf
+    from dpf_tpu_torch.utils.bench import cuda_ms, test_dpf_perf
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -130,18 +144,6 @@ def main() -> int:
 
     def sync():
         torch.cuda.synchronize()
-
-    def cuda_ms(fn, reps):
-        fn()
-        sync()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        sync()
-        return start.elapsed_time(end) / reps
 
     def bound(work):
         """The larger of bytes over the memory rate and instructions over
@@ -165,6 +167,13 @@ def main() -> int:
                if r["lookup_floor_ms"] is not None else "null",
                "%.4f" % r["library_ms"]
                if r["library_ms"] is not None else "null"))
+
+    def pipe_bound_ms(ops, alu_only, products):
+        """K2's pipe bound in ms: the larger of all its operations over
+        the issue rate, the ones only the INT32 pipe runs over its rate
+        and the multiply-adds (one IMAD each) over the FMA pipe's."""
+        return 1e3 * max(ops / PEAK_INSTR_PER_S, alu_only / ALU_INSTR_PER_S,
+                         products / FMA_INSTR_PER_S)
 
     def held(name, got, want):
         sync()
@@ -197,6 +206,18 @@ def main() -> int:
     for arity, c in sorted(sass.items()):
         log("  K1 %s SASS: %d instructions and %d LDS per node (%s)"
             % (arity, c["instructions"], c["lds"], json.dumps(c)))
+    try:
+        sass_k2 = sass_count.k2_counts()
+    except (OSError, subprocess.CalledProcessError, ValueError) as exc:
+        sass_k2 = {}
+        log("  K2 SASS: not counted (%s)" % exc)
+    for inst, c in sorted(sass_k2.items()):
+        x, k = c["expansion_per_leaf"], c["contraction_per_product"]
+        log("  K2 %s SASS: expansion %.1f instructions per leaf (INT32 "
+            "%.3f, FMA %.3f), contraction %.2f per leaf and column (INT32 "
+            "%.3f, FMA %.3f)" % (inst, x["instructions"], x["alu_share"],
+                                 x["fma_share"], k["instructions"],
+                                 k["alu_share"], k["fma_share"]))
 
     # ---------------------------------------- 2. kernels vs plain versions
     log("phase 2 kernels against their plain versions")
@@ -289,102 +310,113 @@ def main() -> int:
     del leaves, a, t, a_c, lib, got
 
     # K2: subtree expand + contract; small and ragged shapes for every
-    # stream-cipher id, then ChaCha20 at the full-width shape
+    # stream-cipher id (B = 1 gives its key all 256 threads; key tiles of
+    # 2, TB - 1, TB + 1 and 2 TB + 3 keys; 17 and 33 columns), then
+    # each id at the full-width shape
+    tb = 4                                # kTileKeys, csrc/subtree.cu
     for prf in subtree.SUBTREE_PRFS:
-        for bsz, depth, cb in ((3, 10, 256), (1, 14, 4096), (3, 14, 4096),
-                               (33, 14, 4096)):
+        for bsz, depth, cb, e in ((3, 10, 256, 16), (1, 14, 4096, 16),
+                                  (2, 14, 4096, 16),
+                                  (tb - 1, 14, 4096, 17),
+                                  (tb + 1, 12, 1024, 33),
+                                  (2 * tb + 3, 14, 4096, 16),
+                                  (33, 14, 4096, 16)):
             fr, cw1, cw2 = rnd(bsz, 1, 4), rnd(bsz, 64, 4), rnd(bsz, 64, 4)
-            tbl = rnd(1 << depth, 16)
+            tbl = rnd(1 << depth, e)
             kw = dict(depth=depth, f_levels=0, prf_method=prf,
                       block_leaves=cb)
             errs["subtree_contract"] |= held(
-                "K2 subtree_contract prf=%d B=%d N=2^%d" % (prf, bsz, depth),
+                "K2 subtree_contract prf=%d B=%d N=2^%d E=%d"
+                % (prf, bsz, depth, e),
                 subtree.subtree_contract(fr, cw1, cw2, tbl, **kw),
                 subtree.subtree_contract_plain(fr, cw1, cw2, tbl, **kw))
-    bsz, depth, prf = 512, 20, dpf_tpu_torch.PRF_CHACHA20
-    fr, cw1, cw2 = rnd(bsz, 1, 4), rnd(bsz, 64, 4), rnd(bsz, 64, 4)
-    tbl = rnd(1 << depth, 16)
-    kw = dict(depth=depth, f_levels=0, prf_method=prf, block_leaves=4096)
-    t0 = time.perf_counter()
-    want = subtree.subtree_contract_plain(fr, cw1, cw2, tbl, **kw)
-    sync()
-    plain_ms = 1e3 * (time.perf_counter() - t0)
-    errs["subtree_contract"] |= held(
-        "K2 subtree_contract prf=2 B=512 N=2^20",
-        subtree.subtree_contract(fr, cw1, cw2, tbl, **kw), want)
-    n = 1 << depth
-    rows["subtree_contract"] = dict(
-        ms=cuda_ms(lambda: subtree.subtree_contract(fr, cw1, cw2, tbl, **kw),
-                   5),
-        plain_ms=plain_ms, library_ms=None,
-        bytes=bsz * 16 + 2 * bsz * 64 * 16 + n * 16 * 4 + bsz * 16 * 4,
-        ops=bsz * ((n - 1) * (2 * OPS_CORE_BLOCK + 2 * OPS_CHILD_ADD)
-                   + n * 16 * 2),
-        shape="ChaCha20 B=%d N=2^%d E=16 from the root" % (bsz, depth))
-    del fr, cw1, cw2, tbl, want
-    torch.cuda.empty_cache()
+    k2_rows = {}
 
-    # mixed K2: the radix-4 schedule at odd depth (a binary level on top,
-    # inside the block at 2^11, walked by thread 0 at 2^13) and even
-    # depth, frontiers at eval levels 0-2, ragged batches; then
-    # ChaCha20-BLK and ChaCha20 at the full-width shape from the root
-    for prf in subtree.SUBTREE_PRFS:
-        for bsz, depth, f_lv, cb in ((3, 11, 0, 2048), (1, 13, 0, 4096),
-                                     (33, 13, 1, 4096), (3, 14, 0, 4096),
-                                     (33, 14, 2, 256)):
-            ars = radix4.arities(1 << depth)
-            f_cnt = int(np.prod(ars[:f_lv]))
-            fr, cw1, cw2 = rnd(bsz, f_cnt, 4), rnd(bsz, 64, 4), \
-                rnd(bsz, 64, 4)
-            tbl = rnd(1 << depth, 16)
-            kw = dict(ars=ars, f_lv=f_lv, prf_method=prf, block_leaves=cb)
-            errs["subtree_contract_mixed"] |= held(
-                "K2 subtree_contract_mixed prf=%d B=%d N=2^%d f_lv=%d"
-                % (prf, bsz, depth, f_lv),
-                subtree.subtree_contract_mixed(fr, cw1, cw2, tbl, **kw),
-                subtree.subtree_contract_mixed_plain(fr, cw1, cw2, tbl, **kw))
-    bsz, depth = 512, 20
-    n = 1 << depth
-    ars = radix4.arities(n)
-    fr, cw1, cw2 = rnd(bsz, 1, 4), rnd(bsz, 64, 4), rnd(bsz, 64, 4)
-    tbl = rnd(n, 16)
-    nodes = (n - 1) // 3          # parents of a radix-4 tree, 4 children each
-    for prf, blocks in ((dpf_tpu_torch.PRF_CHACHA20, 4),
-                        (dpf_tpu_torch.PRF_CHACHA20_BLK, 1)):
-        kw = dict(ars=ars, f_lv=0, prf_method=prf, block_leaves=4096)
+    def k2_full(name, entry, plain, n, nodes, arity, blocks, kw):
+        """One full-width K2 instance: held at E = 16 and E = 1 (against
+        the plain version's first column), timed at both; nodes parents
+        of arity children, blocks core blocks each."""
         t0 = time.perf_counter()
-        want = subtree.subtree_contract_mixed_plain(fr, cw1, cw2, tbl, **kw)
+        want = plain(fr, cw1, cw2, tbl, **kw)
         sync()
         plain_ms = 1e3 * (time.perf_counter() - t0)
-        errs["subtree_contract_mixed"] |= held(
-            "K2 subtree_contract_mixed prf=%d B=512 N=2^20" % prf,
-            subtree.subtree_contract_mixed(fr, cw1, cw2, tbl, **kw), want)
-        # the row holds the last of the two: ChaCha20-BLK, one core block
-        # per radix-4 node (ChaCha20 takes four)
-        rows["subtree_contract_mixed"] = dict(
-            ms=cuda_ms(lambda: subtree.subtree_contract_mixed(
-                fr, cw1, cw2, tbl, **kw), 5),
+        errs[entry.__name__] |= held("K2 %s B=512 N=2^20 E=16" % name,
+                                     entry(fr, cw1, cw2, tbl, **kw), want)
+        errs[entry.__name__] |= held("K2 %s B=512 N=2^20 E=1" % name,
+                                     entry(fr, cw1, cw2, tbl1, **kw),
+                                     want[:, :1])
+        ops = bsz * (nodes * (blocks * OPS_CORE_BLOCK
+                              + arity * OPS_CHILD_ADD) + n * 16 * 2)
+        r = dict(
+            ms=cuda_ms(lambda: entry(fr, cw1, cw2, tbl, **kw), 5),
+            e1_ms=cuda_ms(lambda: entry(fr, cw1, cw2, tbl1, **kw), 5),
             plain_ms=plain_ms, library_ms=None,
             bytes=bsz * 16 + 2 * bsz * 64 * 16 + n * 16 * 4 + bsz * 16 * 4,
-            ops=bsz * (nodes * (blocks * OPS_CORE_BLOCK + 4 * OPS_CHILD_ADD)
-                       + n * 16 * 2),
-            shape="prf %d radix-4 B=%d N=2^%d E=16 from the root"
-                  % (prf, bsz, depth))
-        if prf == dpf_tpu_torch.PRF_CHACHA20:
-            log_row("subtree_contract_mixed", rows["subtree_contract_mixed"])
-    # the same launch with one table column: the expansion is unchanged
-    # and the contraction's table traffic (read once per key, from L2)
-    # falls 16x, so the difference bounds what the contraction costs
+            ops=ops,
+            pipe_bound_ms=pipe_bound_ms(
+                ops, bsz * nodes * blocks * OPS_CORE_BLOCK_ALU, bsz * n * 16),
+            block_leaves=kw["block_leaves"],
+            shape="%s B=%d N=2^20 E=16 from the root" % (name, bsz))
+        log_row("K2 " + name, r)
+        log("    E=1 ms %.4f (contraction share %.3f), pipe bound ms %.4f"
+            % (r["e1_ms"], 1 - r["e1_ms"] / r["ms"], r["pipe_bound_ms"]))
+        k2_rows[name] = r
+        return r
+
+    bsz, depth, prf = 512, 20, dpf_tpu_torch.PRF_CHACHA20
+    n = 1 << depth
+    fr, cw1, cw2 = rnd(bsz, 1, 4), rnd(bsz, 64, 4), rnd(bsz, 64, 4)
+    tbl = rnd(n, 16)
     tbl1 = tbl[:, :1].contiguous()
-    errs["subtree_contract_mixed"] |= held(
-        "K2 subtree_contract_mixed prf=5 B=512 N=2^20 E=1",
-        subtree.subtree_contract_mixed(fr, cw1, cw2, tbl1, **kw),
-        subtree.subtree_contract_mixed_plain(fr, cw1, cw2, tbl1, **kw))
-    log("  K2 subtree_contract_mixed prf=5 B=512 N=2^20: E=1 ms %.4f, "
-        "E=16 ms %.4f" % (cuda_ms(lambda: subtree.subtree_contract_mixed(
-            fr, cw1, cw2, tbl1, **kw), 5),
-            rows["subtree_contract_mixed"]["ms"]))
-    del fr, cw1, cw2, tbl, tbl1, want
+    prf_names = {1: "Salsa20", 2: "ChaCha20", 4: "Salsa20-BLK",
+                 5: "ChaCha20-BLK"}
+    # a binary tree has N - 1 parents of 2 children, one core block a
+    # child (one a parent for the block-PRG ids); the row holds ChaCha20
+    for p in subtree.SUBTREE_PRFS:
+        r = k2_full("binary " + prf_names[p], subtree.subtree_contract,
+                    subtree.subtree_contract_plain, n, n - 1, 2,
+                    1 if p in (4, 5) else 2,
+                    dict(depth=depth, f_levels=0, prf_method=p,
+                         block_leaves=4096))
+        if p == prf:
+            rows["subtree_contract"] = r
+
+    # mixed K2: the radix-4 schedule at odd depth (a binary level on top,
+    # inside the block at 2^11, walked at 2^13) and even depth, frontiers
+    # at eval levels 0-2, ragged batches and key tiles; then every id at
+    # the full-width shape from the root
+    for prf in subtree.SUBTREE_PRFS:
+        for bsz_s, depth, f_lv, cb, e in (
+                (3, 11, 0, 2048, 16), (1, 13, 0, 4096, 16),
+                (33, 13, 1, 4096, 16), (3, 14, 0, 4096, 16),
+                (33, 14, 2, 256, 16), (2, 14, 0, 4096, 16),
+                (tb - 1, 14, 0, 4096, 17),
+                (tb + 1, 13, 1, 1024, 33), (2 * tb + 3, 12, 0, 4096, 16)):
+            ars = radix4.arities(1 << depth)
+            f_cnt = int(np.prod(ars[:f_lv]))
+            frs, c1s, c2s = rnd(bsz_s, f_cnt, 4), rnd(bsz_s, 64, 4), \
+                rnd(bsz_s, 64, 4)
+            tbls = rnd(1 << depth, e)
+            kw = dict(ars=ars, f_lv=f_lv, prf_method=prf, block_leaves=cb)
+            errs["subtree_contract_mixed"] |= held(
+                "K2 subtree_contract_mixed prf=%d B=%d N=2^%d f_lv=%d E=%d"
+                % (prf, bsz_s, depth, f_lv, e),
+                subtree.subtree_contract_mixed(frs, c1s, c2s, tbls, **kw),
+                subtree.subtree_contract_mixed_plain(frs, c1s, c2s, tbls,
+                                                     **kw))
+    ars = radix4.arities(n)
+    nodes = (n - 1) // 3          # parents of a radix-4 tree, 4 children each
+    # Salsa20 and ChaCha20 take four core blocks per radix-4 parent, the
+    # block-PRG ids one; the row holds ChaCha20-BLK
+    for p in subtree.SUBTREE_PRFS:
+        r = k2_full("radix-4 " + prf_names[p],
+                    subtree.subtree_contract_mixed,
+                    subtree.subtree_contract_mixed_plain, n, nodes, 4,
+                    1 if p in (4, 5) else 4,
+                    dict(ars=ars, f_lv=0, prf_method=p, block_leaves=4096))
+        if p == dpf_tpu_torch.PRF_CHACHA20_BLK:
+            rows["subtree_contract_mixed"] = r
+    del fr, cw1, cw2, tbl, tbl1, frs, c1s, c2s, tbls
     torch.cuda.empty_cache()
 
     # K5: the ChaCha20 level step, on no path; held and timed at K1's
@@ -704,12 +736,14 @@ def main() -> int:
             "lookup_floor_ms": r["lookup_floor_ms"],
             "library_ms": r["library_ms"], "shape": r["shape"],
             **{k: r[k] for k in ("batch_ms", "batch_launches",
-                                 "batch_bound_ms", "batch_lookup_floor_ms")
+                                 "batch_bound_ms", "batch_lookup_floor_ms",
+                                 "e1_ms", "pipe_bound_ms", "block_leaves")
                if k in r},
             **({"sass_per_node": sass["arity %d" % (4 if "a4" in name
                                                     else 2)]}
                if sass and name.startswith("aes_level") else {})})
     log(json.dumps({"launches_per_batch": per_batch}))
+    log(json.dumps({"k2_full_width": k2_rows, "k2_sass": sass_k2}))
     log("chip_smoke: %.1f s" % (time.perf_counter() - t_start))
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -6,41 +6,57 @@
 // subtree_contract_pallas (binary schedule) and
 // subtree_contract_pallas_mixed (radix-4 schedule: arities ars[f_lv:],
 // codeword slots at radix4.cw_offsets).  Those kernels walk a grid (key
-// tile, frontier subtree) in order on one core, expand each subtree
-// breadth-first in VMEM and carry the [TB, E] sum from one subtree to the
-// next.  Blocks on the card run in no order, so here:
+// tile of 32, frontier subtree) in order on one core, expand each subtree
+// breadth-first in VMEM, contract [TB, C] leaves with one table chunk per
+// step and carry the [TB, E] sum from one subtree to the next.  Blocks on
+// the card run in no order, so here:
 //
 //   * one kernel serves both trees: the caller passes each eval level's
 //     arity (2 or 4) and codeword slot (Sched); the binary tree's slots
 //     are the reversed wire layout 2 (depth-1-j) + b, a radix-4 tree's
 //     are its eval-order blocks cw_offsets(ars)[j] + b.  A block subtree
 //     of binary levels only takes an instance with the arity fixed at 2;
-//   * one block per (key, block subtree of CB <= 4096 leaves); the key
-//     index varies fastest, so blocks that run together read the same
-//     table rows and the table streams from L2, not device memory;
-//   * thread 0 walks from the frontier node down to the block's subtree
-//     root, one PRF child per level, taking the block index's mixed-radix
-//     digits most significant first (arities are powers of two, so each
-//     digit is a field of 1 or 2 bits); with a frontier of one node per
-//     key the kernel starts at the root, so no level of the tree is left
-//     to plain tensor code;
-//   * the block expands breadth-first in shared memory while the width
-//     stays <= 256 nodes (a product of the arities, so not always a power
-//     of 4), then each thread expands its node depth-first in registers
-//     and local memory (a stack of up to 3 right siblings per level), as
-//     the upstream dpf_hybrid.cu does, and writes the low 32 bits of its
-//     leaves to shared memory: leaf q of thread t lands at t (CB/W) + q,
-//     the digit-reversed (BFS) order the table was permuted into;
-//   * the block multiplies the leaves by their table rows, reduces per
-//     column in shared memory, and atomically adds [E] into the zeroed
-//     [B, E] output.  int32 addition wraps mod 2^32 and is associative,
-//     so the order of the atomics changes no bit.
+//   * one block per (key tile of kTileKeys = 4 keys, block subtree of
+//     CB <= 4096 leaves); the tile index varies fastest, so blocks that
+//     run together read the same table rows and the table streams from
+//     L2, not device memory.  The last tile of a ragged batch is masked;
+//   * the tile's keys expand side by side, 256 / 4 threads each (a batch
+//     of one key gets all 256, so it does not leave three quarters of a
+//     block idle; at 2 keys, 128 threads would leave half of a radix-4
+//     key's threads idle in the breadth-first phase), reading their
+//     codewords from global memory (L1).  One thread per key walks
+//     from the frontier node down to the block's subtree root, one PRF
+//     child per level, taking the block index's mixed-radix digits most
+//     significant first (arities are powers of two, so each digit is a
+//     field of 1 or 2 bits); with a frontier of one node per key the
+//     kernel starts at the root, so no level of the tree is left to plain
+//     tensor code;
+//   * each key expands breadth-first in shared memory while its width
+//     stays <= its thread count (a product of the arities, so not always
+//     a power of 4), then each thread expands its node depth-first in
+//     registers and local memory (a stack of right siblings per level),
+//     as the upstream dpf_hybrid.cu does, and writes the low 32 bits of
+//     its leaves to its key's row of the tile's leaves: leaf q of thread
+//     t lands at t (CB/W) + q, the digit-reversed (BFS) order the table
+//     was permuted into.  Side by side, a tile of 4 keys over CB leaves
+//     keeps as many threads busy as one key over 4 CB leaves, in
+//     the shared memory that those leaves take;
+//   * each thread owns one table column and every lanes-th quad of rows:
+//     it loads each table value once, multiplies it into all 4 keys'
+//     sums held in registers (the leaves read as 16-byte quads),
+//     then the block reduces each (key, column) in shared memory and adds
+//     it atomically into the zeroed [B, E] output.  int32 addition wraps
+//     mod 2^32 and is associative, so the order of the atomics changes no
+//     bit.
 //
 // Bound on the H100: operations.  A parent of arity a costs a 12-round
 // core blocks (one for the block-PRG ids, whose block feeds all four
-// children), ~600 32-bit operations each, against a few bytes of input
-// per key; the table (N x E x 4 bytes) is read once per key but served
-// from L2.
+// children), ~600 32-bit operations each, plus one multiply-add per leaf
+// and column, against a few bytes of input per key and the N x E x 4
+// bytes of the table.  Each table value a block loads serves its
+// 4 keys, so the table's L2 -> SM traffic per batch is B / 4 x N x E x 4
+// bytes: 8 GiB at B = 512, N = 2^20, E = 16, against 32 GiB with one key
+// per block.
 //
 // The cipher cores and their layouts are in stream_cipher.cuh, shared
 // with K4 and K5.
@@ -51,15 +67,28 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kLogThreads = 8;
 constexpr int kMaxLogBlockLeaves = 12;                 // CB <= 4096
 constexpr int kMaxLevels = 32;                         // N <= 2^32
 constexpr int kMaxSlots = 64;                          // codewords per key
-// Depth-first levels below the breadth-first width W: W stops growing
-// only once W * arity > 256, so W >= 128 and CB / W <= 32 leaves; an
-// all-binary block reaches W = 256, so CB / W <= 16.
-constexpr int kMaxDfs = 5;
-constexpr int kMaxDfsBinary = kMaxLogBlockLeaves - kLogThreads;
+constexpr int kLogThreads = 8;
+constexpr int kTileKeys = 4;                           // keys per block
+// a key's threads: 64, or all 256 when the batch has one key
+constexpr int kLogMinKeyThreads = kLogThreads - 2;
+static_assert(kThreads == 1 << kLogThreads &&
+              kThreads == kTileKeys << kLogMinKeyThreads, "tile layout");
+// Dynamic shared memory past the leaves: two buffers of kThreads
+// breadth-first nodes during the expansion, the [kTileKeys, kThreads]
+// lane sums of the reduction after it.
+constexpr int kScratchWords = 2 * kThreads * 4;
+static_assert(kTileKeys * kThreads <= kScratchWords, "lane sums");
+// A block's shared memory is at most 227 KB.
+constexpr int kMaxDynSmemBytes = 232448;
+// Depth-first levels below a key's breadth-first width W: W stops
+// growing only once W * arity exceeds the key's threads (>= 64), so
+// W >= 32, CB / W <= 2^(12 + 1 - 6) leaves and a level takes at least one
+// bit of that; an all-binary block reaches W >= 64.
+constexpr int kMaxDfs = kMaxLogBlockLeaves + 1 - kLogMinKeyThreads;
+constexpr int kMaxDfsBinary = kMaxLogBlockLeaves - kLogMinKeyThreads;
 
 // The arity schedule of one launch, built on the host, passed by value.
 // Eval level j (0 = the root's) has arity 1 << lg[j] and reads codeword
@@ -73,6 +102,7 @@ struct Sched {
   int log_c;    // log2 leaves per frontier node
   int log_cb;   // log2 leaves per block subtree (CB)
   int log_w;    // log2 breadth-first width (W)
+  int log_kt;   // log2 threads per key
   int lg[kMaxLevels];
   int off[kMaxLevels];
 };
@@ -153,28 +183,39 @@ __global__ void __launch_bounds__(kThreads)
                    uint32_t* __restrict__ out, int batch, int f_cnt,
                    int e_total, const Sched sc) {
   constexpr int kA = BIN ? 2 : 4;                 // widest arity in the block
-  __shared__ uint32_t cws[2][kMaxSlots * 4];
-  __shared__ uint32_t nodes[2][kThreads * 4];
-  __shared__ uint32_t leaves[1 << kMaxLogBlockLeaves];
-  __shared__ uint32_t red[kThreads];
+  // dynamic: the tile's leaves, quad-major (leaf r of key k at word
+  // (r / 4) 4 kTileKeys + 4 k + r % 4, so the kTileKeys keys' leaves of a
+  // row quad are adjacent 16-byte vectors), then the scratch words
+  extern __shared__ uint4 dpf_smem[];
+  const int cb = 1 << sc.log_cb;
+  uint32_t* const leaves = reinterpret_cast<uint32_t*>(dpf_smem);
+  uint32_t* const scratch = leaves + kTileKeys * (cb < 4 ? 4 : cb);
+  auto nodes = reinterpret_cast<uint32_t (*)[kThreads * 4]>(scratch);
 
   const int tid = threadIdx.x;
+  const int kb = tid >> sc.log_kt;               // this thread's key ...
+  const int lt = tid & ((1 << sc.log_kt) - 1);   // ... and place in it
   const long long blk = blockIdx.x;
-  const int key = (int)(blk % batch);
-  const long long sub = blk / batch;           // in [0, F << log_s)
+  const int tiles = (batch + kTileKeys - 1) / kTileKeys;
+  const int key0 = (int)(blk % tiles) * kTileKeys;
+  const int nk = min(kTileKeys, batch - key0);  // keys of this tile
+  const bool live = kb < nk;
+  const long long key = key0 + (live ? kb : 0);
+  const uint32_t* const kc1 = cw1 + key * kMaxSlots * 4;
+  const uint32_t* const kc2 = cw2 + key * kMaxSlots * 4;
+  const long long sub = blk / tiles;             // in [0, F << log_s)
   const int f = (int)(sub >> sc.log_s);
   const long long s_idx = sub & ((1LL << sc.log_s) - 1);
+  // key kb's breadth-first nodes sit at (kb << log_kt) + i
+  const int nb = 4 * (kb << sc.log_kt);
 
-  for (int i = tid; i < kMaxSlots * 4; i += kThreads) {
-    cws[0][i] = cw1[(long long)key * kMaxSlots * 4 + i];
-    cws[1][i] = cw2[(long long)key * kMaxSlots * 4 + i];
-  }
-  __syncthreads();
+  if (cb < 4 && tid < 4 * kTileKeys) leaves[tid] = 0u;
 
-  // walk from the frontier node to this block's subtree root: the digit
-  // of level j is the next lg[j] bits of s_idx, most significant first
-  if (tid == 0) {
-    const uint32_t* fr = frontier + ((long long)key * f_cnt + f) * 4;
+  // walk from the frontier node to this block's subtree root, one thread
+  // per key: the digit of level j is the next lg[j] bits of s_idx, most
+  // significant first
+  if (live && lt == 0) {
+    const uint32_t* fr = frontier + (key * f_cnt + f) * 4;
     uint32_t cur[4] = {fr[0], fr[1], fr[2], fr[3]};
     int shift = sc.log_s;
     for (int j = sc.f_lv; j < sc.s_lv; ++j) {
@@ -183,26 +224,26 @@ __global__ void __launch_bounds__(kThreads)
           (uint32_t)(s_idx >> shift) & ((1u << sc.lg[j]) - 1u);
       uint32_t v[4];
       prf_child<PRF>(cur, br, v);
-      const uint32_t* cw = (cur[0] & 1u) ? cws[1] : cws[0];
+      const uint32_t* cw = (cur[0] & 1u) ? kc2 : kc1;
       dpf::add128(cur, v, cw + 4 * (sc.off[j] + (int)br));
     }
 #pragma unroll
-    for (int l = 0; l < 4; ++l) nodes[0][l] = cur[l];
+    for (int l = 0; l < 4; ++l) nodes[0][nb + l] = cur[l];
   }
   __syncthreads();
 
-  // breadth-first in shared memory down to W <= 256 nodes; child b of
-  // node t lands at a t + b
+  // every key breadth-first in shared memory, side by side, down to W
+  // nodes, at most its threads; child b of node t lands at a t + b
   int buf = 0;
   int w = 1;
   for (int j = sc.s_lv; j < sc.bfs_end; ++j) {
     const int a = BIN ? 2 : 1 << sc.lg[j];
-    if (tid < w) {
-      const uint32_t* src = nodes[buf] + 4 * tid;
+    if (live && lt < w) {
+      const uint32_t* src = nodes[buf] + nb + 4 * lt;
       const uint32_t s[4] = {src[0], src[1], src[2], src[3]};
       uint32_t kid[kA][4];
-      expand_node<PRF, kA>(s, a, sc.off[j], cws[0], cws[1], kid);
-      uint32_t* dst = nodes[buf ^ 1] + 4 * a * tid;
+      expand_node<PRF, kA>(s, a, sc.off[j], kc1, kc2, kid);
+      uint32_t* dst = nodes[buf ^ 1] + nb + 4 * a * lt;
       for (int b = 0; b < a; ++b) {
 #pragma unroll
         for (int l = 0; l < 4; ++l) dst[4 * b + l] = kid[b][l];
@@ -213,13 +254,13 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
 
-  // depth-first per thread over the m levels left: leaf q of node tid
-  // lands at tid * per + q, q's digits (last level least significant)
-  // naming the branch taken at each level
+  // depth-first per thread over the m levels left: leaf q of node lt
+  // lands at lt * per + q of row kb, q's digits (last level least
+  // significant) naming the branch taken at each level
   const int m = sc.levels - sc.bfs_end;
   const int per = 1 << (sc.log_cb - sc.log_w);
-  if (tid < w) {
-    const uint32_t* src = nodes[buf] + 4 * tid;
+  if (live && lt < w) {
+    const uint32_t* src = nodes[buf] + nb + 4 * lt;
     uint32_t node[4] = {src[0], src[1], src[2], src[3]};
     uint32_t sib[BIN ? kMaxDfsBinary : kMaxDfs][kA - 1][4];
     int d_start = 0;
@@ -249,7 +290,7 @@ __global__ void __launch_bounds__(kThreads)
         const int j = sc.bfs_end + d;
         const int a = BIN ? 2 : 1 << sc.lg[j];
         uint32_t kid[kA][4];
-        expand_node<PRF, kA>(node, a, sc.off[j], cws[0], cws[1], kid);
+        expand_node<PRF, kA>(node, a, sc.off[j], kc1, kc2, kid);
         for (int b = 1; b < a; ++b) {
 #pragma unroll
           for (int l = 0; l < 4; ++l) sib[d][b - 1][l] = kid[b][l];
@@ -257,31 +298,60 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int l = 0; l < 4; ++l) node[l] = kid[0][l];
       }
-      leaves[tid * per + q] = node[0];
+      const int r = lt * per + q;
+      leaves[(r >> 2) * 4 * kTileKeys + 4 * kb + (r & 3)] = node[0];
     }
   }
   __syncthreads();
 
-  // contract the CB leaves with table rows row0 .. row0 + CB - 1
-  const int cb = 1 << sc.log_cb;
+  // contract the tile's leaves with table rows row0 .. row0 + CB - 1:
+  // thread tid takes column e0 + tid % ew and the row quads tid / ew,
+  // tid / ew + lanes, ...  Keys past the batch's end multiply whatever
+  // their leaves hold and are not added.  The lane sums go to the nodes'
+  // buffer, free since the barrier above
   const long long row0 =
       ((long long)f << sc.log_c) + (s_idx << sc.log_cb);
+  const long long ld = e_total;
+  uint32_t* const red = scratch;
   for (int e0 = 0; e0 < e_total; e0 += kThreads) {
     int ew = 1;  // lanes per table row: a power of two covering the columns
     while (ew < e_total - e0 && ew < kThreads) ew <<= 1;
     const int e = e0 + tid % ew;
-    uint32_t part = 0;
+    const int lanes = kThreads / ew;
+    uint32_t acc[kTileKeys];
+#pragma unroll
+    for (int k = 0; k < kTileKeys; ++k) acc[k] = 0u;
     if (e < e_total) {
-      for (int p = tid / ew; p < cb; p += kThreads / ew) {
-        part += leaves[p] * (uint32_t)table[(row0 + p) * e_total + e];
+      // rows past CB (CB < 4) read row CB - 1 against zeroed leaves
+      const long long o1 = cb > 1 ? ld : 0, o2 = cb > 2 ? 2 * ld : o1,
+                      o3 = cb > 2 ? 3 * ld : o1;
+      const int q0 = tid / ew;
+      const int32_t* row = table + (row0 + 4 * q0) * ld + e;
+      for (int qd = q0; 4 * qd < cb; qd += lanes, row += 4 * lanes * ld) {
+        const uint32_t t0 = row[0], t1 = row[o1], t2 = row[o2], t3 = row[o3];
+        const uint4* lq =
+            reinterpret_cast<const uint4*>(leaves) + qd * kTileKeys;
+#pragma unroll
+        for (int k = 0; k < kTileKeys; ++k) {
+          const uint4 l = lq[k];
+          acc[k] += l.x * t0;
+          acc[k] += l.y * t1;
+          acc[k] += l.z * t2;
+          acc[k] += l.w * t3;
+        }
       }
     }
-    red[tid] = part;
+#pragma unroll
+    for (int k = 0; k < kTileKeys; ++k) red[k * kThreads + tid] = acc[k];
     __syncthreads();
-    if (tid < ew && e < e_total) {
-      uint32_t sum = 0;
-      for (int j = tid; j < kThreads; j += ew) sum += red[j];
-      atomicAdd(&out[(long long)key * e_total + e], sum);
+    for (int i = tid; i < nk * ew; i += kThreads) {
+      const int k = i / ew;
+      const int c = i % ew;
+      if (e0 + c < e_total) {
+        uint32_t sum = 0;
+        for (int l = 0; l < lanes; ++l) sum += red[k * kThreads + l * ew + c];
+        atomicAdd(&out[(long long)(key0 + k) * e_total + e0 + c], sum);
+      }
     }
     __syncthreads();
   }
@@ -289,13 +359,16 @@ __global__ void __launch_bounds__(kThreads)
 
 // Check a schedule and fill its split: the block subtrees are the last
 // log_cb bits of the levels, the breadth-first phase takes levels while
-// the width stays <= 256.  Sets bin if every level below the block root
-// is binary.  Returns false if an arity or slot is out of range, the
-// frontier does not match f_lv, the schedule does not split at log_cb or
-// it needs more depth-first levels than the kernel holds.
-bool split_schedule(Sched& sc, int f_cnt, int f_lv, int log_cb, bool& bin) {
+// the width stays <= 2^log_kt, a key's threads.  Sets bin if every
+// level below the block root is binary.  Returns false if an arity or
+// slot is out of range, the frontier does not match f_lv, the schedule
+// does not split at log_cb or it needs more depth-first levels than the
+// kernel holds.
+bool split_schedule(Sched& sc, int f_cnt, int f_lv, int log_cb, int log_kt,
+                    bool& bin) {
   if (sc.levels < 1 || sc.levels > kMaxLevels || f_lv < 0 ||
-      f_lv > sc.levels || log_cb < 0 || log_cb > kMaxLogBlockLeaves)
+      f_lv > sc.levels || log_cb < 0 || log_cb > kMaxLogBlockLeaves ||
+      log_kt < kLogMinKeyThreads || log_kt > kLogThreads)
     return false;
   int f_bits = 0;
   for (int j = 0; j < sc.levels; ++j) {
@@ -314,8 +387,9 @@ bool split_schedule(Sched& sc, int f_cnt, int f_lv, int log_cb, bool& bin) {
   sc.log_s = 0;
   for (j = f_lv; j < sc.s_lv; ++j) sc.log_s += sc.lg[j];
   sc.log_c = sc.log_s + log_cb;
+  sc.log_kt = log_kt;
   sc.log_w = 0;
-  for (j = sc.s_lv; j < sc.levels && sc.log_w + sc.lg[j] <= kLogThreads; ++j)
+  for (j = sc.s_lv; j < sc.levels && sc.log_w + sc.lg[j] <= log_kt; ++j)
     sc.log_w += sc.lg[j];
   sc.bfs_end = j;
   bin = true;
@@ -323,28 +397,20 @@ bool split_schedule(Sched& sc, int f_cnt, int f_lv, int log_cb, bool& bin) {
   return sc.levels - sc.bfs_end <= (bin ? kMaxDfsBinary : kMaxDfs);
 }
 
+// Shared memory above 48 KB must be allowed per kernel, once per process.
 template <int P, bool BIN>
-void launch_kernel(dim3 grid, cudaStream_t st, const void* frontier,
-                   const void* cw1, const void* cw2, const void* table,
-                   void* out, int batch, int f_cnt, int e_total,
-                   const Sched& sc) {
-  subtree_kernel<P, BIN><<<grid, kThreads, 0, st>>>(
+cudaError_t launch_kernel(dim3 grid, size_t smem, cudaStream_t st,
+                          const void* frontier, const void* cw1,
+                          const void* cw2, const void* table, void* out,
+                          int batch, int f_cnt, int e_total, const Sched& sc) {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      subtree_kernel<P, BIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kMaxDynSmemBytes);
+  if (err != cudaSuccess) return err;
+  subtree_kernel<P, BIN><<<grid, kThreads, smem, st>>>(
       (const uint32_t*)frontier, (const uint32_t*)cw1, (const uint32_t*)cw2,
       (const int32_t*)table, (uint32_t*)out, batch, f_cnt, e_total, sc);
-}
-
-template <int P>
-void launch_prf(bool bin, dim3 grid, cudaStream_t st, const void* frontier,
-                const void* cw1, const void* cw2, const void* table,
-                void* out, int batch, int f_cnt, int e_total,
-                const Sched& sc) {
-  if (bin) {
-    launch_kernel<P, true>(grid, st, frontier, cw1, cw2, table, out, batch,
-                           f_cnt, e_total, sc);
-  } else {
-    launch_kernel<P, false>(grid, st, frontier, cw1, cw2, table, out, batch,
-                            f_cnt, e_total, sc);
-  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -369,26 +435,34 @@ extern "C" int subtree_contract_launch(
     sc.lg[j] = lg[j];
     sc.off[j] = off[j];
   }
+  const int log_kt = batch == 1 ? kLogThreads : kLogMinKeyThreads;
   bool bin = false;
   if (batch <= 0 || e_total <= 0 ||
-      !split_schedule(sc, f_cnt, f_lv, log_cb, bin) || sc.log_s > 30)
+      !split_schedule(sc, f_cnt, f_lv, log_cb, log_kt, bin) || sc.log_s > 30)
     return (int)cudaErrorInvalidValue;
-  const long long blocks = ((long long)batch * f_cnt) << sc.log_s;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const long long tiles = (batch + kTileKeys - 1) / kTileKeys;
+  const long long blocks = (tiles * f_cnt) << sc.log_s;
+  const size_t smem = 4 * ((size_t)kTileKeys * (log_cb < 2 ? 4 : 1 << log_cb)
+                           + kScratchWords);
+  if (blocks > 0x7fffffffLL || smem > (size_t)kMaxDynSmemBytes)
+    return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks);
   cudaStream_t st = (cudaStream_t)stream;
-#define DPF_LAUNCH(P)                                                     \
-  launch_prf<P>(bin, grid, st, frontier, cw1, cw2, table, out, batch, f_cnt, \
-                e_total, sc)
+#define DPF_LAUNCH(P)                                                       \
+  return (int)(bin ? launch_kernel<P, true>(grid, smem, st, frontier, cw1,  \
+                                            cw2, table, out, batch, f_cnt,  \
+                                            e_total, sc)                    \
+                   : launch_kernel<P, false>(grid, smem, st, frontier, cw1, \
+                                             cw2, table, out, batch, f_cnt, \
+                                             e_total, sc))
   switch (prf) {
-    case 1: DPF_LAUNCH(1); break;
-    case 2: DPF_LAUNCH(2); break;
-    case 4: DPF_LAUNCH(4); break;
-    case 5: DPF_LAUNCH(5); break;
+    case 1: DPF_LAUNCH(1);
+    case 2: DPF_LAUNCH(2);
+    case 4: DPF_LAUNCH(4);
+    case 5: DPF_LAUNCH(5);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef DPF_LAUNCH
-  return (int)cudaGetLastError();
 }
 
 extern "C" const char* subtree_contract_error_string(int code) {

@@ -16,9 +16,10 @@ and the bit-reversed table ``[N, E]`` -> ``[B, E]`` int32 shares:
 * ``subtree_contract_plain`` -- the plain version: level steps in
   groups of block subtrees, then the plain product.
 * ``subtree_contract`` -- the wrapper: CUDA tensors launch K2
-  (``csrc/subtree.cu``), CPU tensors take the plain version.
-  ``block_leaves`` (<= 4096) is the kernel's tile: the leaves one block
-  expands and contracts; it does not change a bit of the result.
+  (``csrc/subtree.cu``), CPU tensors take the plain version.  A K2
+  block serves a tile of 4 keys over one block subtree of
+  ``block_leaves`` (<= 4096) leaves, so each table value it loads serves
+  4 keys; neither changes a bit of the result.
 * ``subtree_contract_mixed`` / ``subtree_contract_mixed_plain`` -- the
   same over a radix-4 tree of eval-order arities ``ars``: the frontier
   holds the nodes at eval level ``f_lv``, codewords sit at
@@ -49,7 +50,7 @@ from . import cuda_build
 from .aes_level import check_level_operands
 from .matmul128 import dot_i32_plain
 
-MAX_BLOCK_LEAVES = 4096   # leaves one K2 block keeps in shared memory
+MAX_BLOCK_LEAVES = 4096   # leaves per key that a K2 block keeps
 
 
 def subtree_chunk_leaves(n: int) -> int:

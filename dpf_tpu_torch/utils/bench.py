@@ -1,8 +1,11 @@
-"""Benchmark helper: the printed-dict throughput protocol.
+"""Benchmark helpers: the printed-dict throughput protocol and a kernel
+timer.
 
-Port of ``dpf_tpu/utils/bench.py::test_dpf_perf`` (the reference's
-``dpf.py:286-320`` protocol): distinct keys tiled to the batch, one warm
-evaluation, then timed repetitions, each ending in a device synchronise.
+``test_dpf_perf`` ports ``dpf_tpu/utils/bench.py::test_dpf_perf`` (the
+reference's ``dpf.py:286-320`` protocol): distinct keys tiled to the
+batch, one warm evaluation, then timed repetitions, each ending in a
+device synchronise.  ``cuda_ms`` times launches on the card by CUDA
+events.
 """
 
 from __future__ import annotations
@@ -17,6 +20,21 @@ import torch
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device ms of ``fn`` over ``reps`` calls after one warm-up,
+    between two CUDA events on the current stream."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def test_dpf_perf(N=16384, batch=512, entrysize=16, prf=None, reps=10,

@@ -1,0 +1,124 @@
+"""K2's time at full width and at short batches, for this tree's build of
+``csrc/subtree.cu`` and, if given, another build with the same C entry
+(for example a parent commit's).
+
+Times the eight K2 instances (PRF ids 1, 2, 4 and 5 over the binary and
+the radix-4 tree) at B = 512, N = 2^20, E = 16 and at E = 1 (the same
+expansion, a sixteenth of the contraction), and binary ChaCha20 and
+radix-4 ChaCha20-BLK at B = 1, 2 and 8 (the server pads a batch to a
+power of two), all from the root at the 4096 leaves per block that the
+API resolves.  Each library's result is held bit for bit against the
+plain version before it is timed; with another library the two are
+timed in turns: other, this, this, other.  Needs one CUDA card and the
+toolkit:
+
+    python -m dpf_tpu_torch.utils.k2_times [other subtree library]
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import sys
+
+import torch
+
+from ..core import radix4
+from ..ops import cuda_build, subtree
+from .bench import cuda_ms
+
+N_LOG = 20
+NAMES = {1: "Salsa20", 2: "ChaCha20", 4: "Salsa20-BLK", 5: "ChaCha20-BLK"}
+SHORT = ((2, 2), (5, 4))            # (prf, radix) timed at short batches
+
+
+def load_entry(so):
+    """The launch entry of one built ``subtree`` library."""
+    fn = ctypes.CDLL(str(so)).subtree_contract_launch
+    fn.argtypes = cuda_build.SOURCES["subtree"][0]["subtree_contract_launch"]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("k2_times: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20261017)
+
+    def rnd(*shape):
+        return torch.randint(-2 ** 31, 2 ** 31, shape, dtype=torch.int64,
+                             device=dev, generator=gen).to(torch.int32)
+
+    libs = [("this", cuda_build.library("subtree").subtree_contract_launch)]
+    if len(sys.argv) > 1:
+        other = ("other", load_entry(sys.argv[1]))
+        libs = [other, libs[0], libs[0], other]
+    n = 1 << N_LOG
+    ars = radix4.arities(n)
+    scheds = {2: subtree._binary_schedule(N_LOG),
+              4: list(zip(ars, radix4.cw_offsets(ars)))}
+    fr, cw1, cw2 = rnd(512, 1, 4), rnd(512, 64, 4), rnd(512, 64, 4)
+    tbl = rnd(n, 16)
+    tbl1 = tbl[:, :1].contiguous()
+    rows = []
+
+    def launch(fn, bsz, table, sched, prf):
+        out = torch.zeros((bsz, table.shape[1]), dtype=torch.int32,
+                          device=dev)
+        lg = (ctypes.c_int * len(sched))(*(a.bit_length() - 1
+                                           for a, _ in sched))
+        off = (ctypes.c_int * len(sched))(*(o for _, o in sched))
+        code = fn(fr.data_ptr(), cw1.data_ptr(), cw2.data_ptr(),
+                  table.data_ptr(), out.data_ptr(), bsz, 1, len(sched), lg,
+                  off, 0, 12, table.shape[1], prf,
+                  torch.cuda.current_stream().cuda_stream)
+        if code != 0:
+            raise RuntimeError("subtree_contract_launch: CUDA error %d"
+                               % code)
+        return out
+
+    def plain(bsz, table, radix, prf):
+        if radix == 2:
+            return subtree.subtree_contract_plain(
+                fr[:bsz], cw1[:bsz], cw2[:bsz], table, depth=N_LOG,
+                f_levels=0, prf_method=prf, block_leaves=4096)
+        return subtree.subtree_contract_mixed_plain(
+            fr[:bsz], cw1[:bsz], cw2[:bsz], table, ars=ars, f_lv=0,
+            prf_method=prf, block_leaves=4096)
+
+    def measure(prf, radix, bsz, tables):
+        name = "%s %s B=%d" % ("binary" if radix == 2 else "radix-4",
+                               NAMES[prf], bsz)
+        full = plain(bsz, tables[0], radix, prf)
+        wants = [full[:, :t.shape[1]] for t in tables]  # tables[1:]: E = 1
+        reps = 5 if bsz == 512 else 20
+        for label, fn in libs:
+            row = {"instance": name, "library": label}
+            for t, want in zip(tables, wants):
+                got = launch(fn, bsz, t, scheds[radix], prf)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError("%s, %s library, E=%d: differs "
+                                         "from the plain version"
+                                         % (name, label, t.shape[1]))
+                row["ms" if t.shape[1] == 16 else "e1_ms"] = cuda_ms(
+                    lambda: launch(fn, bsz, t, scheds[radix], prf), reps)
+            rows.append(row)
+            print("  %-28s %-5s ms %.4f%s  bit-equal" % (
+                name, label, row["ms"], "  E=1 ms %.4f" % row["e1_ms"]
+                if "e1_ms" in row else ""), flush=True)
+
+    for radix in (2, 4):
+        for prf in sorted(NAMES):
+            measure(prf, radix, 512, (tbl, tbl1))
+    for prf, radix in SHORT:
+        for bsz in (1, 2, 8):
+            measure(prf, radix, bsz, (tbl,))
+    print(json.dumps({"k2_times": rows}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

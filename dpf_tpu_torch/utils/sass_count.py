@@ -1,16 +1,31 @@
-"""Instructions per node of K1, counted from its SASS.
+"""Instructions per node of K1 and per leaf of K2, counted from SASS.
 
-Runs ``cuobjdump -sass`` (CUDA toolkit) on the built ``aes_level``
-library and reads each ``aes_level_kernel<A>`` instance: the
-grid-stride loop (one node per iteration) and the AES rounds loop inside
-it.  The rounds loop runs as often as makes the node's shared-memory
-loads (LDS) equal the lookups AES-128 needs (a key schedule of 40 and A
-blocks of 160), so the instructions a node issues are the grid-stride
-body plus the rounds body times its further trips.  Static counts: both
-sides of a branch inside the body are counted, so the result is a few
-instructions high.  Needs the card's toolkit:
+Runs ``cuobjdump -sass`` (CUDA toolkit) on a built library.
 
-    python -m dpf_tpu_torch.utils.sass_count
+K1 (``aes_level``): each ``aes_level_kernel<A>`` instance's grid-stride
+loop (one node per iteration) and the AES rounds loop inside it.  The
+rounds loop runs as often as makes the node's shared-memory loads (LDS)
+equal the lookups AES-128 needs (a key schedule of 40 and A blocks of
+160), so the instructions a node issues are the grid-stride body plus
+the rounds body times its further trips.
+
+K2 (``subtree``): each ``subtree_kernel<PRF, BIN>`` instance's
+expansion and contraction.  The expansion's node is the depth-first
+level loop, the last innermost loop that holds a cipher core (for the
+radix-4 Salsa/ChaCha instances the child loop inside it, run a = 4
+times); a binary tree expands one node per leaf, a radix-4 tree one per
+3 leaves.  The contraction is the loop that loads table values (LDG) and
+leaves (LDS) and multiplies them (IMAD); each leaf it loads (a 32-bit
+word of an LDS) meets one table value, so its leaf words per trip are
+its leaf-by-column products.  Each count is split by pipe: the INT32
+pipe (``ALU_OPS``), half the issue rate, and the FMA pipe (every
+``IMAD`` form), the other half.
+
+Static counts: both sides of a branch inside a body are counted, and
+the loop bookkeeping around a node or a product is left out, so each
+result is a few instructions off.  Needs the card's toolkit:
+
+    python -m dpf_tpu_torch.utils.sass_count [subtree library]
 """
 
 from __future__ import annotations
@@ -18,12 +33,20 @@ from __future__ import annotations
 import json
 import re
 import subprocess
+import sys
 from pathlib import Path
 
 from ..ops import cuda_build
 
 _INSTR = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _BRA = re.compile(r"\bBRA\s+(?:`\(\S+\)\s*)?0x([0-9a-f]+)")
+# opcodes issued to the INT32 (ALU) pipe
+ALU_OPS = frozenset(("IADD3", "LOP3", "SHF", "PRMT", "LEA", "ISETP", "SEL",
+                     "IMNMX"))
+# a loop whose body has this many funnel shifts (rotations) holds a
+# cipher core: a Salsa/ChaCha-12 block rotates 192 words, ChaCha 96 of
+# them by funnel shift
+CORE_SHF = 64
 
 
 def parse_sass(text: str) -> dict:
@@ -81,6 +104,97 @@ def per_node(instrs, lookups: int) -> dict:
                            "trips": extra + 1}}
 
 
+def opcode(text: str) -> str:
+    """``@!P0 IMAD.MOV.U32 R1, ...`` -> ``IMAD``."""
+    return text.split()[1 if text.startswith("@") else 0].split(".")[0]
+
+
+def _leaf_words(text: str) -> int:
+    """32-bit words an LDS loads (LDS, LDS.64, LDS.128), else 0."""
+    op = text.split()[1 if text.startswith("@") else 0].split(".")
+    if op[0] != "LDS":
+        return 0
+    bits = [int(m) for m in op[1:] if m.isdigit()]
+    return bits[0] // 32 if bits else 1
+
+
+def pipe_mix(texts) -> dict:
+    """Instructions and how many go to the ALU and the FMA pipe."""
+    ops = [opcode(t) for t in texts]
+    return {"instructions": len(ops),
+            "alu": sum(o in ALU_OPS for o in ops),
+            "fma": sum(o == "IMAD" for o in ops)}
+
+
+def _scaled(mix: dict, by: float) -> dict:
+    return {k: v * by for k, v in mix.items()}
+
+
+def _sum(a: dict, b: dict) -> dict:
+    return {k: a[k] + b[k] for k in a}
+
+
+def _with_shares(mix: dict) -> dict:
+    n = mix["instructions"]
+    return {**mix, "alu_share": mix["alu"] / n, "fma_share": mix["fma"] / n}
+
+
+def subtree_per_leaf(instrs, child_loop: bool, arity: int) -> dict:
+    """Expansion instructions per node and per leaf, contraction
+    instructions per leaf-by-column product, each with its pipe split,
+    of one K2 instance.  ``child_loop``: the instance expands a node's
+    children in a loop of one core block each (radix-4 Salsa/ChaCha)."""
+    found = loops(instrs)
+
+    def body(lp):
+        return [t for a, t in instrs if lp[0] <= a <= lp[1]]
+
+    def has(lp, op):
+        return any(opcode(t) == op for t in body(lp))
+
+    con = [lp for lp in found
+           if has(lp, "LDG") and has(lp, "LDS") and has(lp, "IMAD")
+           and not has(lp, "STS") and not has(lp, "BAR")]
+    cipher = [lp for lp in found
+              if sum(opcode(t) == "SHF" for t in body(lp)) >= CORE_SHF]
+    if not con or not cipher:
+        raise ValueError("no contraction or no cipher loop in the listing")
+    con = max(con, key=lambda lp: sum(map(_leaf_words, body(lp))))
+    products = sum(map(_leaf_words, body(con)))
+    inner = [lp for lp in cipher
+             if not any(o != lp and lp[0] <= o[0] and o[1] <= lp[1]
+                        for o in cipher)]
+    core = max(inner, key=lambda lp: lp[1])
+    node = pipe_mix(body(core))
+    if child_loop:
+        level = min((lp for lp in found if lp != core and lp[0] <= core[0]
+                     and core[1] <= lp[1]), key=lambda lp: lp[1] - lp[0])
+        node = _sum(pipe_mix(body(level)), _scaled(node, arity - 1))
+    return {"expansion_per_node": _with_shares(node),
+            "expansion_per_leaf": _with_shares(_scaled(node,
+                                                       1 / (arity - 1))),
+            "contraction_per_product": _with_shares(
+                _scaled(pipe_mix(body(con)), 1 / products)),
+            "products_per_trip": products}
+
+
+def k2_counts(lib: Path | None = None) -> dict:
+    """Per-leaf counts of every K2 instance of a built ``subtree``
+    library (this tree's by default), by ``"prf P binary|radix-4"``."""
+    if lib is None:
+        cuda_build.build(("subtree",))
+        lib = cuda_build.library_path("subtree")
+    out = {}
+    for name, instrs in sass_functions(Path(lib)).items():
+        m = re.search(r"subtree_kernelILi(\d)ELb([01])E", name)
+        if m:
+            prf, binary = int(m.group(1)), m.group(2) == "1"
+            out["prf %d %s" % (prf, "binary" if binary else "radix-4")] = \
+                subtree_per_leaf(instrs, not binary and prf in (1, 2),
+                                 2 if binary else 4)
+    return out
+
+
 def k1_counts() -> dict:
     """Per-node counts of K1 at arity 2 and 4 from the built library."""
     cuda_build.build(("aes_level",))
@@ -95,4 +209,7 @@ def k1_counts() -> dict:
 
 
 if __name__ == "__main__":
-    print(json.dumps(k1_counts()))
+    if len(sys.argv) > 1:
+        print(json.dumps(k2_counts(Path(sys.argv[1]))))
+    else:
+        print(json.dumps({"K1": k1_counts(), "K2": k2_counts()}))

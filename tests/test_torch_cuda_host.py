@@ -242,6 +242,11 @@ def test_contract_kernel_on_host(host_libs, bsz, k, e, inc):
     assert torch.equal(out, matmul128.dot_i32_plain(a, t))
 
 
+# K2's keys per block (kTileKeys in csrc/subtree.cu), for the ragged key
+# tiles below
+TB = 4
+
+
 def _subtree_launch(lib, fr, cw1, cw2, tbl, out, sched, f_lv, log_cb,
                     method):
     """Call K2's C entry with a schedule of (arity, first slot) pairs."""
@@ -259,6 +264,14 @@ def _subtree_launch(lib, fr, cw1, cw2, tbl, out, sched, f_lv, log_cb,
     (3, 9, 1, 64, 3),        # frontier of 2, two-level path walk
     (2, 8, 2, 16, 5),        # block smaller than the 256-thread BFS
     (1, 10, 0, 1024, 1),     # depth-first below the 256-node level
+    (1, 8, 0, 256, 16),      # a tile of one key, 256 threads
+    (2, 9, 0, 512, 16),      # a tile of two keys
+    (3, 12, 0, 4096, 2),     # 64 threads a key, the deepest depth-first
+    (TB - 1, 8, 1, 64, 17),  # one ragged tile, frontier of 2, 17 columns
+    (TB + 1, 9, 2, 32, 33),  # two tiles, frontier of 4, 33 columns
+    (2 * TB + 3, 7, 0, 16, 1),  # three tiles, one column
+    (3, 7, 0, 2, 5),         # block of 2 leaves: a quad past CB
+    (2, 6, 0, 64, 260),      # columns past one 256-thread sweep
 ])
 def test_subtree_kernel_on_host(host_libs, method, bsz, depth, f_levels, cb,
                                 e):
@@ -290,6 +303,12 @@ def test_subtree_kernel_on_host_rejects_bad_prf(host_libs):
     (2, 8, 0, 16, 2),        # even depth, two-level path walk
     (1, 10, 2, 64, 1),       # frontier of 16, no path walk
     (1, 12, 0, 4096, 4),     # BFS to 256 nodes, then depth-first
+    (1, 11, 0, 2048, 16),    # a tile of one key, 256 threads
+    (2, 11, 0, 2048, 3),     # a tile of two keys
+    (3, 12, 0, 4096, 2),     # 64 threads a key, the deepest depth-first
+    (TB - 1, 9, 1, 16, 17),  # one ragged tile, CB below the BFS width
+    (TB + 1, 10, 1, 64, 33),  # two tiles, frontier of 4, 33 columns
+    (2 * TB + 3, 8, 0, 4, 1),  # three tiles, BFS only, one column
 ])
 def test_subtree_mixed_kernel_on_host(host_libs, method, bsz, depth, f_lv,
                                       cb, e):

@@ -1,7 +1,7 @@
-"""``utils/sass_count``: K1's instructions per node read from a SASS
-listing.  The listing here is a small hand-made one in ``cuobjdump
--sass``'s format (no toolkit on the CPU); ``chip_smoke.py`` runs the
-same code on the card's build."""
+"""``utils/sass_count``: K1's instructions per node and K2's per leaf
+read from a SASS listing.  The listings here are small hand-made ones in
+``cuobjdump -sass``'s format (no toolkit on the CPU); ``chip_smoke.py``
+runs the same code on the card's build."""
 
 import pytest
 
@@ -64,3 +64,90 @@ def test_per_node_needs_a_loop():
     instrs = sass_count.parse_sass(LISTING)["other"]
     with pytest.raises(ValueError):
         sass_count.per_node(instrs, 360)
+
+
+# K2: a hand-made subtree_kernel listing.  A cipher core of 70 funnel
+# shifts, 10 adds and 5 moves; a walk loop around one core; a depth-first
+# level loop (3 instructions of its own, a store, a branch) around either
+# a child loop of one core or one core inline; a contraction loop of one
+# table load, two 16-byte leaf loads and 8 multiply-adds.
+CORE = (["SHF.L.W.U32.HI R1, R1, 0x7, R1"] * 70
+        + ["IADD3 R1, R1, R2, RZ"] * 10 + ["IMAD.MOV.U32 R3, RZ, RZ, R4"] * 5)
+LEVEL = ["IADD3 R6, R6, 0x1, RZ", "LOP3.LUT R7, R7, 0x1, RZ, 0xc0, !PT",
+         "IMAD.MOV.U32 R8, RZ, RZ, R9"]
+CONTRACT = (["LDG.E.CONSTANT R4, desc[UR16][R2.64]", "LDS.128 R8, [R5]",
+             "LDS.128 R12, [R5+0x10]"] + ["IMAD R20, R8, R4, R20"] * 8
+            + ["IADD3 R5, R5, 0x20, RZ", "ISETP.GE.AND P0, PT, R5, R6, PT"])
+
+
+def _k2_listing(name, child_loop):
+    """cuobjdump-style text of one function; ("loop", body) entries close
+    with a backward branch to their first instruction."""
+    def loop(body):
+        return [("start",)] + body + [("bra",)]
+
+    core = loop(CORE) if child_loop else CORE
+    parts = (["LDC R1, c[0x0][0x28]"] + loop(CORE)
+             + loop(LEVEL + core + ["STL [R1], R2"]) + loop(CONTRACT)
+             + ["EXIT"])
+    lines, starts, addr = ["\t\tFunction : %s" % name], [], 0
+    for t in parts:
+        if t == ("start",):
+            starts.append(addr)
+            continue
+        if t == ("bra",):
+            t = "@P0 BRA 0x%x" % starts.pop()
+        lines.append("        /*%04x*/                   %s ;  /* 0x0 */"
+                     % (addr, t))
+        addr += 16
+    return "\n".join(lines) + "\n"
+
+
+def test_opcode_strips_predicates_and_modifiers():
+    assert sass_count.opcode("@!P0 IMAD.MOV.U32 R1, RZ, RZ, R2") == "IMAD"
+    assert sass_count.opcode("SHF.L.W.U32.HI R1, R1, 0x7, R1") == "SHF"
+    assert sass_count.pipe_mix(CONTRACT) == {"instructions": 13, "alu": 2,
+                                             "fma": 8}
+
+
+@pytest.mark.parametrize("child_loop", [False, True])
+def test_subtree_per_leaf(child_loop):
+    name = "_ZN2k214subtree_kernelILi%dELb0EEEvPKj" % (2 if child_loop
+                                                         else 5)
+    instrs = sass_count.parse_sass(_k2_listing(name, child_loop))[name]
+    got = sass_count.subtree_per_leaf(instrs, child_loop, 4)
+    # the level loop: its 3 + store + branch and one core (+ a branch
+    # when the core is a loop of its own, run 3 more times)
+    core = {"instructions": 85 + child_loop, "alu": 80, "fma": 5}
+    node = {"instructions": 5 + core["instructions"], "alu": 82,
+            "fma": 6}
+    if child_loop:
+        node = {k: node[k] + 3 * core[k] for k in node}
+    assert {k: got["expansion_per_node"][k] for k in node} == node
+    assert got["expansion_per_leaf"]["instructions"] == \
+        pytest.approx(node["instructions"] / 3)
+    # 14 instructions (with the branch) for 8 leaf words
+    assert got["products_per_trip"] == 8
+    assert got["contraction_per_product"]["instructions"] == 14 / 8
+    assert got["contraction_per_product"]["alu_share"] == 2 / 14
+    assert got["contraction_per_product"]["fma_share"] == 8 / 14
+
+
+def test_subtree_per_leaf_needs_both_loops():
+    instrs = sass_count.parse_sass(LISTING)["other"]
+    with pytest.raises(ValueError):
+        sass_count.subtree_per_leaf(instrs, False, 2)
+
+
+def test_k2_counts_names_each_instance(monkeypatch):
+    names = ["_ZN2k214subtree_kernelILi2ELb1EEEvPKj",
+             "_ZN2k214subtree_kernelILi5ELb0EEEvPKj"]
+    text = _k2_listing(names[0], False) + _k2_listing(names[1], False)
+    monkeypatch.setattr(sass_count, "sass_functions",
+                        lambda lib: sass_count.parse_sass(text))
+    got = sass_count.k2_counts("lib.so")
+    assert sorted(got) == ["prf 2 binary", "prf 5 radix-4"]
+    # a binary tree expands one node per leaf, a radix-4 tree one per 3
+    assert got["prf 2 binary"]["expansion_per_leaf"]["instructions"] == 90
+    assert got["prf 5 radix-4"]["expansion_per_leaf"]["instructions"] == \
+        pytest.approx(30)
