@@ -21,7 +21,13 @@ Phases (any failure raises and the script exits non-zero):
    subtree kernel, every PRF id and a row base for the sqrt-N grid
    kernel, and the main paths' shapes (B = 512, N = 2^20, E = 16); time
    kernel, plain version and, for the contraction, the ``torch._int_mm``
-   byte-limb decomposition as the library yardstick; K2's eight instances (PRF ids 1, 2, 4, 5 over
+   byte-limb decomposition as the library yardstick, held bit-equal too;
+   K1's low-limb form (the last level of each frontier group) against
+   the limb 0 of its full form, at every K1 shape, and timed beside it;
+   K3 on the contiguous low-limb plane the AES path hands it and on the
+   strided low limbs of 16-byte leaves (DUMMY's binary path), at
+   [512, 2^16] and [512, 2^18], each with the bytes its sectors move;
+   K2's eight instances (PRF ids 1, 2, 4, 5 over
    the binary and the radix-4 tree) at full width, each also at E = 1
    (the same expansion, a sixteenth of the contraction); the ChaCha
    level step (on no path) at K1's widest shape; beside each bound, the
@@ -46,9 +52,9 @@ Phases (any failure raises and the script exits non-zero):
    sqrt-N path once per 512-key batch and nothing else, and the launches
    per 512-key batch of each full-width configuration are printed; then
    one binary and one radix-4 AES batch at N = 2^20 under
-   ``torch.profiler`` give K1's device time summed over a batch's
-   launches, beside the bound and lookup floor summed over the same
-   work.
+   ``torch.profiler`` give K1's and K3's device time summed over a
+   batch's launches, beside the bound (and K1's lookup floor) summed over
+   the same work.
 
 The last lines are the card's name and power limit, one
 ``{"kernels": [...]}`` line, and ``{"ok": true, "device": {...}}``.
@@ -95,6 +101,12 @@ OPS_AES_NODE_A4 = OPS_AES_SCHEDULE + 4 * OPS_AES_BLOCK + 4 * 10 + 10
 # table lookups: a key schedule takes 40, a block 160
 LOOKUPS_AES_SCHEDULE = 40
 LOOKUPS_AES_BLOCK = 160
+# K1's low-limb form (the last level of a frontier group) keeps limb 0 of
+# each child: of its block's last round one column (4 lookups x 2 + 3
+# permutes + 1 xor = 12 of the 48 instructions), of its add128 one limb
+# (1 of ~10).  Fewer a child: 3 x 12 + 9 instructions, 3 x 4 lookups
+OPS_AES_LOW_SAVED = 3 * 12 + 9
+LOOKUPS_AES_LOW_SAVED = 3 * 4
 # Salsa/ChaCha-12 core block = 48 quarter rounds x 12 ops + 16 adds; of
 # a quarter round's 4 adds, 4 xors and 4 rotations, the xors and
 # rotations run on the INT32 pipe only (an add may also be an IMAD)
@@ -227,16 +239,39 @@ def main() -> int:
             "chacha_level_step": 0}
     rows = {}
 
+    def k1_low(r, seeds, c1, c2, arity):
+        """K1's low-limb form at the row's shape, timed in turns with the
+        full form; its bound moves a quarter of the child bytes."""
+        bsz, w, _ = seeds.shape
+        nodes = bsz * w
+        r["full_ms_again"] = cuda_ms(
+            lambda: aes_level.aes_level_step(seeds, c1, c2, arity=arity), 10)
+        r["low32_ms"] = cuda_ms(lambda: aes_level.aes_level_step(
+            seeds, c1, c2, arity=arity, low32=True), 10)
+        r["low32_bound_ms"], _, r["low32_lookup_floor_ms"] = bound(dict(
+            bytes=nodes * 16 + 2 * bsz * arity * 16 + arity * nodes * 4,
+            ops=r["ops"] - arity * nodes * OPS_AES_LOW_SAVED,
+            lookups=r["lookups"] - arity * nodes * LOOKUPS_AES_LOW_SAVED))
+        log("  K1 arity %d B=%d w=%d: full ms %.4f / %.4f, low32 ms %.4f "
+            "(bound %.4f, lookup floor %.4f)"
+            % (arity, bsz, w, r["ms"], r["full_ms_again"], r["low32_ms"],
+               r["low32_bound_ms"], r["low32_lookup_floor_ms"]))
+
     # K1: AES level step; the AES path's widest call at N = 2^20, B = 512
     # (choose_chunk -> C = 8192, choose_group -> 32 subtrees) is w = 2^17.
     # 5 x 40013 nodes: not a multiple of 32, more than one grid stride
     for bsz, w in ((3, 5), (1, 1), (33, 64), (5, 40013), (512, 1 << 17)):
         seeds, cw1, cw2 = rnd(bsz, w, 4), rnd(bsz, 64, 4), rnd(bsz, 64, 4)
         c1, c2 = cw1[:, 6:8], cw2[:, 6:8]
+        full = aes_level.aes_level_step(seeds, c1, c2)
         errs["aes_level_step"] |= held(
-            "K1 aes_level_step B=%d w=%d" % (bsz, w),
-            aes_level.aes_level_step(seeds, c1, c2),
+            "K1 aes_level_step B=%d w=%d" % (bsz, w), full,
             aes_level.aes_level_step_plain(seeds, c1, c2))
+        errs["aes_level_step"] |= held(
+            "K1 aes_level_step low32 B=%d w=%d" % (bsz, w),
+            aes_level.aes_level_step(seeds, c1, c2, low32=True),
+            full[..., 0])
+        del full
     nodes = bsz * w
     rows["aes_level_step"] = dict(
         ms=cuda_ms(lambda: aes_level.aes_level_step(seeds, c1, c2), 10),
@@ -247,6 +282,7 @@ def main() -> int:
         ops=nodes * OPS_AES_NODE,
         lookups=nodes * (LOOKUPS_AES_SCHEDULE + 2 * LOOKUPS_AES_BLOCK),
         shape="B=%d w=%d -> 2w (one level)" % (bsz, w))
+    k1_low(rows["aes_level_step"], seeds, c1, c2, 2)
     del seeds, cw1, cw2, c1, c2
 
     # K1 at arity 4; the radix-4 AES path's widest call at N = 2^20,
@@ -255,10 +291,15 @@ def main() -> int:
     for bsz, w in ((3, 5), (1, 1), (33, 64), (5, 40013), (512, 1 << 16)):
         seeds, cw1, cw2 = rnd(bsz, w, 4), rnd(bsz, 64, 4), rnd(bsz, 64, 4)
         c1, c2 = cw1[:, 6:10], cw2[:, 6:10]
+        full = aes_level.aes_level_step(seeds, c1, c2, arity=4)
         errs["aes_level_step_a4"] |= held(
-            "K1 aes_level_step arity 4 B=%d w=%d" % (bsz, w),
-            aes_level.aes_level_step(seeds, c1, c2, arity=4),
+            "K1 aes_level_step arity 4 B=%d w=%d" % (bsz, w), full,
             aes_level.aes_level_step_plain(seeds, c1, c2, 4))
+        errs["aes_level_step_a4"] |= held(
+            "K1 aes_level_step arity 4 low32 B=%d w=%d" % (bsz, w),
+            aes_level.aes_level_step(seeds, c1, c2, arity=4, low32=True),
+            full[..., 0])
+        del full
     nodes = bsz * w
     rows["aes_level_step_a4"] = dict(
         ms=cuda_ms(lambda: aes_level.aes_level_step(seeds, c1, c2, arity=4),
@@ -270,44 +311,71 @@ def main() -> int:
         ops=nodes * OPS_AES_NODE_A4,
         lookups=nodes * (LOOKUPS_AES_SCHEDULE + 4 * LOOKUPS_AES_BLOCK),
         shape="B=%d w=%d -> 4w (one radix-4 level)" % (bsz, w))
+    k1_low(rows["aes_level_step_a4"], seeds, c1, c2, 4)
     del seeds, cw1, cw2, c1, c2
 
-    # K3: contraction; the AES path hands it the low limbs of the
-    # [B, g*C, 4] group leaves (strided), K = 2^18 at N = 2^20.  Why it
-    # exists: torch's int32 matmul on CUDA (probed, not relied on)
+    # K3: contraction.  The AES path hands it a contiguous plane of the
+    # leaves' low limbs (K1's low-limb form), DUMMY's binary path the low
+    # limbs of [B, C, 4] leaves (element stride 4); K = 2^18 at N = 2^20,
+    # 2^16 at N = 65536.  Why it exists: torch's int32 matmul on CUDA
+    # (probed, not relied on)
     try:
         probe = rnd(2, 2) @ rnd(2, 2)
         log("  torch int32 matmul on CUDA: supported (%s)" % probe.dtype)
     except (NotImplementedError, RuntimeError) as exc:
         log("  torch int32 matmul on CUDA: %s: %s"
             % (type(exc).__name__, str(exc).splitlines()[0]))
+    # small and ragged shapes, each also from an unaligned column slice
+    # and at stride 3
     for bsz, k, e in ((3, 300, 3), (1, 4096, 16), (3, 4096, 1),
-                      (33, 4096, 16)):
+                      (33, 4096, 16), (5, 1001, 17), (257, 16, 20)):
         a, t = rnd(bsz, k), rnd(k, e)
-        errs["contract_i32"] |= held(
-            "K3 contract_i32 B=%d K=%d E=%d" % (bsz, k, e),
-            matmul128.dot_i32(a, t), matmul128.dot_i32_plain(a, t))
+        for form, sa, st in (("", a, t),
+                             (" unaligned", a[:, 3:-2], t[3:-2]),
+                             (" stride 3", a[:, ::3], t[::3].contiguous())):
+            errs["contract_i32"] |= held(
+                "K3 contract_i32 B=%d K=%d E=%d%s"
+                % (bsz, sa.shape[1], e, form),
+                matmul128.dot_i32(sa, st), matmul128.dot_i32_plain(sa, st))
+    k3_rows = {}
     for bsz, k in ((512, 1 << 16), (512, 1 << 18)):
         leaves = rnd(bsz, k, 4)
-        a, t = leaves[..., 0], rnd(k, 16)
-        got = matmul128.dot_i32(a, t)
+        strided = leaves[..., 0]
+        plane = strided.contiguous()
+        t = rnd(k, 16)
+        t0 = time.perf_counter()
+        want = matmul128.dot_i32_plain(plane, t)
+        sync()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
         errs["contract_i32"] |= held(
-            "K3 contract_i32 B=%d K=%d E=16 strided" % (bsz, k), got,
-            matmul128.dot_i32_plain(a, t))
-    a_c = a.contiguous()
-    lib = int_mm_dot_i32(a_c, t)
-    sync()
-    lib_equal = bool(torch.equal(lib, got))
-    log("  torch._int_mm byte-limb decomposition equal to K3: %s" % lib_equal)
-    rows["contract_i32"] = dict(
-        ms=cuda_ms(lambda: matmul128.dot_i32(a, t), 20),
-        plain_ms=cuda_ms(lambda: matmul128.dot_i32_plain(a, t), 1),
-        library_ms=cuda_ms(lambda: int_mm_dot_i32(a_c, t), 5),
-        library_equal=lib_equal,
-        bytes=bsz * k * 4 + k * 16 * 4 + bsz * 16 * 4,
-        ops=2 * bsz * k * 16,
-        shape="[%d, %d] (strided low limbs) x [%d, 16]" % (bsz, k, k))
-    del leaves, a, t, a_c, lib, got
+            "K3 contract_i32 B=%d K=%d E=16 contiguous" % (bsz, k),
+            matmul128.dot_i32(plane, t), want)
+        errs["contract_i32"] |= held(
+            "K3 contract_i32 B=%d K=%d E=16 strided" % (bsz, k),
+            matmul128.dot_i32(strided, t), want)
+        held("torch._int_mm yardstick B=%d K=%d E=16" % (bsz, k),
+             int_mm_dot_i32(plane, t), want)
+        lib_ms = cuda_ms(lambda: int_mm_dot_i32(plane, t), 5)
+        small = k * 16 * 4 + bsz * 16 * 4     # table read, output written
+        for form, a, leaf_bytes in (("contiguous", plane, 4),
+                                    ("strided", strided, 16)):
+            # a strided leaf moves its whole 16 bytes: two leaves a sector
+            r = dict(ms=cuda_ms(lambda: matmul128.dot_i32(a, t), 20),
+                     plain_ms=plain_ms, library_ms=lib_ms,
+                     bytes=bsz * k * leaf_bytes + small,
+                     ops=2 * bsz * k * 16,
+                     shape="[%d, %d] %s low limbs x [%d, 16]"
+                           % (bsz, k, form, k))
+            log_row("K3 " + form, r)
+            k3_rows["%s K=%d" % (form, k)] = r
+        del leaves, strided, plane, t, want
+    # the kernels line's row: the main path's contiguous form at 2^18,
+    # the other three beside it
+    main = k3_rows["contiguous K=%d" % (1 << 18)]
+    rows["contract_i32"] = dict(main, **{
+        "%s_%s" % (key.replace(" K=", "_k"), f): r[f]
+        for key, r in k3_rows.items() if r is not main
+        for f in ("ms", "bound_ms")})
 
     # K2: subtree expand + contract; small and ragged shapes for every
     # stream-cipher id (B = 1 gives its key all 256 threads; key tiles of
@@ -688,12 +756,14 @@ def main() -> int:
             raise AssertionError("no K1 device time recorded for a radix-%d "
                                  "batch: %s" % (radix, prof["note"]))
         nodes = 512 * (n - 1) // (arity - 1)
+        leaves = 512 * n          # written by the low-limb form, 4 bytes
         launches = sum(v["count"] for v in k1)
-        work = dict(bytes=nodes * 16 * (1 + arity)
-                    + launches * 2 * 512 * arity * 16,
-                    ops=nodes * ops,
+        work = dict(bytes=nodes * 16 + (nodes * arity - leaves) * 16
+                    + leaves * 4 + launches * 2 * 512 * arity * 16,
+                    ops=nodes * ops - leaves * OPS_AES_LOW_SAVED,
                     lookups=nodes * (LOOKUPS_AES_SCHEDULE
-                                     + arity * LOOKUPS_AES_BLOCK))
+                                     + arity * LOOKUPS_AES_BLOCK)
+                    - leaves * LOOKUPS_AES_LOW_SAVED)
         b_ms, _, floor_ms = bound(work)
         rows[name].update(batch_ms=sum(v["ms"] for v in k1),
                           batch_launches=launches, batch_bound_ms=b_ms,
@@ -702,6 +772,25 @@ def main() -> int:
             "ms %.4f, bound_ms %.4f, lookup_floor_ms %.4f (batch wall ms "
             "%.2f)" % (name, radix, launches, rows[name]["batch_ms"], b_ms,
                        floor_ms, prof["wall_ms"]))
+        # K3 on the same batch: B x N low limbs, the table, and the output
+        # once a launch (4 groups of [512, 2^18] at N = 2^20)
+        k3 = [v for k, v in prof["kernels"].items() if "contract_kernel" in k]
+        if not k3:
+            raise AssertionError("no K3 device time recorded for a radix-%d "
+                                 "batch" % radix)
+        k3_launches = sum(v["count"] for v in k3)
+        k3_ms = sum(v["ms"] for v in k3)
+        k3_bound = bound(dict(bytes=512 * n * 4 + n * 16 * 4
+                              + k3_launches * 512 * 16 * 4,
+                              ops=2 * 512 * n * 16))[0]
+        suffix = "" if radix == 2 else "_radix4"
+        rows["contract_i32"].update({
+            "batch_ms" + suffix: k3_ms,
+            "batch_launches" + suffix: k3_launches,
+            "batch_bound_ms" + suffix: k3_bound})
+        log("  contract_i32 per radix-%d AES batch at N=2^20: %d launches, "
+            "device ms %.4f, bound_ms %.4f"
+            % (radix, k3_launches, k3_ms, k3_bound))
 
     meta = {
         "aes_level_step": ("dpf_tpu_torch/csrc/aes_level.cu",
@@ -735,15 +824,15 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "lookup_floor_ms": r["lookup_floor_ms"],
             "library_ms": r["library_ms"], "shape": r["shape"],
-            **{k: r[k] for k in ("batch_ms", "batch_launches",
-                                 "batch_bound_ms", "batch_lookup_floor_ms",
-                                 "e1_ms", "pipe_bound_ms", "block_leaves")
-               if k in r},
+            **{k: v for k, v in r.items() if k not in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "lookup_floor_ms",
+                "library_ms", "shape", "bytes", "ops", "lookups")},
             **({"sass_per_node": sass["arity %d" % (4 if "a4" in name
                                                     else 2)]}
                if sass and name.startswith("aes_level") else {})})
     log(json.dumps({"launches_per_batch": per_batch}))
     log(json.dumps({"k2_full_width": k2_rows, "k2_sass": sass_k2}))
+    log(json.dumps({"k3": k3_rows}))
     log("chip_smoke: %.1f s" % (time.perf_counter() - t_start))
     log(smi)
     log(json.dumps({"kernels": kernels}))

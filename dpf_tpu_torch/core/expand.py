@@ -14,7 +14,8 @@ wrapping int32 product.
 ``kernel_impl="pallas"`` path does:
 
 * AES-128: one kernel launch per level (K1, ``ops/aes_level.py``) over
-  groups of frontier subtrees, each group contracted by K3
+  groups of frontier subtrees, the last level of each group storing only
+  its leaves' low limbs, each group contracted by K3
   (``ops/matmul128.py``) -- ``_expand_contract_pallas_aes``;
 * Salsa/ChaCha and their block-PRG ids: the fused subtree kernel (K2,
   ``ops/subtree.py``), which here starts at the root --
@@ -106,14 +107,17 @@ def _level_step(seeds, cw1, cw2, i: int, prf_method: int) -> torch.Tensor:
                              cw2[:, 2 * i:2 * i + 2, :], prf_method)
 
 
-def level_step(seeds, cw1, cw2, i: int, prf_method: int) -> torch.Tensor:
+def level_step(seeds, cw1, cw2, i: int, prf_method: int,
+               low32: bool = False) -> torch.Tensor:
     """One GGM level on the port's route: AES through K1, the others
-    through the plain step."""
+    through the plain step.  ``low32``: only the children's limb 0,
+    [B, 2w] contiguous."""
     if prf_method == PRF_AES128:
         from ..ops.aes_level import aes_level_step
         return aes_level_step(seeds, cw1[:, 2 * i:2 * i + 2, :],
-                              cw2[:, 2 * i:2 * i + 2, :])
-    return _level_step(seeds, cw1, cw2, i, prf_method)
+                              cw2[:, 2 * i:2 * i + 2, :], low32=low32)
+    out = _level_step(seeds, cw1, cw2, i, prf_method)
+    return out[..., 0].contiguous() if low32 else out
 
 
 def permute_table(table_i32: np.ndarray) -> np.ndarray:
@@ -148,18 +152,18 @@ def grouped_scan_contract(seeds, table_perm, expand_fn, *, f: int,
                           c: int) -> torch.Tensor:
     """Split the ``f`` frontier nodes ([B, F, 4] ``seeds``) into equal
     groups of g, expand each group with ``expand_fn([B, g, 4]) ->
-    [B, g*c, 4]`` leaves, contract their low limbs against the matching
-    table rows with K3, and accumulate [B, E].  Live memory is bounded at
-    ``B x g x c x 16 B``."""
+    [B, g*c]`` (the low limbs of its leaves, contiguous), contract them
+    against the matching table rows with K3, and accumulate [B, E].  The
+    group's leaves are ``B x g x c x 4 B``; its widest live tensor, the
+    level before them, ``B x g x c/a x 16 B`` at arity a."""
     from ..ops.matmul128 import dot_i32
     e = table_perm.shape[1]
     g = choose_group(f, c)
     acc = torch.zeros((seeds.shape[0], e), dtype=torch.int32,
                       device=seeds.device)
     for start in range(0, f, g):
-        leaves = expand_fn(seeds[:, start:start + g, :].contiguous())
-        acc = acc + dot_i32(leaves[..., 0],
-                            table_perm[start * c:(start + g) * c])
+        low = expand_fn(seeds[:, start:start + g, :].contiguous())
+        acc = acc + dot_i32(low, table_perm[start * c:(start + g) * c])
     return acc
 
 
@@ -177,8 +181,11 @@ def _expand_contract_aes(cw1, cw2, last, table_perm, *, depth: int,
 
     def expand_fn(node_seeds):
         s = node_seeds
+        if f_levels == depth:                 # one leaf a frontier node
+            return s[..., 0].contiguous()
         for lv in range(f_levels, depth):
-            s = level_step(s, cw1, cw2, depth - 1 - lv, PRF_AES128)
+            s = level_step(s, cw1, cw2, depth - 1 - lv, PRF_AES128,
+                           low32=lv == depth - 1)
         return s
 
     return grouped_scan_contract(seeds, table_perm, expand_fn, f=f, c=c)

@@ -280,18 +280,20 @@ def _suffix_chunk(ars, target: int) -> tuple:
 # Batched evaluation on int32 limb tensors
 # ---------------------------------------------------------------------------
 
-def level_step_mixed(seeds, cw1, cw2, ars, offs, j: int,
-                     prf_method: int) -> torch.Tensor:
+def level_step_mixed(seeds, cw1, cw2, ars, offs, j: int, prf_method: int,
+                     low32: bool = False) -> torch.Tensor:
     """Eval level ``j`` on the port's route: AES through K1 at the level's
     arity, the other PRFs through the plain step.  seeds [B, w, 4],
-    full codeword arrays [B, 64, 4] -> [B, ars[j]*w, 4]."""
+    full codeword arrays [B, 64, 4] -> [B, ars[j]*w, 4], or with
+    ``low32`` only the children's limb 0, [B, ars[j]*w] contiguous."""
     a = ars[j]
     c1 = cw1[:, offs[j]:offs[j] + a, :]
     c2 = cw2[:, offs[j]:offs[j] + a, :]
     if prf_method == PRF_AES128:
         from ..ops.aes_level import aes_level_step
-        return aes_level_step(seeds, c1, c2, arity=a)
-    return _level_step_multi(seeds, c1, c2, prf_method, a)
+        return aes_level_step(seeds, c1, c2, arity=a, low32=low32)
+    out = _level_step_multi(seeds, c1, c2, prf_method, a)
+    return out[..., 0].contiguous() if low32 else out
 
 
 def expand_leaves_mixed(cw1, cw2, last, *, n: int,
@@ -357,8 +359,9 @@ def expand_and_contract_mixed(cw1, cw2, last, table_perm, *, n: int,
                                       ars=ars, f_lv=0, prf_method=prf_method,
                                       block_leaves=c)
 
-    def level(s, j):
-        return level_step_mixed(s, cw1, cw2, ars, offs, j, prf_method)
+    def level(s, j, low32=False):
+        return level_step_mixed(s, cw1, cw2, ars, offs, j, prf_method,
+                                low32)
 
     seeds = last[:, None, :]
     for j in range(f_lv):
@@ -367,7 +370,7 @@ def expand_and_contract_mixed(cw1, cw2, last, table_perm, *, n: int,
     def expand_fn(node_seeds):
         s = node_seeds
         for j in range(f_lv, len(ars)):
-            s = level(s, j)
+            s = level(s, j, low32=j == len(ars) - 1)  # last: [B, g*c]
         return s
 
     return grouped_scan_contract(seeds, table_perm, expand_fn, f=n // c, c=c)

@@ -33,7 +33,13 @@
 //   * the key schedule on the fly, shared by the A plaintexts (at A = 4 it
 //     is amortised over twice the children);
 //   * 16-byte loads of the seed and stores of the A children, neighbouring
-//     threads on neighbouring addresses.
+//     threads on neighbouring addresses;
+//   * a second form (kLow) for the last level of a frontier group, whose
+//     children only the contraction reads, and it only their low limb:
+//     it stores limb 0 of the A children as one 8- or 16-byte word, into
+//     a contiguous [B, A w] plane (a quarter of the bytes), which K3 then
+//     streams without the 12 unused bytes of each leaf.  Everything
+//     before the store is the same code.
 //
 // The SASS of sm_90a (utils/sass_count.py) issues ~1,300 instructions and
 // 360 shared-memory loads per node at A = 2, ~2,300 and 680 at A = 4:
@@ -42,6 +48,7 @@
 // so the lookups are the floor.
 
 #include <algorithm>
+#include <type_traits>
 
 #include "aes_ttable.cuh"
 #include "dpf_common.cuh"
@@ -51,12 +58,17 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMinBlocks = 3;  // 64 KB of table each: 3 fit an SM
 
-template <int A>
+// The children as stored: whole 16-byte limbs, or limb 0 alone (kLow).
+template <bool kLow>
+using Child = std::conditional_t<kLow, uint32_t, uint4>;
+
+template <int A, bool kLow>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     aes_level_kernel(const uint4* __restrict__ seeds,
                      const uint32_t* __restrict__ cw1,
                      const uint32_t* __restrict__ cw2, long long cw_stride_b,
-                     uint4* __restrict__ out, long long w, long long total) {
+                     Child<kLow>* __restrict__ out, long long w,
+                     long long total) {
   extern __shared__ uint4 dpf_smem[];
   uint32_t* const T = reinterpret_cast<uint32_t*>(dpf_smem);
   dpf::aes_fill_table(T);
@@ -85,64 +97,75 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       const uint32_t c[4] = {cw[4 * b], cw[4 * b + 1], cw[4 * b + 2],
                              cw[4 * b + 3]};
       dpf::add128(st[b], st[b], c);
-      out[A * idx + b] = make_uint4(st[b][0], st[b][1], st[b][2], st[b][3]);
+      if constexpr (!kLow)
+        out[A * idx + b] = make_uint4(st[b][0], st[b][1], st[b][2], st[b][3]);
+    }
+    if constexpr (kLow) {
+      if constexpr (A == 4)
+        reinterpret_cast<uint4*>(out)[idx] =
+            make_uint4(st[0][0], st[1][0], st[2][0], st[3][0]);
+      else
+        reinterpret_cast<uint2*>(out)[idx] = make_uint2(st[0][0], st[1][0]);
     }
   }
 }
 
-// Blocks of the persistent grid for arity A: SMs x resident blocks per SM,
-// read once per process (0 with the error if the query failed).
-template <int A>
+// Blocks of the persistent grid for one form: SMs x resident blocks per
+// SM, read once per process (0 with the error if the query failed).
+template <int A, bool kLow>
 struct Grid {
   int blocks = 0;
   cudaError_t err = cudaSuccess;
   Grid() {
     int dev = 0, sms = 0, per_sm = 0;
     if ((err = cudaFuncSetAttribute(
-             aes_level_kernel<A>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             aes_level_kernel<A, kLow>,
+             cudaFuncAttributeMaxDynamicSharedMemorySize,
              dpf::kAesTableBytes)) != cudaSuccess ||
         (err = cudaGetDevice(&dev)) != cudaSuccess ||
         (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                       dev)) != cudaSuccess ||
         (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, aes_level_kernel<A>, kThreads,
+             &per_sm, aes_level_kernel<A, kLow>, kThreads,
              dpf::kAesTableBytes)) != cudaSuccess)
       return;
     blocks = sms * per_sm;
   }
 };
 
-template <int A>
+template <int A, bool kLow>
 int launch(const void* seeds, const void* cw1, const void* cw2,
            long long cw_stride_b, void* out, long long w, long long total,
            cudaStream_t stream) {
-  static const Grid<A> grid;  // C++ initialises it once, thread-safely
+  static const Grid<A, kLow> grid;  // initialised once, thread-safely
   if (grid.err != cudaSuccess) return (int)grid.err;
   if (grid.blocks <= 0) return (int)cudaErrorInvalidConfiguration;
   const long long blocks =
       std::min<long long>((total + kThreads - 1) / kThreads, grid.blocks);
-  aes_level_kernel<A><<<(unsigned)blocks, kThreads, dpf::kAesTableBytes,
-                        stream>>>(
+  aes_level_kernel<A, kLow><<<(unsigned)blocks, kThreads,
+                              dpf::kAesTableBytes, stream>>>(
       (const uint4*)seeds, (const uint32_t*)cw1, (const uint32_t*)cw2,
-      cw_stride_b, (uint4*)out, w, total);
+      cw_stride_b, (Child<kLow>*)out, w, total);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // seeds [B, w, 4], cw1/cw2 [B, arity, 4] with key stride cw_stride_b (in
-// 32-bit words; inner dims contiguous), out [B, arity*w, 4], arity 2 or
-// 4.  Returns the launch's cudaError_t.
+// 32-bit words; inner dims contiguous), arity 2 or 4; out [B, arity*w, 4],
+// or with low32 its limb 0 alone, [B, arity*w].  Returns the launch's
+// cudaError_t.
 extern "C" int aes_level_launch(const void* seeds, const void* cw1,
                                 const void* cw2, long long cw_stride_b,
                                 void* out, long long batch, long long w,
-                                int arity, void* stream) {
+                                int arity, int low32, void* stream) {
   const long long total = batch * w;
   if (arity != 2 && arity != 4) return (int)cudaErrorInvalidValue;
   if (total <= 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  return arity == 4 ? launch<4>(seeds, cw1, cw2, cw_stride_b, out, w, total, st)
-                    : launch<2>(seeds, cw1, cw2, cw_stride_b, out, w, total, st);
+  const auto form = arity == 4 ? (low32 ? launch<4, true> : launch<4, false>)
+                               : (low32 ? launch<2, true> : launch<2, false>);
+  return form(seeds, cw1, cw2, cw_stride_b, out, w, total, st);
 }
 
 extern "C" const char* aes_level_error_string(int code) {

@@ -17,7 +17,11 @@ T-tables and gives the same bits.
   ``core/prf.py``), used for CPU tensors and as the kernel's oracle.
 * ``aes_level_step`` -- the wrapper: CUDA tensors launch K1, CPU
   tensors take the plain version.  It counts arity-2 launches in
-  ``launches`` and arity-4 launches in ``launches_a4``.
+  ``launches`` and arity-4 launches in ``launches_a4``, both forms.
+
+``low32=True`` is the form of the last level of a frontier group: only
+limb 0 of each child, ``[B, a*w]`` contiguous, which is all the
+contraction (K3) reads.
 """
 
 from __future__ import annotations
@@ -30,10 +34,12 @@ from . import cuda_build
 
 
 def aes_level_step_plain(seeds: torch.Tensor, cw1_lvl: torch.Tensor,
-                         cw2_lvl: torch.Tensor,
-                         arity: int = 2) -> torch.Tensor:
-    """[B, w, 4] seeds, [B, a, 4] codewords -> [B, a*w, 4] children."""
-    return _level_step_multi(seeds, cw1_lvl, cw2_lvl, PRF_AES128, arity)
+                         cw2_lvl: torch.Tensor, arity: int = 2,
+                         low32: bool = False) -> torch.Tensor:
+    """[B, w, 4] seeds, [B, a, 4] codewords -> [B, a*w, 4] children, or
+    with ``low32`` their limb 0, [B, a*w] contiguous."""
+    out = _level_step_multi(seeds, cw1_lvl, cw2_lvl, PRF_AES128, arity)
+    return out[..., 0].contiguous() if low32 else out
 
 
 def check_level_operands(seeds, cw1_lvl, cw2_lvl, arity,
@@ -63,22 +69,24 @@ def check_level_operands(seeds, cw1_lvl, cw2_lvl, arity,
 
 
 def aes_level_step(seeds: torch.Tensor, cw1_lvl: torch.Tensor,
-                   cw2_lvl: torch.Tensor, arity: int = 2) -> torch.Tensor:
-    """One AES-128 GGM level; K1 on CUDA tensors, plain on CPU ones."""
+                   cw2_lvl: torch.Tensor, arity: int = 2,
+                   low32: bool = False) -> torch.Tensor:
+    """One AES-128 GGM level; K1 on CUDA tensors, plain on CPU ones.
+    ``low32``: return only limb 0 of each child, [B, a*w]."""
     check_level_operands(seeds, cw1_lvl, cw2_lvl, arity)
     if seeds.device.type == "cpu":
-        return aes_level_step_plain(seeds, cw1_lvl, cw2_lvl, arity)
+        return aes_level_step_plain(seeds, cw1_lvl, cw2_lvl, arity, low32)
     if seeds.device.type != "cuda":
         raise ValueError("aes_level_step: unsupported device %s"
                          % seeds.device)
     bsz, w, _ = seeds.shape
-    out = torch.empty((bsz, arity * w, 4), dtype=torch.int32,
-                      device=seeds.device)
+    shape = (bsz, arity * w) if low32 else (bsz, arity * w, 4)
+    out = torch.empty(shape, dtype=torch.int32, device=seeds.device)
     with torch.cuda.device(seeds.device):
         cuda_build.launch(
             "aes_level", "aes_level_launch", seeds.data_ptr(),
             cw1_lvl.data_ptr(), cw2_lvl.data_ptr(), cw1_lvl.stride(0),
-            out.data_ptr(), bsz, w, arity,
+            out.data_ptr(), bsz, w, arity, int(low32),
             torch.cuda.current_stream().cuda_stream)
     if arity == 4:
         aes_level_step.launches_a4 += 1

@@ -38,7 +38,7 @@ _IP = ctypes.POINTER(ctypes.c_int)
 # source stem -> (C entry -> argtypes, error-string entry)
 SOURCES = {
     "aes_level": ({"aes_level_launch": [_P, _P, _P, _LL, _P, _LL, _LL, _I,
-                                        _P]},
+                                        _I, _P]},
                   "aes_level_error_string"),
     "subtree": ({"subtree_contract_launch": [_P] * 5 + [_I] * 3
                  + [_IP] * 2 + [_I] * 4 + [_P]},

@@ -8,11 +8,11 @@ expansion, a sixteenth of the contraction), and binary ChaCha20 and
 radix-4 ChaCha20-BLK at B = 1, 2 and 8 (the server pads a batch to a
 power of two), all from the root at the 4096 leaves per block that the
 API resolves.  Each library's result is held bit for bit against the
-plain version before it is timed; with another library the two are
-timed in turns: other, this, this, other.  Needs one CUDA card and the
-toolkit:
+plain version before it is timed; with other libraries all are timed
+in turns: the others, this tree's twice, the others again.  Needs one
+CUDA card and the toolkit:
 
-    python -m dpf_tpu_torch.utils.k2_times [other subtree library]
+    python -m dpf_tpu_torch.utils.k2_times [other subtree library ...]
 """
 
 from __future__ import annotations
@@ -24,20 +24,12 @@ import sys
 import torch
 
 from ..core import radix4
-from ..ops import cuda_build, subtree
-from .bench import cuda_ms
+from ..ops import subtree
+from .bench import held_ms, libraries_in_turns
 
 N_LOG = 20
 NAMES = {1: "Salsa20", 2: "ChaCha20", 4: "Salsa20-BLK", 5: "ChaCha20-BLK"}
 SHORT = ((2, 2), (5, 4))            # (prf, radix) timed at short batches
-
-
-def load_entry(so):
-    """The launch entry of one built ``subtree`` library."""
-    fn = ctypes.CDLL(str(so)).subtree_contract_launch
-    fn.argtypes = cuda_build.SOURCES["subtree"][0]["subtree_contract_launch"]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def main() -> int:
@@ -51,10 +43,8 @@ def main() -> int:
         return torch.randint(-2 ** 31, 2 ** 31, shape, dtype=torch.int64,
                              device=dev, generator=gen).to(torch.int32)
 
-    libs = [("this", cuda_build.library("subtree").subtree_contract_launch)]
-    if len(sys.argv) > 1:
-        other = ("other", load_entry(sys.argv[1]))
-        libs = [other, libs[0], libs[0], other]
+    libs = libraries_in_turns("subtree", "subtree_contract_launch",
+                              sys.argv[1:])
     n = 1 << N_LOG
     ars = radix4.arities(n)
     scheds = {2: subtree._binary_schedule(N_LOG),
@@ -92,23 +82,19 @@ def main() -> int:
         name = "%s %s B=%d" % ("binary" if radix == 2 else "radix-4",
                                NAMES[prf], bsz)
         full = plain(bsz, tables[0], radix, prf)
-        wants = [full[:, :t.shape[1]] for t in tables]  # tables[1:]: E = 1
         reps = 5 if bsz == 512 else 20
-        for label, fn in libs:
-            row = {"instance": name, "library": label}
-            for t, want in zip(tables, wants):
-                got = launch(fn, bsz, t, scheds[radix], prf)
-                torch.cuda.synchronize()
-                if not torch.equal(got, want):
-                    raise AssertionError("%s, %s library, E=%d: differs "
-                                         "from the plain version"
-                                         % (name, label, t.shape[1]))
-                row["ms" if t.shape[1] == 16 else "e1_ms"] = cuda_ms(
-                    lambda: launch(fn, bsz, t, scheds[radix], prf), reps)
+        mine = [{"instance": name, "library": label} for label, _ in libs]
+        for t in tables:                            # tables[1:]: E = 1
+            timed = held_ms(
+                libs, lambda fn: launch(fn, bsz, t, scheds[radix], prf),
+                full[:, :t.shape[1]], reps, "%s E=%d" % (name, t.shape[1]))
+            for row, (_, ms) in zip(mine, timed):
+                row["ms" if t.shape[1] == 16 else "e1_ms"] = ms
+        for row in mine:
             rows.append(row)
-            print("  %-28s %-5s ms %.4f%s  bit-equal" % (
-                name, label, row["ms"], "  E=1 ms %.4f" % row["e1_ms"]
-                if "e1_ms" in row else ""), flush=True)
+            print("  %-28s %-8s ms %.4f%s  bit-equal" % (
+                name, row["library"], row["ms"], "  E=1 ms %.4f"
+                % row["e1_ms"] if "e1_ms" in row else ""), flush=True)
 
     for radix in (2, 4):
         for prf in sorted(NAMES):

@@ -29,7 +29,7 @@ CONFIGS = (
     (3, 1 << 20, 2, "logn"), (2, 1 << 20, 2, "logn"),
     (3, 1 << 16, 2, "logn"), (5, 1 << 20, 2, "logn"),
     (3, 1 << 20, 4, "logn"), (2, 1 << 20, 4, "logn"),
-    (5, 1 << 20, 4, "logn"),
+    (5, 1 << 20, 4, "logn"), (3, 1 << 16, 4, "logn"),
     (3, 1 << 20, 2, "sqrtn"), (5, 1 << 20, 2, "sqrtn"),
     (2, 1 << 20, 2, "sqrtn"), (3, 1 << 16, 2, "sqrtn"))
 

@@ -2,8 +2,10 @@
 
 Runs ``cuobjdump -sass`` (CUDA toolkit) on a built library.
 
-K1 (``aes_level``): each ``aes_level_kernel<A>`` instance's grid-stride
-loop (one node per iteration) and the AES rounds loop inside it.  The
+K1 (``aes_level``): each ``aes_level_kernel<A, kLow>`` instance's
+grid-stride loop (one node per iteration) and the AES rounds loop inside
+it, for the full store ("arity A") and the low-limb store ("arity A
+low32").  The
 rounds loop runs as often as makes the node's shared-memory loads (LDS)
 equal the lookups AES-128 needs (a key schedule of 40 and A blocks of
 160), so the instructions a node issues are the grid-stride body plus
@@ -196,15 +198,18 @@ def k2_counts(lib: Path | None = None) -> dict:
 
 
 def k1_counts() -> dict:
-    """Per-node counts of K1 at arity 2 and 4 from the built library."""
+    """Per-node counts of K1 at arity 2 and 4, each store form, from the
+    built library."""
     cuda_build.build(("aes_level",))
     out = {}
     for name, instrs in sass_functions(
             cuda_build.library_path("aes_level")).items():
-        m = re.search(r"aes_level_kernelILi(\d)E", name)
+        m = re.search(r"aes_level_kernelILi(\d)ELb([01])E", name)
         if m:
             arity = int(m.group(1))
-            out["arity %d" % arity] = per_node(instrs, 40 + 160 * arity)
+            key = "arity %d%s" % (arity, " low32" if m.group(2) == "1"
+                                  else "")
+            out[key] = per_node(instrs, 40 + 160 * arity)
     return out
 
 

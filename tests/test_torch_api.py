@@ -63,6 +63,50 @@ def test_round_trip_matches_dpf_tpu(method, n):
                .all() for i, k in zip(idx, ka))
 
 
+@pytest.mark.parametrize("radix", [2, 4])
+@pytest.mark.parametrize("method", [0, 3])
+def test_grouped_servers_match_dpf_tpu(method, radix, monkeypatch):
+    """AES and DUMMY servers whose batch runs over several frontier
+    groups (chunk and group forced small): the AES groups, and DUMMY's
+    in the radix-4 tree, hand K3 a contiguous plane of low limbs; the
+    shares equal dpf_tpu's jitted server's."""
+    from dpf_tpu.utils.config import EvalConfig as JaxEvalConfig
+    from dpf_tpu_torch.ops import matmul128
+    n = 256
+    table = _table(n, 3, seed=20 + method + radix)
+    monkeypatch.setattr(expand, "clamp_chunk", lambda chunk, n, batch: 32)
+    monkeypatch.setattr(expand, "choose_group", lambda f, c: 2)
+    calls = []
+    dot = matmul128.dot_i32
+
+    def counted(a, b):
+        calls.append((tuple(a.shape), a.is_contiguous()))
+        return dot(a, b)
+
+    monkeypatch.setattr(matmul128, "dot_i32", counted)
+    ours = dpf_tpu_torch.DPF(config=EvalConfig(radix=radix,
+                                               prf_method=method),
+                             device="cpu")
+    ours.eval_init(torch.from_numpy(table))
+    theirs = dpf_tpu.DPF(config=JaxEvalConfig(radix=radix,
+                                              prf_method=method))
+    theirs.eval_init(table)
+    idx = [0, 77, 130, n - 1]
+    pairs = _pairs(ours, n, idx, tag=b"grp")
+    ka, kb = [p[0] for p in pairs], [p[1] for p in pairs]
+    sa = ours.eval_gpu(ka)
+    # binary: 8 subtrees of 32 leaves; radix-4: 16 of 16, 2 to a group
+    if radix == 2 and method == 0:        # one subtree at a time, strided
+        assert calls == [((4, 32), False)] * 8
+    elif radix == 2:
+        assert calls == [((4, 64), True)] * 4
+    else:
+        assert calls == [((4, 32), True)] * 8
+    assert ((sa - ours.eval_gpu(kb)).numpy() == table[idx]).all()
+    assert (sa.numpy() == np.asarray(theirs.eval_tpu(
+        [k.numpy() for k in ka]))).all()
+
+
 @pytest.mark.parametrize("method", [2, 3])
 def test_keys_cross_packages(method):
     n = 256

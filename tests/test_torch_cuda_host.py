@@ -7,8 +7,12 @@ as thread-locals, ``__syncthreads`` as a ``std::barrier``, ``atomicAdd``
 as an atomic fetch-add, ``__shared__`` as static storage (blocks run one
 after another), ``extern __shared__`` as a per-launch buffer of the
 launch's dynamic size, ``__byte_perm`` and ``__funnelshift_l`` with
-CUDA's semantics, and a card of two SMs that hold one block each, so a
-persistent grid's grid-stride loop runs more than once.  Each
+CUDA's semantics, ``uint2`` and ``uint4``, the ``cp.async`` intrinsics of
+``<cuda_pipeline_primitives.h>`` as ordered copies (each poisons its
+destination when issued and lands only at the ``__pipeline_wait_prior``
+that retires its commit group, and a thread that ends with a copy not
+waited for fails its launch), and a card of two SMs that hold one block
+each, so a persistent grid's grid-stride loop runs more than once.  Each
 ``kernel<<<grid, block, smem, stream>>>(args)`` launch is rewritten
 into a loop that runs every block's threads as ``std::thread``s.  The
 kernels use no warp-level primitives, so this executes exactly their
@@ -47,6 +51,8 @@ SHIM = r"""
 #include <atomic>
 #include <barrier>
 #include <cstdint>
+#include <cstring>
+#include <deque>
 #include <thread>
 #include <vector>
 #define __global__
@@ -63,7 +69,9 @@ struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
+struct uint2 { uint32_t x, y; };
 struct uint4 { uint32_t x, y, z, w; };
+inline uint2 make_uint2(uint32_t a, uint32_t b) { return uint2{a, b}; }
 inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
   return uint4{a, b, c, d};
 }
@@ -73,7 +81,47 @@ enum cudaError_t {
 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// set by a thread that ends with a cp.async not waited for; the launch's
+// cudaGetLastError reports it
+inline std::atomic<int> host_launch_error{0};
+inline cudaError_t cudaGetLastError() {
+  return host_launch_error.exchange(0) ? cudaErrorInvalidValue : cudaSuccess;
+}
+// cp.async: a copy poisons its destination when issued and lands at the
+// __pipeline_wait_prior that retires its commit group, the latest moment
+// the card may land it.  A read before that wait, or a copy issued into
+// a slot another thread still reads, sees the poison.
+struct HostCopy {
+  void* dst;
+  const void* src;
+  size_t n, zfill;
+};
+inline thread_local std::vector<HostCopy> host_open_copies;
+inline thread_local std::deque<std::vector<HostCopy>> host_copy_groups;
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n,
+                                    size_t zfill = 0) {
+  std::memset(dst, 0xa5, n);
+  host_open_copies.push_back(HostCopy{dst, src, n, zfill});
+}
+inline void __pipeline_commit() {
+  host_copy_groups.push_back(std::move(host_open_copies));
+  host_open_copies.clear();
+}
+inline void __pipeline_wait_prior(size_t n) {
+  for (; host_copy_groups.size() > n; host_copy_groups.pop_front())
+    for (const HostCopy& c : host_copy_groups.front()) {
+      std::memcpy(c.dst, c.src, c.n - c.zfill);
+      std::memset(static_cast<char*>(c.dst) + c.n - c.zfill, 0, c.zfill);
+    }
+}
+// at a thread's end: every copy issued was committed and waited for
+inline void host_check_copies_landed() {
+  bool pending = !host_open_copies.empty();
+  for (const auto& g : host_copy_groups) pending |= !g.empty();
+  if (pending) host_launch_error = 1;
+  host_open_copies.clear();
+  host_copy_groups.clear();
+}
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
 // a card of 2 SMs, one resident block each
 inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
@@ -130,11 +178,20 @@ void host_launch(dim3 grid, dim3 block, size_t smem, F f) {
             host_barrier = &bar;
             host_dyn_smem = reinterpret_cast<unsigned char*>(dyn.data());
             f();
+            host_check_copies_landed();
             bar.arrive_and_drop();
           });
         for (auto& th : ts) th.join();
       }
 }
+"""
+
+
+# the intrinsics themselves are in SHIM, beside the launch that checks
+# that every copy landed
+PIPELINE_SHIM = r"""
+#pragma once
+#include "cuda_runtime.h"
 """
 
 
@@ -168,12 +225,20 @@ def _host_source(src: str) -> str:
 
 
 @pytest.fixture(scope="module")
-def host_libs(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
+def shim_dir(tmp_path_factory):
+    """A directory holding the shim's headers."""
+    if shutil.which("g++") is None:
         pytest.skip("needs g++ to compile the kernels for the host")
     build = tmp_path_factory.mktemp("cuda_host")
     (build / "cuda_runtime.h").write_text(SHIM)
+    (build / "cuda_pipeline_primitives.h").write_text(PIPELINE_SHIM)
+    return build
+
+
+@pytest.fixture(scope="module")
+def host_libs(shim_dir):
+    gxx = shutil.which("g++")
+    build = shim_dir
 
     def compile_one(name):
         cpp = build / (name + ".cpp")
@@ -193,6 +258,41 @@ def host_libs(tmp_path_factory):
 
     # one compiler at a time: the suite's other workers share the host
     return {name: compile_one(name) for name in cuda_build.SOURCES}
+
+
+def test_pipeline_shim_lands_copies_at_their_wait(shim_dir, tmp_path):
+    """The shim's cp.async: a copy is poison until the wait that retires
+    its group, and a launch whose thread never waits for a copy fails."""
+    cpp = tmp_path / "check.cpp"
+    cpp.write_text("""
+#include <cuda_pipeline_primitives.h>
+extern "C" int check() {
+  uint32_t from[2] = {1u, 2u}, to[2] = {0u, 0u};
+  __pipeline_memcpy_async(&to[0], &from[0], 4);
+  __pipeline_commit();
+  __pipeline_memcpy_async(&to[1], &from[1], 4);
+  __pipeline_commit();
+  if (to[0] == 1u || to[1] == 2u) return 1;   // landed before its wait
+  __pipeline_wait_prior(1);
+  if (to[0] != 1u || to[1] == 2u) return 2;   // the newer group waits on
+  __pipeline_wait_prior(0);
+  if (to[1] != 2u) return 3;
+  host_launch(dim3(1), dim3(2), 0, [&] {
+    __pipeline_memcpy_async(&to[threadIdx.x], &from[0], 4);
+    __pipeline_commit();
+  });
+  if (cudaGetLastError() == cudaSuccess) return 4;  // never waited for
+  if (cudaGetLastError() != cudaSuccess) return 5;  // reported once
+  return 0;
+}
+""")
+    so = cpp.with_suffix(".so")
+    res = subprocess.run(
+        [shutil.which("g++"), "-std=c++20", "-O1", "-shared", "-fPIC",
+         "-pthread", "-I", str(shim_dir), "-o", str(so), str(cpp)],
+        capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert ctypes.CDLL(str(so)).check() == 0
 
 
 def _rnd(rng, *shape):
@@ -216,16 +316,44 @@ def test_aes_level_kernel_on_host(host_libs, bsz, w, arity):
     out = torch.empty(bsz, arity * w, 4, dtype=torch.int32)
     assert host_libs["aes_level"].aes_level_launch(
         seeds.data_ptr(), c1.data_ptr(), c2.data_ptr(), c1.stride(0),
-        out.data_ptr(), bsz, w, arity, None) == 0
+        out.data_ptr(), bsz, w, arity, 0, None) == 0
     assert torch.equal(out, aes_level.aes_level_step_plain(seeds, c1, c2,
                                                            arity))
+
+
+@pytest.mark.parametrize("arity", [2, 4])
+@pytest.mark.parametrize("bsz,w", [(1, 1), (3, 5), (2, 300), (3, 401)])
+def test_aes_level_low32_kernel_on_host(host_libs, bsz, w, arity):
+    """K1's low-limb form: a contiguous [B, a*w] plane equal to limb 0 of
+    the full form's children."""
+    rng = np.random.default_rng(bsz * 1000 + w + 7)
+    seeds, cw1, cw2 = _rnd(rng, bsz, w, 4), _rnd(rng, bsz, 64, 4), \
+        _rnd(rng, bsz, 64, 4)
+    c1, c2 = cw1[:, 20:20 + arity], cw2[:, 20:20 + arity]
+    full = torch.empty(bsz, arity * w, 4, dtype=torch.int32)
+    low = torch.empty(bsz, arity * w, dtype=torch.int32)
+    for out, low32 in ((full, 0), (low, 1)):
+        assert host_libs["aes_level"].aes_level_launch(
+            seeds.data_ptr(), c1.data_ptr(), c2.data_ptr(), c1.stride(0),
+            out.data_ptr(), bsz, w, arity, low32, None) == 0
+    assert torch.equal(low, full[..., 0])
+    assert torch.equal(low, aes_level.aes_level_step_plain(
+        seeds, c1, c2, arity, low32=True))
 
 
 def test_aes_level_kernel_on_host_rejects_bad_arity(host_libs):
     z = torch.zeros(1, 4, 4, dtype=torch.int32)
     assert host_libs["aes_level"].aes_level_launch(
         z.data_ptr(), z.data_ptr(), z.data_ptr(), 16, z.data_ptr(), 1, 1, 3,
-        None) != 0
+        0, None) != 0
+
+
+def _contract_on_host(lib, a, t, sms=4):
+    out = torch.zeros(a.shape[0], t.shape[1], dtype=torch.int32)
+    assert lib.contract_i32_launch(
+        a.data_ptr(), a.stride(0), a.stride(1), t.data_ptr(), out.data_ptr(),
+        a.shape[0], a.shape[1], t.shape[1], sms, None) == 0
+    return out
 
 
 @pytest.mark.parametrize("bsz,k,e,inc", [(1, 7, 1, 1), (3, 300, 3, 1),
@@ -235,11 +363,64 @@ def test_contract_kernel_on_host(host_libs, bsz, k, e, inc):
     base = _rnd(rng, bsz, k, inc)
     a = base[..., 0]
     t = _rnd(rng, k, e)
-    out = torch.zeros(bsz, e, dtype=torch.int32)
-    assert host_libs["contract"].contract_i32_launch(
-        a.data_ptr(), a.stride(0), a.stride(1), t.data_ptr(), out.data_ptr(),
-        bsz, k, e, 4, None) == 0
-    assert torch.equal(out, matmul128.dot_i32_plain(a, t))
+    assert torch.equal(_contract_on_host(host_libs["contract"], a, t),
+                       matmul128.dot_i32_plain(a, t))
+
+
+@pytest.mark.parametrize("bsz,k,e,inc", [
+    (1, 7, 16, 1),        # fewer k than one 32-k stage: 4-byte copies only
+    (3, 300, 16, 1),      # contiguous groups and a ragged tail
+    (33, 1001, 16, 1),    # two warps, one row of the second live
+    (257, 4096, 16, 1),   # three row groups of 128, the last of one row
+    (3, 4096, 1, 1),      # one column
+    (1, 1001, 3, 1),      # three columns: the scalar table stage
+    (33, 300, 17, 1),     # two column tiles, the second of one column
+    (3, 1001, 20, 1),     # two column tiles of 16 and 4
+    (257, 300, 16, 4),    # the low word of 16-byte leaves
+    (3, 1001, 20, 4),
+    (1, 4096, 16, 4),
+    (33, 7, 3, 4),        # leaves, fewer k than one stage
+    (3, 1001, 16, 3),     # an odd stride
+    (33, 300, 17, 5),
+    (1, 4096, 1, 3),
+    (257, 7, 20, 3),
+])
+def test_contract_kernel_forms_on_host(host_libs, bsz, k, e, inc):
+    """K3 against ``dot_i32_plain`` for each way it copies a row: 16-byte
+    words of a contiguous aligned row (inc 1), one 4-byte word per k of
+    anything else (the low word of 16-byte leaves at inc 4, odd strides),
+    at ragged K, B and E."""
+    rng = np.random.default_rng(bsz * 7 + k * 3 + e + inc)
+    a = _rnd(rng, bsz, k, inc)[..., 0]
+    t = _rnd(rng, k, e)
+    assert torch.equal(_contract_on_host(host_libs["contract"], a, t),
+                       matmul128.dot_i32_plain(a, t))
+
+
+@pytest.mark.parametrize("offset,width", [(1, 1000), (3, 1003), (2, 64)])
+@pytest.mark.parametrize("bsz", [1, 33])
+def test_contract_kernel_unaligned_rows_on_host(host_libs, offset, width,
+                                                bsz):
+    """Rows that start off a 16-byte boundary (a column slice at an odd
+    offset; with an odd width each row starts at another alignment) copy
+    one 4-byte word per k."""
+    rng = np.random.default_rng(offset * 100 + width + bsz)
+    k = width - 4
+    a = _rnd(rng, bsz, width)[:, offset:offset + k]
+    assert a.data_ptr() % 16 != 0 and a.stride(1) == 1
+    t = _rnd(rng, k, 16)
+    assert torch.equal(_contract_on_host(host_libs["contract"], a, t),
+                       matmul128.dot_i32_plain(a, t))
+
+
+@pytest.mark.parametrize("sms", [1, 7, 64])
+def test_contract_kernel_k_split_on_host(host_libs, sms):
+    """The grid's split of k follows the card's size: one block, a few,
+    and more blocks than 32-k stages; the sum is the same."""
+    rng = np.random.default_rng(sms)
+    a, t = _rnd(rng, 5, 700), _rnd(rng, 700, 16)
+    assert torch.equal(_contract_on_host(host_libs["contract"], a, t, sms),
+                       matmul128.dot_i32_plain(a, t))
 
 
 # K2's keys per block (kTileKeys in csrc/subtree.cu), for the ragged key

@@ -62,6 +62,40 @@ def test_plain_aes_level_matches_aes_level_step_ref():
     assert (to_u32(aes_level.aes_level_step(*args)) == want).all()
 
 
+@pytest.mark.parametrize("arity", [2, 4])
+def test_aes_level_low32_matches_aes_level_step_ref(arity):
+    """K1's low-limb form on the CPU: limb 0 of dpf_tpu's level step, as
+    one contiguous [B, a*w] plane."""
+    rng = np.random.default_rng(30 + arity)
+    seeds = _rand_u32(rng, 32, 3, 4)
+    cw1, cw2 = _rand_u32(rng, 32, arity, 4), _rand_u32(rng, 32, arity, 4)
+    want = np.asarray(aes_planes.aes_level_step_ref(
+        jnp.asarray(seeds), jnp.asarray(cw1), jnp.asarray(cw2),
+        arity=arity))[..., 0]
+    args = [from_u32(x) for x in (seeds, cw1, cw2)]
+    got = aes_level.aes_level_step(*args, arity=arity, low32=True)
+    assert tuple(got.shape) == (32, 3 * arity) and got.is_contiguous()
+    assert (to_u32(got) == want).all()
+    assert torch.equal(got, aes_level.aes_level_step_plain(*args, arity,
+                                                           low32=True))
+
+
+@pytest.mark.parametrize("method", [0, 2, 3])
+def test_level_step_low32_matches_dpf_tpu(method):
+    """The port's level step in its low-limb form (K1 for AES, the plain
+    step otherwise): limb 0 of dpf_tpu's level step, contiguous."""
+    rng = np.random.default_rng(40 + method)
+    seeds = _rand_u32(rng, 3, 5, 4)
+    cw1, cw2 = _rand_u32(rng, 3, 64, 4), _rand_u32(rng, 3, 64, 4)
+    want = np.asarray(jexpand._level_step(
+        jnp.asarray(seeds), jnp.asarray(cw1), jnp.asarray(cw2), 9,
+        method))[..., 0]
+    got = expand.level_step(*(from_u32(x) for x in (seeds, cw1, cw2)), 9,
+                            method, low32=True)
+    assert tuple(got.shape) == (3, 10) and got.is_contiguous()
+    assert (to_u32(got) == want).all()
+
+
 def test_aes_level_wrapper_checks_layout():
     seeds = torch.zeros(2, 4, 4, dtype=torch.int32)
     cw = torch.zeros(2, 64, 4, dtype=torch.int32)

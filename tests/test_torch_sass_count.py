@@ -151,3 +151,19 @@ def test_k2_counts_names_each_instance(monkeypatch):
     assert got["prf 2 binary"]["expansion_per_leaf"]["instructions"] == 90
     assert got["prf 5 radix-4"]["expansion_per_leaf"]["instructions"] == \
         pytest.approx(30)
+
+
+def test_k1_counts_names_each_store_form(monkeypatch):
+    """K1's full and low-limb instances are counted apart."""
+    funcs = sass_count.parse_sass(LISTING)
+    instrs = funcs["_ZN2k16aes_level_kernelILi2EEEvPK5uint4"]
+    names = ["_ZN2k16aes_level_kernelILi2ELb0EEEvPK5uint4",
+             "_ZN2k16aes_level_kernelILi4ELb1EEEvPK5uint4PKj", "other"]
+    monkeypatch.setattr(sass_count.cuda_build, "build", lambda names: {})
+    monkeypatch.setattr(sass_count, "sass_functions",
+                        lambda lib: {n: instrs for n in names})
+    got = sass_count.k1_counts()
+    assert sorted(got) == ["arity 2", "arity 4 low32"]
+    # the rounds loop runs until the LDS equal 40 + 160 A lookups
+    assert got["arity 2"]["lds"] == 3 + 2 * ((360 - 3) // 2)
+    assert got["arity 4 low32"]["lds"] == 3 + 2 * ((680 - 3) // 2)
