@@ -9,7 +9,10 @@ CUDA toolkit:
 Phases (any failure raises and the script exits non-zero):
 
 1. build every CUDA kernel from ``dpf_tpu_torch/csrc`` (one ``nvcc`` per
-   source, all at once), print the build time, ``ptxas``' registers
+   source, all at once) and the host C++ library of
+   ``dpf_tpu_torch/native`` (the binary keygen; the script fails with
+   the compiler's output if it does not build), print the build time,
+   ``ptxas``' registers
    and spills per kernel, K1's instructions per node and K2's per leaf,
    with K2's split between the INT32 and FMA pipes, from their SASS
    (``utils/sass_count.py``, where the toolkit has ``cuobjdump``; a
@@ -21,7 +24,8 @@ Phases (any failure raises and the script exits non-zero):
    subtree kernel, every PRF id and a row base for the sqrt-N grid
    kernel, and the main paths' shapes (B = 512, N = 2^20, E = 16); time
    kernel, plain version and, for the contraction, the ``torch._int_mm``
-   byte-limb decomposition as the library yardstick, held bit-equal too;
+   byte-limb decomposition (``matmul128.dot_i32_mxu``) as the library
+   yardstick, held bit-equal too;
    K1's low-limb form (the last level of each frontier group) against
    the limb 0 of its full form, at every K1 shape, and timed beside it;
    K3 on the contiguous low-limb plane the AES path hands it and on the
@@ -42,10 +46,11 @@ Phases (any failure raises and the script exits non-zero):
    evaluation on the card equal the CPU oracle ``eval_cpu``;
 4. full width: binary AES-128 and ChaCha20, radix-4 AES-128 and
    ChaCha20-BLK, sqrt-N AES-128 and ChaCha20-BLK at N = 2^20, E = 16,
-   B = 512 (64 distinct key pairs tiled to the batch, 16 for sqrt-N,
-   whose keygen is ~0.35 s a pair in Python; every recovered row
-   checked), and AES-128 in the three constructions at the headline
-   configuration N = 65536, E = 16, B = 512;
+   B = 512, and AES-128 in the three constructions at the headline
+   configuration N = 65536, E = 16, B = 512: a distinct key in every
+   row, 512 pairs from one ``gen_batch`` call (the generator, native or
+   vectorized, and its host seconds printed), every recovered row
+   checked;
 5. launch counts: phases 3-4 run once per path (binary, radix-4, then
    sqrt-N), every count set to 0 just before the path and read just
    after; each kernel of a path must have been launched in its run, the
@@ -54,7 +59,20 @@ Phases (any failure raises and the script exits non-zero):
    one binary and one radix-4 AES batch at N = 2^20 under
    ``torch.profiler`` give K1's and K3's device time summed over a
    batch's launches, beside the bound (and K1's lookup floor) summed over
-   the same work.
+   the same work;
+6. the harness, after phase 5's counts are read (its own counts set to 0
+   before 6.1 and read after 6.2): (1) the reference's sweep through
+   ``dpf_tpu_torch.benchmark.run_sweep``, N = 2^14 .. 2^20 x AES-128,
+   Salsa20, ChaCha20, binary, B = 512 distinct keys, E = 16, each row
+   recovery-checked, beside the upstream P100 / V100 figures; (2)
+   single-query latency (``test_dpf_latency``, recovery-checked) of
+   AES-128 at N = 65536 and 2^20 in the three constructions and of
+   binary ChaCha20 at 2^20; (3) ``test_matmul_perf`` ("i32" = K3, "mxu"
+   = ``torch._int_mm`` byte limbs, each held bit-equal first) at
+   [512, 65536] x [65536, 16] and [8, 256] x [256, 4]; (4) host keygen
+   keys/s of ``gen_batch`` at B = 512, N = 2^20, three constructions x
+   AES-128 and ChaCha20 (and the binary tree's vectorized generator
+   beside the native one).
 
 The last lines are the card's name and power limit, one
 ``{"kernels": [...]}`` line, and ``{"ok": true, "device": {...}}``.
@@ -133,10 +151,13 @@ def main() -> int:
     import dpf_tpu_torch
     from dpf_tpu_torch import DPF, EvalConfig
     from dpf_tpu_torch.core import radix4, sqrtn
+    from dpf_tpu_torch import benchmark, native
+    from dpf_tpu_torch.core import keygen
     from dpf_tpu_torch.ops import (aes_level, cuda_build, matmul128,
                                    sqrt_grid, subtree)
     from dpf_tpu_torch.utils import profile_batch, sass_count
-    from dpf_tpu_torch.utils.bench import cuda_ms, test_dpf_perf
+    from dpf_tpu_torch.utils.bench import (cuda_ms, test_dpf_latency,
+                                           test_dpf_perf, test_matmul_perf)
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -205,6 +226,12 @@ def main() -> int:
     logs = cuda_build.build()
     log("phase 1 build: %.1f s (%s)" % (time.perf_counter() - t0,
                                         ", ".join(sorted(logs)) or "cached"))
+    t0 = time.perf_counter()
+    if not native.available():
+        raise RuntimeError("the native host library did not build:\n%s"
+                           % native.build_error())
+    log("  native host library %s: %.1f s" % (native.library_path().name,
+                                              time.perf_counter() - t0))
     for name, text in sorted(logs.items()):
         for line in text.splitlines():
             if any(w in line for w in ("entry function", "registers",
@@ -354,8 +381,8 @@ def main() -> int:
             "K3 contract_i32 B=%d K=%d E=16 strided" % (bsz, k),
             matmul128.dot_i32(strided, t), want)
         held("torch._int_mm yardstick B=%d K=%d E=16" % (bsz, k),
-             int_mm_dot_i32(plane, t), want)
-        lib_ms = cuda_ms(lambda: int_mm_dot_i32(plane, t), 5)
+             matmul128.dot_i32_mxu(plane, t), want)
+        lib_ms = cuda_ms(lambda: matmul128.dot_i32_mxu(plane, t), 5)
         small = k * 16 * 4 + bsz * 16 * 4     # table read, output written
         for form, a, leaf_bytes in (("contiguous", plane, 4),
                                     ("strided", strided, 16)):
@@ -653,12 +680,13 @@ def main() -> int:
 
     per_batch = {}
 
-    def full_width(radix, prf, n4, reps, scheme="logn", distinct=64):
-        """Phase 4 through the user's entry points; launches per batch
-        from the counts of this configuration alone."""
+    def full_width(radix, prf, n4, reps, scheme="logn"):
+        """Phase 4 through the user's entry points, a distinct key in
+        every row; launches per batch from the counts of this
+        configuration alone."""
         before = read_counts()
         r = test_dpf_perf(N=n4, batch=512, entrysize=16, prf=prf, reps=reps,
-                          keys_distinct=distinct, check=True, quiet=True,
+                          check=True, quiet=True,
                           config=EvalConfig(radix=radix, scheme=scheme))
         batches = 3 + reps           # check (two servers), warm-up, reps
         tree = "sqrtn" if scheme == "sqrtn" else "radix-%d" % radix
@@ -666,10 +694,11 @@ def main() -> int:
         per_batch[key] = {k: (v - before[k]) / batches
                           for k, v in read_counts().items()
                           if v != before[k]}
-        log("  %-8s %s N=%-8d E=16 B=512 (%d distinct keys): %.1f dpfs/s "
-            "(%.2f ms/batch, recovery exact) on %s"
-            % (r["prf"], tree, n4, distinct, r["dpfs_per_sec"],
-               r["ms_per_batch"], smi))
+        log("  %-8s %s N=%-8d E=16 B=512 (%d distinct keys, %s keygen "
+            "%.3f s on the host): %.1f dpfs/s (%.2f ms/batch, recovery "
+            "exact) on %s"
+            % (r["prf"], tree, n4, r["keys_distinct"], r["keygen"],
+               r["keygen_s"], r["dpfs_per_sec"], r["ms_per_batch"], smi))
         log("    launches per batch: %s" % per_batch[key])
         log("  " + json.dumps(r))
 
@@ -686,8 +715,8 @@ def main() -> int:
     sample_flow(2, n3)
     from dpf_tpu_torch import sample
     sample.client()
-    log("phase 4 binary full width (64 distinct key pairs tiled to B=512, "
-        "every row checked)")
+    log("phase 4 binary full width (512 distinct key pairs, every row "
+        "checked)")
     for prf, n4, reps in ((dpf_tpu_torch.PRF_AES128, 1 << 20, 3),
                           (dpf_tpu_torch.PRF_CHACHA20, 1 << 20, 5),
                           (dpf_tpu_torch.PRF_AES128, 65536, 10)):
@@ -700,8 +729,8 @@ def main() -> int:
         "E=16, 8 indices, PRF ids 0-5")
     sample_flow(4, n3)
     sample_flow(4, n3 // 2)
-    log("phase 4 radix-4 full width (64 distinct key pairs tiled to B=512, "
-        "every row checked)")
+    log("phase 4 radix-4 full width (512 distinct key pairs, every row "
+        "checked)")
     for prf, n4, reps in ((dpf_tpu_torch.PRF_AES128, 1 << 20, 3),
                           (dpf_tpu_torch.PRF_CHACHA20_BLK, 1 << 20, 5),
                           (dpf_tpu_torch.PRF_AES128, 65536, 10)):
@@ -714,14 +743,12 @@ def main() -> int:
         "R=64), E=16, 8 indices, PRF ids 0-5")
     sample_flow(2, n3, scheme="sqrtn")
     sample_flow(2, n3 // 2, scheme="sqrtn")
-    log("phase 4 sqrt-N full width (16 distinct key pairs tiled to B=512 "
-        "at N=2^20, 64 at N=65536: sqrt-N keygen is pure Python, ~0.35 s "
-        "a pair at 2^20; every row checked)")
-    for prf, n4, reps, distinct in (
-            (dpf_tpu_torch.PRF_AES128, 1 << 20, 3, 16),
-            (dpf_tpu_torch.PRF_CHACHA20_BLK, 1 << 20, 5, 16),
-            (dpf_tpu_torch.PRF_AES128, 65536, 10, 64)):
-        full_width(2, prf, n4, reps, scheme="sqrtn", distinct=distinct)
+    log("phase 4 sqrt-N full width (512 distinct key pairs, every row "
+        "checked)")
+    for prf, n4, reps in ((dpf_tpu_torch.PRF_AES128, 1 << 20, 3),
+                          (dpf_tpu_torch.PRF_CHACHA20_BLK, 1 << 20, 5),
+                          (dpf_tpu_torch.PRF_AES128, 65536, 10)):
+        full_width(2, prf, n4, reps, scheme="sqrtn")
     by_path["sqrtn"] = read_counts()
 
     # 5. launch counts of each path
@@ -792,6 +819,91 @@ def main() -> int:
             "device ms %.4f, bound_ms %.4f"
             % (radix, k3_launches, k3_ms, k3_bound))
 
+    # ------------------------------------------------------ 6. harness
+    t6 = time.perf_counter()
+    zero_counts()
+    log("phase 6.1 the reference's sweep (binary, B=512 distinct keys, "
+        "E=16, every row checked; P100 / V100: upstream GPU-DPF's "
+        "published dpfs/s, BASELINE.md, an outside yardstick)")
+    sweep = benchmark.run_sweep(reps=5, quiet=True)
+    if len(sweep) != 12 or not all(r["checked"] for r in sweep):
+        raise AssertionError("the sweep gave %d rows" % len(sweep))
+    for r in sweep:
+        y = r["yardstick_dpfs_per_sec"]
+        log("  N=%-8d %-8s %12.1f dpfs/s %9.3f ms/batch  keygen %s %.3f s"
+            "  (P100 %d, V100 %d) on %s"
+            % (r["entries"], r["prf"], r["dpfs_per_sec"], r["ms_per_batch"],
+               r["keygen"], r["keygen_s"], y["P100"], y["V100"], smi))
+        log("  " + json.dumps(r))
+    log("phase 6.2 single-query latency (one key, one dispatch, "
+        "synchronised; recovery checked)")
+    latency = []
+    for prf, n6, radix, scheme in (
+            (dpf_tpu_torch.PRF_AES128, 65536, 2, "logn"),
+            (dpf_tpu_torch.PRF_AES128, 65536, 4, "logn"),
+            (dpf_tpu_torch.PRF_AES128, 65536, 2, "sqrtn"),
+            (dpf_tpu_torch.PRF_AES128, 1 << 20, 2, "logn"),
+            (dpf_tpu_torch.PRF_AES128, 1 << 20, 4, "logn"),
+            (dpf_tpu_torch.PRF_AES128, 1 << 20, 2, "sqrtn"),
+            (dpf_tpu_torch.PRF_CHACHA20, 1 << 20, 2, "logn")):
+        r = test_dpf_latency(N=n6, prf=prf, reps=20, quiet=True,
+                             config=EvalConfig(radix=radix, scheme=scheme))
+        latency.append(r)
+        log("  %-8s %s radix %d N=%-8d %.3f ms a query on %s"
+            % (r["prf"], r["scheme"], r["radix"], n6, r["latency_ms"], smi))
+    by_path["phase 6"] = read_counts()
+    log("phase 6 launches during 6.1-6.2: %s" % by_path["phase 6"])
+    for k in ("aes_level_step", "aes_level_step_a4", "subtree_contract",
+              "contract_i32", "sqrt_grid_contract"):
+        if by_path["phase 6"][k] <= 0:
+            raise AssertionError("kernel %s was never launched in phase 6"
+                                 % k)
+    log("phase 6.3 the contraction alone (test_matmul_perf)")
+    matmul_rows = []
+    for bsz, k, e in ((512, 65536, 16), (8, 256, 4)):
+        for r in test_matmul_perf(B=bsz, K=k, E=e, reps=10,
+                                  quiet=True).values():
+            if not r["gops_per_sec"] > 0:
+                raise AssertionError("matmul rate %r" % r)
+            matmul_rows.append(r)
+            log("  %-4s [%d, %d] x [%d, %d]: %.3f ms a call, %.2f Gop/s "
+                "(bit-equal to the plain version) on %s"
+                % (r["impl"], bsz, k, k, e, 1e3 * r["elapsed_s"] / r["reps"],
+                   r["gops_per_sec"], smi))
+    log("phase 6.4 host keygen, B=512 distinct keys, N=2^20")
+    keygen_rows = []
+    idx = [(i * 0x9E3779B1) % (1 << 20) for i in range(512)]
+    for prf in (dpf_tpu_torch.PRF_AES128, dpf_tpu_torch.PRF_CHACHA20):
+        for label, cfg in (("binary", EvalConfig()),
+                           ("radix-4", EvalConfig(radix=4)),
+                           ("sqrt-N", EvalConfig(scheme="sqrtn"))):
+            client = DPF(prf=prf, config=cfg)
+            t0 = time.perf_counter()
+            wa, wb = client.gen_batch(idx, 1 << 20)
+            dt = time.perf_counter() - t0
+            keygen_rows.append(dict(prf=prf, construction=label, seconds=dt,
+                                    keys_per_s=512 / dt))
+            if wa.shape[0] != 512 or wa.shape != wb.shape:
+                raise AssertionError("gen_batch shapes %s, %s"
+                                     % (tuple(wa.shape), tuple(wb.shape)))
+            gen_name = ("native" if label == "binary" else "vectorized")
+            log("  prf %d %-8s %-10s %.3f s, %.1f keys/s on the host"
+                % (prf, label, gen_name, dt, 512 / dt))
+            if label == "binary":
+                t0 = time.perf_counter()
+                keygen.gen_batched(idx, 1 << 20, [b"k%d" % i for i in idx],
+                                   prf_method=prf)
+                dt = time.perf_counter() - t0
+                keygen_rows.append(dict(prf=prf, construction="binary "
+                                        "vectorized", seconds=dt,
+                                        keys_per_s=512 / dt))
+                log("  prf %d %-8s %-10s %.3f s, %.1f keys/s on the host"
+                    % (prf, label, "vectorized", dt, 512 / dt))
+    log("phase 6: %.1f s" % (time.perf_counter() - t6))
+    log(json.dumps({"phase6": {"sweep": sweep, "latency": latency,
+                               "matmul": matmul_rows,
+                               "keygen": keygen_rows}}))
+
     meta = {
         "aes_level_step": ("dpf_tpu_torch/csrc/aes_level.cu",
                            "dpf_tpu/ops/aes_planes.py:408"),
@@ -840,40 +952,6 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
-
-
-def int_mm_dot_i32(a, b):
-    """The library yardstick for K3: the exact mod-2^32 product through
-    ``torch._int_mm`` (int8 x int8 -> int32), split into byte limbs
-    biased into int8 range with rank-1 bias corrections (the JAX
-    package's ``dot_i32_mxu``).  Timed here only; the port never calls
-    it."""
-    k = a.shape[1]
-
-    def limbs(x):
-        out = []
-        for s in range(4):
-            byte = (x >> (8 * s)) & 0xFF
-            out.append(byte)
-        return out
-
-    a_bytes, b_bytes = limbs(a), limbs(b)
-    a_s = [(x - 128).to(torch.int8) for x in a_bytes]
-    b_s = [(x - 128).to(torch.int8) for x in b_bytes]
-    a_rows = [x.sum(dim=1, keepdim=True, dtype=torch.int32) - 128 * k
-              for x in a_bytes]
-    b_cols = [x.sum(dim=0, keepdim=True, dtype=torch.int32) - 128 * k
-              for x in b_bytes]
-    bias = (128 * 128 * k) & 0xFFFFFFFF
-    bias = bias - (1 << 32) if bias >= 1 << 31 else bias
-    out = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.int32,
-                      device=a.device)
-    for i in range(4):
-        for j in range(4 - i):
-            term = (torch._int_mm(a_s[i], b_s[j]) + 128 * a_rows[i]
-                    + 128 * b_cols[j] + bias)
-            out = out + (term << (8 * (i + j)))
-    return out
 
 
 if __name__ == "__main__":

@@ -10,9 +10,14 @@ and with ``scheme="sqrtn"`` the sqrt-N grid (``core/sqrtn.py``,
 ``BATCH_SIZE`` / ``PRF_*``.  Shares are bit-identical to ``dpf_tpu``'s;
 a key of one construction sent to a server of another raises.
 
-The server runs on the device given at construction: ``device=None``
-means ``"cuda"`` and raises when CUDA is absent; ``device="cpu"`` runs
-the kernels' plain versions on the CPU.  Keys are CPU int32 tensors;
+Keys are made on the host, as in ``dpf_tpu``: ``gen`` with one index,
+or ``gen`` / ``gen_batch`` with a list of indices (the vectorized
+generators ``keygen.gen_batched``, ``radix4.gen_batched_r4`` and
+``sqrtn.gen_sqrt_batched``; the binary tree takes the C++ generator of
+``native/`` when it is built).  The server runs on the device given at
+construction: ``device=None`` means ``"cuda"`` and raises when CUDA is
+absent; ``device="cpu"`` runs the kernels' plain versions on the CPU.
+Keys are CPU int32 tensors;
 ``eval_gpu`` / ``eval_one_hot`` / ``eval_points`` return int32 tensors
 on the server's device; ``eval_cpu`` returns CPU tensors.
 """
@@ -24,6 +29,7 @@ import os
 import numpy as np
 import torch
 
+from . import native
 from .core import evalref, expand, keygen, radix4, sqrtn, u128
 from .core.prf_ref import (PRF_AES128, PRF_CHACHA20, PRF_CHACHA20_BLK,
                            PRF_DUMMY, PRF_NAMES, PRF_SALSA20,
@@ -62,7 +68,38 @@ def _check_construction(scheme: str, radix: int) -> None:
         raise ValueError("scheme='sqrtn' has no radix; use radix=2")
     if scheme == "auto":
         raise NotImplementedError("scheme='auto' needs the tuning cache, "
-                                  "not ported yet (ROADMAP Queue 1 item 16)")
+                                  "not ported yet (ROADMAP Queue 1 item 8)")
+
+
+def gen_batched_binary(alphas, n: int, seeds, prf_method: int, knobs=None):
+    """Batched binary-tree keygen: the C++ generator one key at a time
+    when ``native`` is built, else ``keygen.gen_batched`` (``knobs`` is
+    read by the vectorized generator only).  Both give the same bytes.
+    Returns two ``[B, 524]`` int32 CPU tensors."""
+    alphas, seeds = keygen._check_batch_args(alphas, n, seeds)
+    if not native.available():
+        return keygen.gen_batched(alphas, n, seeds, prf_method=prf_method,
+                                  knobs=knobs)
+    outs = [native.gen(int(a), n, sd, prf_method)
+            for a, sd in zip(alphas, seeds)]
+    return (torch.from_numpy(np.stack([a for a, _ in outs])),
+            torch.from_numpy(np.stack([b for _, b in outs])))
+
+
+def _native_gen(k: int, n: int, seed: bytes, prf_method: int):
+    """The scalar binary keygen through ``native`` when it is built, else
+    None."""
+    if not native.available():
+        return None
+    return native.gen(k, n, seed, prf_method)
+
+
+def _native_expand_batch(keys, prf_method: int):
+    """``[B, n]`` int32 one-hot shares of binary keys through ``native``
+    when it is built, else None."""
+    if not native.available():
+        return None
+    return np.stack([native.eval_expand(k, prf_method) for k in keys])
 
 
 class DPF(object):
@@ -137,11 +174,14 @@ class DPF(object):
         With strict=False a non-power-of-two n is allowed: keys cover the
         next power-of-two domain, matching eval_init's zero padding.
         Returns two int32 CPU tensors: [524] for the log-N trees,
-        [(4 + K + 2R) * 4] for sqrt-N."""
+        [(4 + K + 2R) * 4] for sqrt-N.
+
+        ``k`` may be a list (or 1-D array or tensor) of indices: then
+        ``seed`` is the list of per-key seeds (or None) and the call is
+        ``gen_batch``."""
         if isinstance(k, (list, tuple, np.ndarray, torch.Tensor)) and \
                 np.ndim(k) >= 1:
-            raise NotImplementedError("batched keygen is not ported yet "
-                                      "(ROADMAP Queue 1 item 11)")
+            return self.gen_batch(k, n, seeds=seed)
         n = self._check_gen_domain(int(k), int(n))
         if seed is None:
             seed = os.urandom(128)
@@ -150,10 +190,33 @@ class DPF(object):
         elif self.radix == 4:
             make = radix4.generate_keys_r4
         else:
+            wire = _native_gen(int(k), n, seed, self.prf_method)
+            if wire is not None:
+                return torch.from_numpy(wire[0]), torch.from_numpy(wire[1])
             make = keygen.generate_keys
         k0, k1 = make(int(k), n, seed, self.prf_method)
         return (torch.from_numpy(k0.serialize()),
                 torch.from_numpy(k1.serialize()))
+
+    def gen_batch(self, indices, n, seeds=None):
+        """B keys over one domain ``n`` in a few vectorized host calls
+        (``keygen.gen_batched`` or the native generator, ``radix4.
+        gen_batched_r4``, ``sqrtn.gen_sqrt_batched``) instead of B calls
+        of ``gen``.
+
+        ``seeds``: a list of per-key DRBG seeds (None = a fresh
+        ``os.urandom`` seed a key).  Returns two ``[B, words]`` int32 CPU
+        tensors; row i equals ``gen(indices[i], n, seed=seeds[i])``."""
+        indices = _to_numpy(indices).astype(np.int64).reshape(-1)
+        n = self._check_gen_domain(
+            int(indices.max()) if indices.size else 0, int(n))
+        if self.scheme == "sqrtn":
+            return sqrtn.gen_sqrt_batched(indices, n, seeds,
+                                          prf_method=self.prf_method)
+        if self.radix == 4:
+            return radix4.gen_batched_r4(indices, n, seeds,
+                                         prf_method=self.prf_method)
+        return gen_batched_binary(indices, n, seeds, self.prf_method)
 
     # ----------------------------------------------------------- eval_init
 
@@ -379,9 +442,7 @@ class DPF(object):
                 *(from_u32(a) for a in (pk.cw1, pk.cw2, pk.last)), n=pk.n,
                 prf_method=self.prf_method).numpy()
         else:
-            hots = np.stack([evalref.eval_one_hot_i32(
-                keygen.deserialize_key(k), self.prf_method)
-                for k in keys])                      # [B, N] int32
+            hots = self._binary_one_hots(keys)       # [B, N] int32
         if one_hot_only:
             return torch.from_numpy(hots)
         if self.table is None:
@@ -391,6 +452,20 @@ class DPF(object):
         # exact wrapping mod-2^32 product on the host
         prod = hots.view(np.uint32) @ self.table.view(np.uint32)
         return torch.from_numpy(prod.view(np.int32))
+
+    def _binary_one_hots(self, keys) -> np.ndarray:
+        """Binary keys' one-hot shares: ``native.eval_expand`` when it is
+        built, else the plain reference; a radix-4 key raises first (the
+        native codec would misread its layout)."""
+        wire = keygen.stack_wire_keys(keys)
+        if (wire.view(np.uint32)[:, 1] == 4).any():
+            raise ValueError("mixed-radix key: serve radix-4 keys with "
+                             "DPF(config=EvalConfig(radix=4))")
+        hots = _native_expand_batch(wire, self.prf_method)
+        if hots is None:
+            hots = np.stack([evalref.eval_one_hot_i32(
+                keygen.deserialize_key(k), self.prf_method) for k in wire])
+        return hots
 
     def _sqrt_batch(self, keys) -> list:
         """Deserialize a sqrt-N key batch and check its split is

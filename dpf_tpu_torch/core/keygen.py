@@ -15,18 +15,25 @@ uint128 little-endian slots: ``[0]=depth, [1..64]=cw_1, [65..128]=cw_2,
 [129]=last_key, [130]=n``.  Every secret is drawn from a SHAKE-256 XOF
 over the caller's seed.
 
-Batched keygen (``gen_batched``) comes with a later slice.
+``gen_batched`` derives B keys at once: one DRBG squeeze per key, then
+``O(log N)`` PRF calls over ``[B, 4]`` int32 limb tensors
+(``core/prf.py``, ``core/u32.py``), on the host.  Its rows are
+byte-identical to ``generate_keys`` for each key's seed.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from . import u128
+from .prf import prf_v
 from .prf_ref import MASK128, PRF_FUNCS
+from .u32 import from_u32, i32
 
 KEY_WORDS = 524          # int32 words per serialized key
 MAX_DEPTH = 32           # => tables up to 2^32 entries
@@ -122,6 +129,10 @@ class PackedKeys:
     @property
     def batch(self) -> int:
         return self.last.shape[0]
+
+    def slice(self, lo: int, hi: int) -> "PackedKeys":
+        return PackedKeys(self.cw1[lo:hi], self.cw2[lo:hi],
+                          self.last[lo:hi], self.depth, self.n)
 
     def pad_to(self, size: int) -> "PackedKeys":
         """Pad the batch axis to ``size`` by repeating the last key (pad
@@ -249,6 +260,215 @@ def generate_keys(alpha: int, n: int, seed: bytes, prf_method: int,
     ka = FlatKey(depth=depth, cw1=cw1, cw2=cw2, last_key=k1, n=n)
     kb = FlatKey(depth=depth, cw1=cw1.copy(), cw2=cw2.copy(), last_key=k2, n=n)
     return ka, kb
+
+
+# ---------------------------------------------------------------------------
+# Batched key generation (vectorized over B independent indices)
+# ---------------------------------------------------------------------------
+
+def drbg_u128_batch(seeds, n_draws: int, *,
+                    squeeze_draws: int | None = None) -> torch.Tensor:
+    """Every key's first ``n_draws`` DRBG u128 draws: ``[B, n_draws, 4]``
+    int32 limbs.
+
+    ``Shake256Drbg`` is a byte stream, so ``16 * n_draws`` bytes read at
+    once are the same draws as ``n_draws`` calls of ``u128()``; the
+    batched generators' one loop over keys is this squeeze.  The draw
+    sites' ``& ~1`` / ``| 1`` are the callers' (on the limb tensors).
+    ``squeeze_draws`` caps the draws read per ``bytes()`` call: the same
+    stream in chunks."""
+    sq = n_draws if not squeeze_draws else max(1, int(squeeze_draws))
+    out = np.empty((len(seeds), n_draws, 4), dtype=np.uint32)
+    for i, s in enumerate(seeds):
+        rng = Shake256Drbg(s)
+        for lo in range(0, n_draws, sq):
+            m = min(sq, n_draws - lo)
+            out[i, lo:lo + m] = np.frombuffer(
+                rng.bytes(16 * m), dtype=np.uint32).reshape(m, 4)
+    return torch.from_numpy(out.view(np.int32))
+
+
+def _keygen_knob_fns(prf_method: int, knobs):
+    """The batched generators' PRF call shapes for the keygen knobs, each
+    the same function as the default (``knobs=None``), since a PRF acts
+    on each row alone:
+
+    * ``prf_group="stacked"``: one ``prf_v`` call a branch over the
+      stacked s1 | s2 seeds instead of two calls of half the rows;
+    * ``path_reuse="reuse"``: the target path's PRF values picked from
+      the saved per-branch outputs instead of computed again with a
+      per-row position;
+    * ``squeeze_draws``: the DRBG's read size (``drbg_u128_batch``).
+
+    Returns ``(prf_pair_v, path_pick, squeeze_draws)``."""
+    kn = dict(knobs or {})
+    stacked = kn.get("prf_group") == "stacked"
+    reuse = kn.get("path_reuse") == "reuse"
+
+    def prf_pair_v(sa, sb, b):
+        if stacked:
+            both = prf_v(prf_method, torch.cat([sa, sb]), b)
+            return both[:sa.shape[0]], both[sa.shape[0]:]
+        return prf_v(prf_method, sa, b), prf_v(prf_method, sb, b)
+
+    def path_pick(saved, seeds, tb, rows):
+        if reuse:
+            return torch.stack(saved, dim=1)[rows, tb]
+        return prf_v(prf_method, seeds, tb.to(torch.int32))
+
+    return prf_pair_v, path_pick, kn.get("squeeze_draws")
+
+
+def _check_batch_args(alphas, n: int, seeds):
+    """Validate a batch's indices, domain and per-key seeds (fresh
+    ``os.urandom`` seeds when None); -> (int64 alphas, seeds)."""
+    alphas = np.asarray(alphas, dtype=np.int64).reshape(-1)
+    if alphas.size == 0:
+        raise ValueError("empty index batch")
+    if n & (n - 1) != 0 or n < 2:
+        raise ValueError("table size (%d) must be a power of two >= 2" % n)
+    if (alphas < 0).any() or (alphas >= n).any():
+        bad = int(alphas[(alphas < 0) | (alphas >= n)][0])
+        raise ValueError("alpha (%d) must be in [0, %d)" % (bad, n))
+    if seeds is None:
+        seeds = [os.urandom(128) for _ in range(alphas.size)]
+    if isinstance(seeds, (bytes, bytearray)):
+        # one seed would be read as per-BYTE seeds (ints, which bytes()
+        # turns into all-zero DRBG seeds)
+        raise TypeError(
+            "seeds must be a LIST of per-key byte strings, got a single "
+            "%s — every key needs its own DRBG seed"
+            % type(seeds).__name__)
+    if len(seeds) != alphas.size:
+        raise ValueError("need one seed per index (%d != %d)"
+                         % (len(seeds), alphas.size))
+    for s in seeds:
+        if not isinstance(s, (bytes, bytearray, memoryview)):
+            raise TypeError("per-key seeds must be bytes, got %s"
+                            % type(s).__name__)
+    return alphas, seeds
+
+
+def _wire_batch(cw1, cw2, last, depth: int, n: int,
+                radix_slot0=None) -> torch.Tensor:
+    """Serialize a key batch: ``[B, 64, 4]`` codewords and ``[B, 4]``
+    start seeds -> ``[B, 524]`` int32 (``FlatKey.serialize`` for every
+    row; ``radix_slot0`` = (marker, binary levels) of a radix-4 key)."""
+    bsz = last.shape[0]
+    slots = torch.zeros((bsz, 131, 4), dtype=torch.int32)
+    slots[:, 0, 0] = depth
+    if radix_slot0 is not None:
+        slots[:, 0, 1], slots[:, 0, 2] = radix_slot0
+    slots[:, 1:65] = cw1
+    slots[:, 65:129] = cw2
+    slots[:, 129] = last
+    slots[:, 130, 0] = i32(n)
+    slots[:, 130, 1] = n >> 32
+    return slots.reshape(bsz, -1)
+
+
+def _odd(v: torch.Tensor) -> torch.Tensor:
+    v = v.clone()
+    v[:, 0] |= 1
+    return v
+
+
+def _even(v: torch.Tensor) -> torch.Tensor:
+    v = v.clone()
+    v[:, 0] &= -2
+    return v
+
+
+def beta_limbs(beta: int, bsz: int) -> torch.Tensor:
+    """``beta`` as ``[bsz, 4]`` int32 limbs."""
+    return from_u32(u128.int_to_limbs(beta)).expand(bsz, 4)
+
+
+def gen_batched(alphas, n: int, seeds=None, *, prf_method: int,
+                beta: int = 1, knobs=None):
+    """Two servers' keys for B point functions over one domain ``n``.
+
+    The batched ``generate_keys``: one DRBG squeeze per key
+    (``drbg_u128_batch``), then ``O(log N)`` PRF calls over ``[B, 4]``
+    limb tensors instead of ``O(B log N)`` calls on Python ints.  Row i
+    is byte-identical to ``generate_keys(alphas[i], n, seeds[i])``.
+    ``knobs``: see ``_keygen_knob_fns`` (None = the default shapes).
+
+    Returns ``(wire_a, wire_b)``, two ``[B, 524]`` int32 CPU tensors."""
+    alphas, seeds = _check_batch_args(alphas, n, seeds)
+    depth = n.bit_length() - 1
+    if depth > MAX_DEPTH:
+        raise ValueError("table size 2^%d exceeds max 2^32" % depth)
+    bsz = alphas.size
+    prf_pair_v, path_pick, squeeze_draws = _keygen_knob_fns(
+        prf_method, knobs)
+    n_draws = 4 if depth == 1 else 3 * depth + 1
+    draws = iter(drbg_u128_batch(seeds, n_draws,
+                                 squeeze_draws=squeeze_draws).unbind(1))
+    beta_c = beta_limbs(beta, bsz)
+    bits = torch.from_numpy(
+        (alphas[:, None] >> np.arange(depth, dtype=np.int64)[None, :]) & 1)
+    cw1 = torch.zeros((bsz, 64, 4), dtype=torch.int32)
+    cw2 = torch.zeros((bsz, 64, 4), dtype=torch.int32)
+    rows = torch.arange(bsz)
+
+    # --- base level (flat index depth-1) handles bit 0 of alpha ----------
+    k1 = _even(next(draws))                           # server 0: LSB 0
+    k2 = _odd(next(draws))                            # server 1: LSB 1
+    beta_l = beta_c if depth == 1 else _odd(next(draws))
+    i = depth - 1
+    b0 = bits[:, 0]
+    c1 = [next(draws), next(draws)]
+    p1, p2 = [], []
+    for b in (0, 1):
+        v1, v2 = prf_pair_v(k1, k2, b)
+        p1.append(v1)
+        p2.append(v2)
+        d = u128.sub128(v1, v2)
+        d = torch.where((b0 == b)[:, None], u128.sub128(d, beta_l), d)
+        cw1[:, 2 * i + b] = c1[b]
+        cw2[:, 2 * i + b] = u128.add128(c1[b], d)
+    c1_t = torch.where((b0 == 1)[:, None], c1[1], c1[0])
+    s1 = u128.add128(path_pick(p1, k1, b0, rows), c1_t)
+    s2 = u128.add128(path_pick(p2, k2, b0, rows), cw2[rows, 2 * i + b0])
+
+    # --- upper levels, bottom to top --------------------------------------
+    for l in range(1, depth):
+        if not (torch.equal(u128.sub128(s1, s2), beta_l.expand_as(s1))
+                and bool((((s1[:, 0] ^ s2[:, 0]) & 1) == 1).all())):
+            raise AssertionError(
+                "batched keygen invariant broken at level %d: seed shares "
+                "must differ by the odd beta' (and so in LSB)" % l)
+        i = depth - 1 - l
+        beta_l = beta_c if l == depth - 1 else _odd(next(draws))
+        tb = bits[:, l]
+        s1_even = ((s1[:, 0] & 1) == 0)[:, None]
+        c1 = [next(draws), next(draws)]
+        p1, p2 = [], []
+        for b in (0, 1):
+            v1, v2 = prf_pair_v(s1, s2, b)
+            p1.append(v1)
+            p2.append(v2)
+            d = u128.sub128(v2, v1)
+            d = torch.where(s1_even, u128.neg128(d), d)
+            cw2[:, 2 * i + b] = u128.add128(c1[b], d)
+        # fold beta into cw1 at the target branch (after cw2 is fixed)
+        adj = torch.where(s1_even, beta_l, u128.neg128(beta_l))
+        c1 = [torch.where((tb == b)[:, None], u128.add128(c1[b], adj), c1[b])
+              for b in (0, 1)]
+        for b in (0, 1):
+            cw1[:, 2 * i + b] = c1[b]
+        # step both servers' target-path seeds through this level
+        c1_t = torch.where((tb == 1)[:, None], c1[1], c1[0])
+        cw2_t = cw2[rows, 2 * i + tb]
+        n1 = u128.add128(path_pick(p1, s1, tb, rows),
+                         torch.where(s1_even, c1_t, cw2_t))
+        n2 = u128.add128(path_pick(p2, s2, tb, rows),
+                         torch.where(s1_even, cw2_t, c1_t))
+        s1, s2 = n1, n2
+
+    return (_wire_batch(cw1, cw2, k1, depth, n),
+            _wire_batch(cw1, cw2, k2, depth, n))
 
 
 def evaluate_flat(key: FlatKey, indx: int, prf_method: int) -> int:

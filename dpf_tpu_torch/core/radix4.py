@@ -25,8 +25,9 @@ same ``(alpha, n, seed, prf)``.  Evaluation runs on int32 limb tensors:
 * ``expand_leaves_mixed`` (one-hot) and ``eval_points_mixed`` (root to
   leaf walks).
 
-Batched keygen (``gen_batched_r4``), per-key tables and the per-level
-dispatch mode are not ported yet (ROADMAP Queue 1 items 11, 13, 14).
+``gen_batched_r4`` is the batched generator, on ``[B, 4]`` limb
+tensors as ``keygen.gen_batched``.  Per-key tables and the per-level
+dispatch mode are not ported yet (ROADMAP Queue 1 items 5 and 6).
 """
 
 from __future__ import annotations
@@ -38,7 +39,9 @@ import torch
 
 from . import u128
 from .expand import SUBTREE_PRFS, _level_step_multi, grouped_scan_contract
-from .keygen import KEY_WORDS, PackedKeys, Shake256Drbg, stack_wire_keys
+from .keygen import (KEY_WORDS, PackedKeys, Shake256Drbg, _check_batch_args,
+                     _even, _keygen_knob_fns, _odd, _wire_batch, beta_limbs,
+                     drbg_u128_batch, stack_wire_keys)
 from .prf import prf_multi
 from .prf_ref import MASK128, PRF_AES128, PRF_FUNCS
 
@@ -235,6 +238,100 @@ def generate_keys_r4(alpha: int, n: int, seed: bytes, prf_method: int,
     kb = MixedKey(arities=ars, cw1=cw1.copy(), cw2=cw2.copy(),
                   last_key=k2, n=n)
     return ka, kb
+
+
+def gen_batched_r4(alphas, n: int, seeds=None, *, prf_method: int,
+                   beta: int = 1, knobs=None):
+    """Two servers' radix-4 keys for B indices over one domain ``n``.
+
+    The radix-4 ``keygen.gen_batched``: one DRBG squeeze per key, then
+    ``O(log4 N)`` PRF calls over ``[B, 4]`` limb tensors; row i is
+    byte-identical to ``generate_keys_r4(alphas[i], n, seeds[i])``.
+    ``knobs`` as ``keygen._keygen_knob_fns``.  Returns two ``[B, 524]``
+    int32 CPU tensors."""
+    alphas, seeds = _check_batch_args(alphas, n, seeds)
+    depth = n.bit_length() - 1
+    if depth > 32:  # sum(arities) = 2 * depth must fit MAX_CW
+        raise ValueError("table size 2^%d exceeds max 2^32" % depth)
+    ars = arities(n)
+    offs = cw_offsets(ars)
+    levels = len(ars)
+    bsz = alphas.size
+    prf_pair_v, path_pick, squeeze_draws = _keygen_knob_fns(
+        prf_method, knobs)
+    # two start seeds, then a beta' for every level but the root, and
+    # one draw per branch
+    n_draws = 2 + (levels - 1) + sum(ars)
+    draws = iter(drbg_u128_batch(seeds, n_draws,
+                                 squeeze_draws=squeeze_draws).unbind(1))
+    digits = np.empty((bsz, levels), dtype=np.int64)
+    rem = alphas.copy()
+    for j, a in enumerate(ars):
+        digits[:, j] = rem % a
+        rem //= a
+    digits = torch.from_numpy(digits)
+
+    beta_c = beta_limbs(beta, bsz)
+    cw1 = torch.zeros((bsz, MAX_CW, 4), dtype=torch.int32)
+    cw2 = torch.zeros((bsz, MAX_CW, 4), dtype=torch.int32)
+    rows = torch.arange(bsz)
+
+    # --- base level (eval step 0) ---------------------------------------
+    a0 = ars[0]
+    k1 = _even(next(draws))                           # server 0: LSB 0
+    k2 = _odd(next(draws))                            # server 1: LSB 1
+    beta_l = beta_c if levels == 1 else _odd(next(draws))
+    tb = digits[:, 0]
+    c1 = [next(draws) for _ in range(a0)]
+    p1, p2 = [], []
+    for b in range(a0):
+        v1, v2 = prf_pair_v(k1, k2, b)
+        p1.append(v1)
+        p2.append(v2)
+        d = u128.sub128(v1, v2)
+        d = torch.where((tb == b)[:, None], u128.sub128(d, beta_l), d)
+        cw1[:, offs[0] + b] = c1[b]
+        cw2[:, offs[0] + b] = u128.add128(c1[b], d)
+    c1_t = torch.stack(c1, dim=1)[rows, tb]
+    s1 = u128.add128(path_pick(p1, k1, tb, rows), c1_t)
+    s2 = u128.add128(path_pick(p2, k2, tb, rows), cw2[rows, offs[0] + tb])
+
+    # --- upper levels, bottom to top -------------------------------------
+    for j in range(1, levels):
+        if not (torch.equal(u128.sub128(s1, s2), beta_l.expand_as(s1))
+                and bool((((s1[:, 0] ^ s2[:, 0]) & 1) == 1).all())):
+            raise AssertionError(
+                "radix keygen invariant broken at level %d: seed shares "
+                "must differ by the odd beta' (and so in LSB)" % j)
+        a = ars[j]
+        beta_l = beta_c if j == levels - 1 else _odd(next(draws))
+        tb = digits[:, j]
+        s1_even = ((s1[:, 0] & 1) == 0)[:, None]
+        c1 = [next(draws) for _ in range(a)]
+        p1, p2 = [], []
+        for b in range(a):
+            v1, v2 = prf_pair_v(s1, s2, b)
+            p1.append(v1)
+            p2.append(v2)
+            d = u128.sub128(v2, v1)
+            d = torch.where(s1_even, u128.neg128(d), d)
+            cw2[:, offs[j] + b] = u128.add128(c1[b], d)
+        adj = torch.where(s1_even, beta_l, u128.neg128(beta_l))
+        c1 = [torch.where((tb == b)[:, None], u128.add128(c1[b], adj), c1[b])
+              for b in range(a)]
+        for b in range(a):
+            cw1[:, offs[j] + b] = c1[b]
+        c1_t = torch.stack(c1, dim=1)[rows, tb]
+        cw2_t = cw2[rows, offs[j] + tb]
+        n1 = u128.add128(path_pick(p1, s1, tb, rows),
+                         torch.where(s1_even, c1_t, cw2_t))
+        n2 = u128.add128(path_pick(p2, s2, tb, rows),
+                         torch.where(s1_even, cw2_t, c1_t))
+        s1, s2 = n1, n2
+
+    marker = (4, sum(1 for a in ars if a == 2))
+    return (_wire_batch(cw1, cw2, k1, depth, n, radix_slot0=marker),
+            _wire_batch(cw1, cw2, k2, depth, n, radix_slot0=marker))
 
 
 def evaluate_mixed(key: MixedKey, indx: int, prf_method: int) -> int:

@@ -22,11 +22,12 @@ tensors:
 * ``eval_grid`` (one key's one-hot share) and ``eval_points_sqrt`` (one
   PRF call per queried index), plain PyTorch on any device.
 
-Batched keygen (``gen_sqrt_batched``), per-key tables
-(``eval_contract_per_key_tables``), the sharded path
+``gen_sqrt_batched`` is the batched generator: one PRF call over the
+``[B, R]`` target-column grid of ``[B, R, 4]`` limb tensors.  Per-key
+tables (``eval_contract_per_key_tables``), the sharded path
 (``eval_sharded_sqrt``), the tuner's ``sqrt_chunk_candidates`` and the
 per-key reference ``eval_contract`` are not ported yet (ROADMAP Queue 1
-items 11, 13, 17 and 16).
+items 5, 9 and 8).
 """
 
 from __future__ import annotations
@@ -38,10 +39,11 @@ import torch
 
 from . import u128
 from .expand import CHUNK_SEED_BYTES_BOUND
-from .keygen import Shake256Drbg, stack_wire_keys
+from .keygen import (Shake256Drbg, _check_batch_args, beta_limbs,
+                     drbg_u128_batch, stack_wire_keys)
 from .prf import _BLK_WORDS, _blk_group, prf_v
 from .prf_ref import MASK128, PRF_FUNCS
-from .u32 import from_u32
+from .u32 import from_u32, i32
 
 
 @dataclass
@@ -148,6 +150,73 @@ def generate_sqrt_keys(alpha: int, n: int, seed: bytes, prf_method: int,
     args = dict(n_keys=k, n_codewords=r, n=n)
     return (SqrtKey(keys=keys1, cw1=cw1, cw2=cw2, **args),
             SqrtKey(keys=keys2, cw1=cw1, cw2=cw2, **args))
+
+
+def gen_sqrt_batched(alphas, n: int, seeds=None, *, prf_method: int,
+                     beta: int = 1, n_keys: int | None = None,
+                     knobs=None):
+    """Two servers' sqrt-N keys for B indices over one domain ``n``.
+
+    The sqrt-N ``keygen.gen_batched``: one DRBG squeeze per key, then
+    ONE PRF call over the ``[B, R]`` grid of target-column seeds and
+    rows instead of ``O(B R)`` calls on Python ints; row i is
+    byte-identical to ``generate_sqrt_keys(alphas[i], n, seeds[i])``.
+    ``knobs``: ``prf_group="stacked"`` makes it one call over the
+    ``[2B, R]`` grid of both servers' seeds; ``squeeze_draws`` as
+    ``keygen.drbg_u128_batch``.  Returns two ``[B, (4 + K + 2R) * 4]``
+    int32 CPU tensors."""
+    alphas, seeds = _check_batch_args(alphas, n, seeds)
+    kn = dict(knobs or {})
+    k = n_keys or default_split(n)[0]
+    if n % k:
+        raise ValueError("n_keys must divide n")
+    r = n // k
+    bsz = alphas.size
+    j_t = torch.from_numpy(alphas % k)
+    r_t = torch.from_numpy(alphas // k)
+    # per key: K + 1 column draws (the target column takes two, its
+    # server-1 seed and then server 2's), then one codeword draw a row:
+    # the scalar generator's draw order
+    draws = drbg_u128_batch(seeds, k + 1 + r,
+                            squeeze_draws=kn.get("squeeze_draws"))
+    rows_b = torch.arange(bsz)
+    cols = torch.arange(k)[None, :]
+    keys1 = draws[rows_b[:, None], cols + (cols > j_t[:, None])]  # [B, K, 4]
+    s1v = keys1[rows_b, j_t]                                      # [B, 4]
+    s2v = draws[rows_b, j_t + 1].clone()
+    s2v[:, 0] = (s2v[:, 0] & -2) | (1 ^ (s1v[:, 0] & 1))
+    keys2 = keys1.clone()
+    keys2[rows_b, j_t] = s2v
+
+    rows = torch.arange(r, dtype=torch.int32)
+    if kn.get("prf_group") == "stacked":
+        both = prf_v(prf_method, torch.cat([s1v, s2v])[:, None, :].expand(
+            2 * bsz, r, 4), rows)
+        p1, p2 = both[:bsz], both[bsz:]
+    else:
+        p1 = prf_v(prf_method, s1v[:, None, :].expand(bsz, r, 4), rows)
+        p2 = prf_v(prf_method, s2v[:, None, :].expand(bsz, r, 4), rows)
+    diff = u128.sub128(p1, p2)                                    # [B, R, 4]
+    target = (rows.long()[None, :] == r_t[:, None])[..., None]
+    diff = torch.where(target, u128.sub128(
+        diff, beta_limbs(beta, bsz)[:, None, :]), diff)
+    s1_even = ((s1v[:, 0] & 1) == 0)[:, None, None]
+    diff = torch.where(s1_even, diff, u128.neg128(diff))
+    cw1 = draws[:, k + 1:]                                        # [B, R, 4]
+    cw2 = u128.add128(cw1, diff)
+
+    def wire(key_seeds):
+        slots = torch.zeros((bsz, 4 + k + 2 * r, 4), dtype=torch.int32)
+        slots[:, 0, 0] = k
+        slots[:, 1, 0] = r
+        slots[:, 2, 0] = i32(n)
+        slots[:, 2, 1] = n >> 32
+        slots[:, 4:4 + k] = key_seeds
+        slots[:, 4 + k:4 + k + r] = cw1
+        slots[:, 4 + k + r:] = cw2
+        return slots.reshape(bsz, -1)
+
+    return wire(keys1), wire(keys2)
 
 
 # ------------------------------------------------------------ the grid

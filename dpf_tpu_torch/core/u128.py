@@ -76,6 +76,32 @@ def add128(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack(out, dim=-1)
 
 
+def sub128(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a - b) mod 2^128.  The borrow out of ``a_i - b_i - c_in`` is two
+    unsigned compares, as ``add128``'s carry: the first subtraction
+    borrows iff ``a_i < b_i``; taking the borrow-in off can borrow only
+    when ``d < c_in``, that is when ``d`` is 0 and the first did not."""
+    out = []
+    borrow = None
+    for i in range(NLIMBS):
+        ai, bi = a[..., i], b[..., i]
+        d = ai - bi
+        b1 = ult(ai, bi).to(torch.int32)
+        if borrow is not None:
+            d2 = d - borrow
+            borrow = b1 | ult(d, borrow).to(torch.int32)
+            d = d2
+        else:
+            borrow = b1
+        out.append(d)
+    return torch.stack(out, dim=-1)
+
+
+def neg128(a: torch.Tensor) -> torch.Tensor:
+    """(-a) mod 2^128."""
+    return sub128(torch.zeros_like(a), a)
+
+
 def _mul32_parts(a: torch.Tensor, b: torch.Tensor):
     """Full 32x32 -> (hi32, lo32) product from 16-bit halves."""
     al = a & 0xFFFF
@@ -108,6 +134,38 @@ def mul128_small(a: torch.Tensor, c) -> torch.Tensor:
         r.append(s)
         carry = hi + ult(s, lo).to(torch.int32)
     return torch.stack(r, dim=-1)
+
+
+def mul128(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a * b) mod 2^128: schoolbook over 32-bit limbs, the low 128 bits
+    kept."""
+    zero = torch.zeros_like(a[..., 0] + b[..., 0])
+    r = [zero] * NLIMBS
+    for i in range(NLIMBS):
+        carry = zero
+        for j in range(NLIMBS - i):
+            k = i + j
+            hi, lo = _mul32_parts(a[..., i] + zero, b[..., j] + zero)
+            s = r[k] + lo
+            c1 = ult(s, r[k]).to(torch.int32)
+            s2 = s + carry
+            c2 = ult(s2, s).to(torch.int32)
+            r[k] = s2
+            # hi + c1 + c2 cannot wrap: when hi is at its largest
+            # (2^32 - 2, at a = b = 2^32 - 1) lo is 1, so c1 and c2
+            # exclude each other
+            carry = hi + c1 + c2
+    return torch.stack(r, dim=-1)
+
+
+def lsb(a: torch.Tensor) -> torch.Tensor:
+    """Least significant bit of each 128-bit value, shape ``[...]``."""
+    return a[..., 0] & 1
+
+
+def low32(a: torch.Tensor) -> torch.Tensor:
+    """The value mod 2^32 (limb 0), read as uint32."""
+    return a[..., 0]
 
 
 # ---------------------------------------------------------------------------

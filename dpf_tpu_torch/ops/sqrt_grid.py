@@ -25,7 +25,7 @@ add needs the low limb alone.
 
 The Mosaic-only variant knobs of the TPU launcher (``grid_order``,
 ``dim_semantics``, ``limbs``, ``cw_add``) are not ported (ROADMAP Queue
-1 item 16).
+1 item 8).
 """
 
 from __future__ import annotations

@@ -2,10 +2,13 @@
 timer, kernel builds timed in turns, and end-to-end rates of several
 trees in turns.
 
-``test_dpf_perf`` ports ``dpf_tpu/utils/bench.py::test_dpf_perf`` (the
-reference's ``dpf.py:286-320`` protocol): distinct keys tiled to the
-batch, one warm evaluation, then timed repetitions, each ending in a
-device synchronise.  ``cuda_ms`` times launches on the card by CUDA
+``test_dpf_perf``, ``test_dpf_latency`` and ``test_matmul_perf`` port
+``dpf_tpu/utils/bench.py`` (the reference's ``dpf.py:286-320``
+protocol, its latency mode and its contraction benchmark): keys minted
+by one ``gen_batch`` call, one warm evaluation, then timed repetitions
+ending in a device synchronise; the contraction's backends
+(``ops/matmul128.IMPLS``) each held bit-equal to the plain version
+before they are timed.  ``cuda_ms`` times launches on the card by CUDA
 events.  ``libraries_in_turns`` and ``held_ms`` serve the per-kernel
 scripts (``k2_times``, ``k3_times``) that time this tree's build of a
 kernel beside other builds of it, for example a parent commit's.
@@ -37,6 +40,18 @@ import numpy as np
 import torch
 
 from ..ops import cuda_build
+
+
+def gpu_name_and_power() -> str:
+    """``nvidia-smi``'s ``name, power.limit`` line of the first card."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def _device_name(device: torch.device) -> str:
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
 
 
 def _sync(device: torch.device) -> None:
@@ -100,16 +115,18 @@ def test_dpf_perf(N=16384, batch=512, entrysize=16, prf=None, reps=10,
                   config=None, device=None):
     """Measure batched eval throughput; returns the result dict.
 
-    ``keys_distinct`` distinct key pairs (default: ``batch``) are minted
-    on the host (keygen is pure-Python, O(log N) PRF calls per pair) and
-    tiled to ``batch``; device work is the same per key either way.
+    ``keys_distinct`` distinct key pairs (default: ``batch``, every row
+    its own key) are minted on the host by one ``gen_batch`` call
+    (``keygen_s`` seconds, by the ``keygen`` generator: ``"native"`` or
+    ``"vectorized"``) and tiled to ``batch``.
 
-    check=True recovers every row of the tiled batch from both servers'
+    check=True recovers every row of the batch from both servers'
     shares before timing and raises unless each equals its table row.
     ``config``: an ``EvalConfig`` (e.g. ``EvalConfig(radix=4)`` or
     ``EvalConfig(scheme="sqrtn")``); ``prf`` wins over its
     ``prf_method``.
     """
+    from .. import native
     from ..api import DPF
 
     dpf = DPF(prf=prf, config=config, device=device)
@@ -117,21 +134,24 @@ def test_dpf_perf(N=16384, batch=512, entrysize=16, prf=None, reps=10,
         keys_distinct = batch
     # odd multiplier is bijective mod the pow2 table size: indices are
     # distinct (for keys_distinct <= N) and well spread
-    idxs = [(i * 0x9E3779B1) % N for i in range(keys_distinct)]
-    pairs = [dpf.gen(i, N) for i in idxs]
-    keys = [pairs[i % keys_distinct][0] for i in range(batch)]
+    idxs = np.array([(i * 0x9E3779B1) % N for i in range(keys_distinct)])
+    # resolved (and the native library built) before the clock starts
+    generator = ("native" if dpf.scheme == "logn" and dpf.radix == 2
+                 and native.available() else "vectorized")
+    t0 = time.perf_counter()
+    wire_a, wire_b = dpf.gen_batch(idxs, N)
+    keygen_s = time.perf_counter() - t0
+    tile = torch.arange(batch) % keys_distinct
+    keys = wire_a[tile]
 
     table = np.random.default_rng(1).integers(
         0, 2 ** 31, (N, entrysize), dtype=np.int32, endpoint=False)
     dpf.eval_init(table)
 
     if check:
-        a = dpf.eval_gpu(keys)
-        b = dpf.eval_gpu([pairs[i % keys_distinct][1] for i in range(batch)])
-        rec = (a - b).cpu().numpy()
-        want = table[[idxs[i % keys_distinct] for i in range(batch)]]
+        rec = (dpf.eval_gpu(keys) - dpf.eval_gpu(wire_b[tile])).cpu().numpy()
         # explicit raise, not assert: the gate backs the "checked" field
-        if not (rec == want).all():
+        if not (rec == table[idxs[tile.numpy()]]).all():
             raise AssertionError("share recovery check failed")
 
     dpf.eval_gpu(keys)  # warm
@@ -149,9 +169,10 @@ def test_dpf_perf(N=16384, batch=512, entrysize=16, prf=None, reps=10,
         "prf": dpf.prf_method_string,
         "scheme": dpf.scheme,
         "radix": dpf.radix,
-        "device": (torch.cuda.get_device_name(dpf.device)
-                   if dpf.device.type == "cuda" else "cpu"),
+        "device": _device_name(dpf.device),
         "keys_distinct": keys_distinct,
+        "keygen_s": keygen_s,
+        "keygen": generator,
         "reps": reps,
         "elapsed_s": elapsed,
         "ms_per_batch": 1e3 * elapsed / reps,
@@ -164,6 +185,86 @@ def test_dpf_perf(N=16384, batch=512, entrysize=16, prf=None, reps=10,
               % (dpf, result["key_size_bytes"], result["dpfs_per_sec"]))
         print(json.dumps(result))
     return result
+
+
+def test_dpf_latency(N=16384, entrysize=16, prf=None, reps=20, quiet=False,
+                     config=None, device=None):
+    """Single-query latency (the reference's latency mode,
+    ``dpf_benchmark.cu:242-276``): one key, one dispatch ending in a
+    device synchronise, wall-clock ms a query over ``reps`` queries,
+    after the row is recovered once from both servers' shares."""
+    from ..api import DPF
+
+    dpf = DPF(prf=prf, config=config, device=device)
+    alpha = N // 3
+    k1, k2 = dpf.gen(alpha, N)
+    table = np.random.default_rng(1).integers(
+        0, 2 ** 31, (N, entrysize), dtype=np.int32, endpoint=False)
+    dpf.eval_init(table)
+    rec = (dpf.eval_gpu([k1]) - dpf.eval_gpu([k2])).cpu().numpy()
+    if not (rec[0] == table[alpha]).all():
+        raise AssertionError("share recovery check failed")
+    dpf.eval_gpu([k1])  # warm
+    _sync(dpf.device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dpf.eval_gpu([k1])
+        _sync(dpf.device)
+    elapsed = time.perf_counter() - t0
+    result = {
+        "mode": "latency",
+        "entries": N,
+        "entry_size": entrysize,
+        "prf": dpf.prf_method_string,
+        "scheme": dpf.scheme,
+        "radix": dpf.radix,
+        "device": _device_name(dpf.device),
+        "reps": reps,
+        "latency_ms": 1e3 * elapsed / reps,
+        "checked": True,
+    }
+    if not quiet:
+        print(json.dumps(result))
+    return result
+
+
+def test_matmul_perf(B=512, K=65536, E=16, reps=10, quiet=False,
+                     device=None):
+    """The contraction alone (the reference's
+    ``dpf_gpu/matmul_benchmark.cu``): ``[B, K] x [K, E]`` exact mod 2^32
+    by each backend of ``ops/matmul128.IMPLS``, each held bit-equal to
+    ``dot_i32_plain`` first; ``{impl: result dict}``.  ``gops_per_sec``
+    (2 B K E operations a call) is kept unrounded, so a slow call never
+    reads as 0."""
+    from ..api import resolve_device
+    from ..ops import matmul128
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (B, K),
+                                      dtype=np.int64).astype(np.int32)).to(dev)
+    b = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (K, E),
+                                      dtype=np.int64).astype(np.int32)).to(dev)
+    want = matmul128.dot_i32_plain(a, b)
+    results = {}
+    for name, impl in matmul128.IMPLS.items():
+        if not torch.equal(impl(a, b), want):
+            raise AssertionError("matmul impl %r differs from the plain "
+                                 "version" % name)
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            impl(a, b)
+        _sync(dev)
+        elapsed = time.perf_counter() - t0
+        r = {"impl": name, "B": B, "K": K, "E": E, "reps": reps,
+             "device": _device_name(dev),
+             "elapsed_s": elapsed,
+             "gops_per_sec": 2e-9 * B * K * E * reps / elapsed}
+        results[name] = r
+        if not quiet:
+            print(json.dumps(r))
+    return results
 
 
 # (prf id, N, radix, scheme, distinct key pairs): the AES servers of the
@@ -253,9 +354,7 @@ def main() -> int:
                 row["wins_over_first"] = sum(
                     v > w for v, w in zip(vals, by_tree[first]))
             print(json.dumps(row))
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip())
+    print(gpu_name_and_power())
     return 0
 
 

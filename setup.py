@@ -13,7 +13,8 @@ setup(
                                     "dpf_tpu_torch", "dpf_tpu_torch.*"]),
     # dpf_tpu_torch's CUDA sources are compiled by nvcc at first use
     package_data={"dpf_tpu.native": ["src/*.cpp", "src/*.h"],
-                  "dpf_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+                  "dpf_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+                  "dpf_tpu_torch.native": ["src/*.cpp", "src/*.h"]},
     python_requires=">=3.10",
     install_requires=["numpy", "jax"],
     extras_require={

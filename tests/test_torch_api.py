@@ -205,12 +205,13 @@ def test_unported_constructions_raise():
     assert radix4.radix == 4 and radix4.prf_method == dpf_tpu_torch.PRF_AES128
     with pytest.raises(ValueError, match="radix"):
         dpf_tpu_torch.DPF(config=EvalConfig(radix=8), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         dpf_tpu_torch.DPF(scheme="auto", device="cpu")
     with pytest.raises(ValueError):
         dpf_tpu_torch.DPF(scheme="bogus", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        dpf_tpu_torch.DPF(device="cpu").gen([1, 2], 128)
+    ka, kb = dpf_tpu_torch.DPF(device="cpu").gen([1, 2], 128)
+    assert ka.shape == kb.shape == (2, 524)
+    assert ka.dtype == kb.dtype == torch.int32
 
 
 def test_default_device_is_cuda(monkeypatch):

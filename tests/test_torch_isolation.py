@@ -23,7 +23,9 @@ def test_import_loads_no_jax_and_no_dpf_tpu():
             "dpf_tpu_torch.sample, dpf_tpu_torch.utils.bench; "
             "import dpf_tpu_torch.ops.aes_level, dpf_tpu_torch.ops.subtree, "
             "dpf_tpu_torch.ops.sqrt_grid, dpf_tpu_torch.core.sqrtn, "
-            "dpf_tpu_torch.utils.profile_batch; "
+            "dpf_tpu_torch.utils.profile_batch, dpf_tpu_torch.native, "
+            "dpf_tpu_torch.benchmark, dpf_tpu_torch.ops.matmul128, "
+            "dpf_tpu_torch.core.keygen, dpf_tpu_torch.core.radix4; "
             "print('\\n'.join(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
