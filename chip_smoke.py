@@ -29,12 +29,14 @@ Phases (any failure raises and the script exits non-zero):
    K1's low-limb form (the last level of each frontier group) against
    the limb 0 of its full form, at every K1 shape, and timed beside it;
    K3 on the contiguous low-limb plane the AES path hands it and on the
-   strided low limbs of 16-byte leaves (DUMMY's binary path), at
+   strided low limbs of 16-byte leaves (a form no path hands it since
+   every group's last level keeps a contiguous plane), at
    [512, 2^16] and [512, 2^18], each with the bytes its sectors move;
    K2's eight instances (PRF ids 1, 2, 4, 5 over
    the binary and the radix-4 tree) at full width, each also at E = 1
    (the same expansion, a sixteenth of the contraction); the ChaCha
-   level step (on no path) at K1's widest shape; beside each bound, the
+   level step (the dispatch mode's ChaCha20 level) at K1's widest shape;
+   beside each bound, the
    AES kernels' lookup floor (their shared-memory table lookups at one
    warp-wide lookup per SM per clock) and K2's pipe bound (its cipher
    cores' xors and rotations on the INT32 pipe, its products on the FMA
@@ -73,6 +75,29 @@ Phases (any failure raises and the script exits non-zero):
    keys/s of ``gen_batch`` at B = 512, N = 2^20, three constructions x
    AES-128 and ChaCha20 (and the binary tree's vectorized generator
    beside the native one).
+7. serving (``dpf_tpu_torch.serve``), each part's counts set to 0 just
+   before it and read just after, at N = 2^20, E = 16, cap 512: (1) the
+   ``ServingEngine`` (max_in_flight 2, pinned key staging, one CUDA
+   event a part) against the blocking loop for binary, radix-4 and
+   sqrt-N AES-128 and binary ChaCha20, ragged batches 512, 300, 17, 512,
+   129, 1 and 1,100 of distinct ``gen_batch`` keys, every row bit-equal
+   to ``eval_gpu``'s and two servers' engines recovering the table rows;
+   (2) the per-level dispatch mode (``kernel_impl="dispatch"``: K1, K5
+   for ChaCha20, K3) for binary AES and ChaCha20 and radix-4 AES, bit-equal
+   to the fused path, a past ``dispatch_deadline`` raising
+   ``DeadlineExceeded`` and the next submit exact; (3) 64 batches of
+   512 at N = 65536 and 2^20 (binary AES) through the blocking loop and
+   the engine at max_in_flight 1, 2, 4: dpfs/s, the engine's pack /
+   dispatch / wait host ms a batch and the device busy share
+   (``torch.profiler``); (4) ``bench_load.load_bench`` over the three
+   AES constructions (a ``SchemeRouter`` with probe-seeded costs): a
+   bursty open-loop trace whose ON windows keep the sticky engine busy
+   1.5 of the time and its OFF windows 0.3 (by its probed per-bucket
+   costs), sticky, router and shed
+   (slo 250 ms, max_queue_depth 8, a client window of 64 so that the
+   depth bound can trip) legs of about 10 s, qps, p50 / p99
+   and sheds, every served batch gated against ``eval_cpu`` with 0
+   rejections.
 
 The last lines are the card's name and power limit, one
 ``{"kernels": [...]}`` line, and ``{"ok": true, "device": {...}}``.
@@ -82,6 +107,7 @@ fails before printing any result.  It imports nothing of JAX.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -138,6 +164,205 @@ OPS_CHILD_ADD = 12           # add128 + codeword select per child
 
 def log(*a):
     print(*a, flush=True)
+
+
+def launch_counters():
+    """kernel name -> the wrapper that counts its launches, and the
+    read / zero helpers over them."""
+    from dpf_tpu_torch.ops import aes_level, matmul128, sqrt_grid, subtree
+    counters = {
+        "aes_level_step": aes_level.aes_level_step,
+        "aes_level_step_a4": aes_level.aes_level_step,
+        "subtree_contract": subtree.subtree_contract,
+        "subtree_contract_mixed": subtree.subtree_contract_mixed,
+        "contract_i32": matmul128.dot_i32,
+        "sqrt_grid_contract": sqrt_grid.sqrt_grid_contract,
+        "chacha_level_step": subtree.chacha_level_step}
+
+    def attr(name):
+        return "launches_a4" if name == "aes_level_step_a4" else "launches"
+
+    def read_counts():
+        return {k: getattr(fn, attr(k)) for k, fn in counters.items()}
+
+    def zero_counts():
+        for k, fn in counters.items():
+            setattr(fn, attr(k), 0)
+    return read_counts, zero_counts
+
+
+def serving_phase(smi, read_counts, zero_counts, n=1 << 20,
+                  device=None) -> tuple:
+    """Phase 7 at table size ``n`` (the overlap part also at n / 16) on
+    ``device`` (None = the card; the CPU rehearses it at a small n);
+    returns ({part: launch counts}, the phase's records)."""
+    import numpy as np
+
+    from dpf_tpu_torch import DPF, EvalConfig
+    from dpf_tpu_torch.core.expand import DeadlineExceeded
+    from dpf_tpu_torch.serve import bench_load, bench_serve
+
+    cap = 512
+    table = np.random.default_rng(7).integers(
+        0, 2 ** 31, (n, 16), dtype=np.int64).astype(np.int32)
+    by_part, records = {}, {}
+    aes, chacha = DPF.PRF_AES128, DPF.PRF_CHACHA20
+
+    def servers(prf, cfg, count=2):
+        out = []
+        for _ in range(count):
+            d = DPF(prf=prf, config=cfg, device=device)
+            d.eval_init(table)
+            out.append(d)
+        return out
+
+    # 7.1 the engine against the blocking loop
+    t0 = time.perf_counter()
+    zero_counts()
+    sizes = (512, 300, 17, 512, 129, 1, 1100)
+    log("phase 7.1 engine (max_in_flight 2) against the blocking loop, "
+        "N=%d E=16 cap 512, batches %s of distinct keys" % (n, sizes))
+    for label, prf, cfg in (
+            ("binary AES-128", aes, EvalConfig()),
+            ("radix-4 AES-128", aes, EvalConfig(radix=4)),
+            ("sqrt-N AES-128", aes, EvalConfig(scheme="sqrtn")),
+            ("binary ChaCha20", chacha, EvalConfig())):
+        sa, sb = servers(prf, cfg)
+        idx = np.array([(i * 0x9E3779B1) % n for i in range(max(sizes))])
+        wa, wb = sa.gen_batch(idx, n)
+        ea = sa.serving_engine(max_in_flight=2, warmup=True)
+        eb = sb.serving_engine(max_in_flight=2, warmup=True)
+        batches = [np.arange(j * 97, j * 97 + b) % len(idx)
+                   for j, b in enumerate(sizes)]
+        t1 = time.perf_counter()
+        fa = [ea.submit(wa[r]) for r in batches]
+        fb = [eb.submit(wb[r]) for r in batches]
+        outs = [(x.result(), y.result()) for x, y in zip(fa, fb)]
+        dt = time.perf_counter() - t1
+        for r, (oa, ob) in zip(batches, outs):
+            if not np.array_equal(oa, sa.eval_gpu(wa[r]).cpu().numpy()):
+                raise AssertionError("%s: engine rows differ from "
+                                     "eval_gpu's (batch %d)" % (label, len(r)))
+            rec = (oa.view(np.uint32) - ob.view(np.uint32)).view(np.int32)
+            if not (rec == table[idx[r]]).all():
+                raise AssertionError("%s: recovered rows differ (batch %d)"
+                                     % (label, len(r)))
+        st = ea.stats.as_dict()
+        log("  %-16s %d batches, %d rows == eval_gpu, rows recovered "
+            "exactly; both engines %.1f ms; dispatches %d, in-flight hwm "
+            "%d, pad waste %.3f" % (label, len(sizes), sum(sizes), 1e3 * dt,
+                                    st["dispatches"], st["in_flight_hwm"],
+                                    st["pad_waste"]))
+        del sa, sb, ea, eb
+    torch.cuda.empty_cache()
+    by_part["7.1 engine"] = read_counts()
+
+    # 7.2 the per-level dispatch mode
+    zero_counts()
+    log("phase 7.2 dispatch mode (kernel_impl='dispatch') against the "
+        "fused path, N=%d" % n)
+    for label, prf, radix in (("binary AES-128", aes, 2),
+                              ("binary ChaCha20", chacha, 2),
+                              ("radix-4 AES-128", aes, 4)):
+        fused = servers(prf, EvalConfig(radix=radix), 1)[0]
+        disp = servers(prf, EvalConfig(radix=radix, kernel_impl="dispatch"),
+                       1)[0]
+        idx = np.array([(i * 0x9E3779B1) % n for i in range(cap)])
+        keys = fused.gen_batch(idx, n)[0]
+        engine = disp.serving_engine(max_in_flight=2, warmup=True)
+        want = fused.eval_gpu(keys).cpu().numpy()
+        t1 = time.perf_counter()
+        got = [engine.submit(keys), engine.submit(keys[:129])]
+        got = [f.result() for f in got]
+        dt = time.perf_counter() - t1
+        if not (np.array_equal(got[0], want)
+                and np.array_equal(got[1], want[:129])):
+            raise AssertionError("%s: dispatch-mode shares differ from the "
+                                 "fused path's" % label)
+        disp.dispatch_deadline = time.monotonic() - 1.0
+        try:
+            engine.submit(keys)
+        except DeadlineExceeded:
+            pass
+        else:
+            raise AssertionError("%s: a past deadline did not raise" % label)
+        if engine.stats.deadline_misses != 1 or engine.in_flight:
+            raise AssertionError("%s: window or counters inconsistent after "
+                                 "the deadline" % label)
+        disp.dispatch_deadline = None
+        if not np.array_equal(engine.submit(keys).result(), want):
+            raise AssertionError("%s: the submit after the deadline is not "
+                                 "exact" % label)
+        from dpf_tpu_torch.utils.bench import cuda_ms
+        ms = {name: cuda_ms(lambda srv=srv: srv.eval_gpu(keys), 3)
+              for name, srv in (("fused", fused), ("dispatch", disp))}
+        records.setdefault("dispatch_ms", {})[label] = ms
+        log("  %-16s B=512 and 129 == fused (both %.1f ms); a past deadline "
+            "raised DeadlineExceeded, the next submit exact; eval_gpu B=512 "
+            "fused %.3f ms, dispatch %.3f ms (knobs %s)"
+            % (label, 1e3 * dt, ms["fused"], ms["dispatch"],
+               json.dumps(disp.resolved_eval_knobs(cap))))
+        del fused, disp, engine
+    torch.cuda.empty_cache()
+    by_part["7.2 dispatch"] = read_counts()
+
+    # 7.3 overlap: the blocking loop against the engine's windows
+    zero_counts()
+    log("phase 7.3 overlap: 64 batches of 512 (binary AES-128), blocking "
+        "loop against the engine at max_in_flight 1, 2, 4")
+    overlap = {}
+    for n3 in (n // 16, n):
+        d = DPF(prf=aes, device=device)
+        d.eval_init(table[:n3])
+        keys = d.gen_batch(np.array([(i * 0x9E3779B1) % n3
+                                     for i in range(cap)]), n3)[0]
+        r = bench_serve.overlap_bench(d, [keys] * 64)
+        overlap[n3] = r
+        for mode, m in r["modes"].items():
+            log("  N=%-8d %-9s %10.1f dpfs/s (%.3f s)%s  busy share %s on %s"
+                % (n3, mode, m["dpfs_per_sec"], m["seconds"],
+                   "" if mode == "blocking" else
+                   "  pack %.3f / dispatch %.3f / wait %.3f ms a batch"
+                   % (m["pack_ms_per_batch"], m["dispatch_ms_per_batch"],
+                      m["wait_ms_per_batch"]),
+                   "%.3f" % m["busy_share"] if m.get("busy_share") is not None
+                   else "not measured", smi))
+        del d, keys
+    records["overlap"] = overlap
+    by_part["7.3 overlap"] = read_counts()
+
+    # 7.4 router and open-loop load (the profiled passes of 7.3 leave
+    # many host objects and cached device blocks behind)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_counts()
+    log("phase 7.4 router and load: three AES-128 constructions, N=%d, "
+        "cap 512, bursty trace keeping the sticky engine 1.5 / 0.3 busy"
+        % n)
+    rec = bench_load.load_bench(
+        n=n, entry_size=16, cap=cap, prf=aes, on_rate=None, on_load=1.5,
+        off_load=0.3, duration_s=10.0, reps=1, distinct=8,
+        shed_queue_depth=8, shed_window=64, slo_ms=250.0, device=device,
+        quiet=True)
+    if rec["gate_rejections"] != 0:
+        raise AssertionError("phase 7.4: %d gate rejections"
+                             % rec["gate_rejections"])
+    log("  trace %s" % json.dumps(rec["trace"]))
+    log("  cost model after the router leg (ms): %s" % json.dumps(
+        {k: round(1e3 * v, 4) for k, v in rec["cost_table"].items()}))
+    for leg in ("sticky", "router", "shed_leg"):
+        r = rec[leg]
+        log("  %-8s %s qps, p50 %s ms, p99 %s ms, sheds %s (gate "
+            "rejections 0) on %s"
+            % (leg, r.get("qps", r.get("qps_admitted")), r["p50_ms"],
+               r["p99_ms"], r.get("shed_batches", 0), smi))
+    log("  routes %s" % json.dumps(rec["router"]["router_stats"]
+                                   ["route_counts"]))
+    records["load"] = {k: v for k, v in rec.items() if k != "obs"}
+    by_part["7.4 router"] = read_counts()
+    torch.cuda.empty_cache()
+    log("phase 7: %.1f s" % (time.perf_counter() - t0))
+    return by_part, records
 
 
 def main() -> int:
@@ -341,9 +566,10 @@ def main() -> int:
     k1_low(rows["aes_level_step_a4"], seeds, c1, c2, 4)
     del seeds, cw1, cw2, c1, c2
 
-    # K3: contraction.  The AES path hands it a contiguous plane of the
-    # leaves' low limbs (K1's low-limb form), DUMMY's binary path the low
-    # limbs of [B, C, 4] leaves (element stride 4); K = 2^18 at N = 2^20,
+    # K3: contraction.  Every path hands it a contiguous plane of the
+    # leaves' low limbs (K1's low-limb form, or the plain step's limb 0
+    # copied out); its strided form (the low limbs of [B, C, 4] leaves,
+    # element stride 4) is held too; K = 2^18 at N = 2^20,
     # 2^16 at N = 65536.  Why it exists: torch's int32 matmul on CUDA
     # (probed, not relied on)
     try:
@@ -514,8 +740,8 @@ def main() -> int:
     del fr, cw1, cw2, tbl, tbl1, frs, c1s, c2s, tbls
     torch.cuda.empty_cache()
 
-    # K5: the ChaCha20 level step, on no path; held and timed at K1's
-    # widest shape so the two level kernels compare row by row
+    # K5: the ChaCha20 level step (the dispatch mode's ChaCha20 levels,
+    # phase 7.2); held and timed at K1's widest shape
     for bsz, w in ((3, 5), (1, 1), (33, 64), (512, 1 << 17)):
         seeds, cw1, cw2 = rnd(bsz, w, 4), rnd(bsz, 64, 4), rnd(bsz, 64, 4)
         c1, c2 = cw1[:, 6:8], cw2[:, 6:8]
@@ -532,7 +758,6 @@ def main() -> int:
         bytes=nodes * 16 + 2 * bsz * 2 * 16 + 2 * nodes * 16,
         ops=nodes * (2 * OPS_CORE_BLOCK + 2 * OPS_CHILD_ADD),
         shape="B=%d w=%d -> 2w (one level)" % (bsz, w))
-    k5_launches = subtree.chacha_level_step.launches
     del seeds, cw1, cw2, c1, c2
 
     # K4: the sqrt-N grid; seeds and codewords are views of one wire
@@ -611,25 +836,7 @@ def main() -> int:
         log_row(name, r)
 
     # ---------------------------------------- the main paths: 3 + 4 + 5
-    # kernel name -> the wrapper that counts its launches
-    counters = {
-        "aes_level_step": aes_level.aes_level_step,
-        "aes_level_step_a4": aes_level.aes_level_step,
-        "subtree_contract": subtree.subtree_contract,
-        "subtree_contract_mixed": subtree.subtree_contract_mixed,
-        "contract_i32": matmul128.dot_i32,
-        "sqrt_grid_contract": sqrt_grid.sqrt_grid_contract,
-        "chacha_level_step": subtree.chacha_level_step}
-
-    def count_attr(name):
-        return "launches_a4" if name == "aes_level_step_a4" else "launches"
-
-    def read_counts():
-        return {k: getattr(fn, count_attr(k)) for k, fn in counters.items()}
-
-    def zero_counts():
-        for k, fn in counters.items():
-            setattr(fn, count_attr(k), 0)
+    read_counts, zero_counts = launch_counters()
 
     n3 = 16384
     table3 = rng.integers(0, 2 ** 31, (n3, 16), dtype=np.int64).astype(
@@ -904,6 +1111,25 @@ def main() -> int:
                                "matmul": matmul_rows,
                                "keygen": keygen_rows}}))
 
+    # ------------------------------------------------------ 7. serving
+    parts, serving = serving_phase(smi, read_counts, zero_counts)
+    path7 = {
+        "7.1 engine": ("aes_level_step", "aes_level_step_a4",
+                       "subtree_contract", "sqrt_grid_contract",
+                       "contract_i32"),
+        "7.2 dispatch": ("aes_level_step", "aes_level_step_a4",
+                         "chacha_level_step", "contract_i32"),
+        "7.3 overlap": ("aes_level_step", "contract_i32"),
+        "7.4 router": ("aes_level_step", "contract_i32")}
+    for part, counts in parts.items():
+        log("phase %s launches: %s" % (part, counts))
+        for k in path7[part]:
+            if counts[k] <= 0:
+                raise AssertionError("kernel %s was never launched in phase "
+                                     "%s" % (k, part))
+    by_path.update(parts)
+    log(json.dumps({"phase7": serving}))
+
     meta = {
         "aes_level_step": ("dpf_tpu_torch/csrc/aes_level.cu",
                            "dpf_tpu/ops/aes_planes.py:408"),
@@ -924,9 +1150,6 @@ def main() -> int:
     for name, (source, replaces) in meta.items():
         r = rows[name]
         launches = {p: c[name] for p, c in by_path.items() if c[name]}
-        if name == "chacha_level_step":
-            # on no path: its launches are phase 2's
-            launches = {"phase 2": k5_launches}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(launches.values()),

@@ -20,6 +20,14 @@ absent; ``device="cpu"`` runs the kernels' plain versions on the CPU.
 Keys are CPU int32 tensors;
 ``eval_gpu`` / ``eval_one_hot`` / ``eval_points`` return int32 tensors
 on the server's device; ``eval_cpu`` returns CPU tensors.
+
+``eval_gpu`` and the serving engine (``serving_engine()``,
+``serve/engine.py``) share one route: ``_decode_batch`` (the batched
+wire codec), ``_stage_packed`` (the batch in one host buffer in the
+device layout: pageable for ``eval_gpu``, a pinned slot for the engine)
+and ``_dispatch_packed`` (upload, kernels; no host sync).
+``EvalConfig(kernel_impl="dispatch")`` runs the GGM trees one level a
+launch with ``dispatch_deadline`` checked between launches.
 """
 
 from __future__ import annotations
@@ -86,6 +94,42 @@ def gen_batched_binary(alphas, n: int, seeds, prf_method: int, knobs=None):
             torch.from_numpy(np.stack([b for _, b in outs])))
 
 
+#: int32 words a staged log-N key takes: cw1 and cw2 (64 x 4 each) and
+#: the start seed (4)
+LOGN_KEY_WORDS = 2 * 64 * 4 + 4
+
+
+def _logn_planes(buf, size: int) -> tuple:
+    """The three planes of a staged log-N buffer (numpy array or
+    tensor): cw1 ``[size, 64, 4]``, cw2 ``[size, 64, 4]`` and the start
+    seeds ``[size, 4]``, each contiguous."""
+    p = size * 64 * 4
+    return (buf[:p].reshape(size, 64, 4), buf[p:2 * p].reshape(size, 64, 4),
+            buf[2 * p:2 * p + 4 * size].reshape(size, 4))
+
+
+def _host_buffer(words: int, stage=None) -> torch.Tensor:
+    """``words`` int32 of host memory: the staging slot's pinned buffer,
+    or a fresh pageable one."""
+    if stage is None:
+        return torch.empty(words, dtype=torch.int32)
+    return stage.buffer(words)
+
+
+class StagedKeys:
+    """A packed batch laid out in one host buffer (``DPF._stage_packed``):
+    ``rows`` real keys, dispatched as ``size`` rows; ``stage`` is the
+    pinned staging slot that holds ``host``, or None."""
+    __slots__ = ("host", "rows", "size", "pk", "stage")
+
+    def __init__(self, host, rows, size, pk, stage):
+        self.host = host
+        self.rows = rows
+        self.size = size
+        self.pk = pk
+        self.stage = stage
+
+
 def _native_gen(k: int, n: int, seed: bytes, prf_method: int):
     """The scalar binary keygen through ``native`` when it is built, else
     None."""
@@ -126,6 +170,7 @@ class DPF(object):
         where the server evaluates (None = CUDA)."""
         radix, sch = 2, "logn"
         self.row_chunk = None
+        self._config = config
         if config is not None:
             if prf is None:
                 prf = config.prf_method
@@ -150,6 +195,9 @@ class DPF(object):
         self.table_num_entries = None
         self.table_effective_entry_size = None
         self.buffers = None           # reference-API compat handle
+        # dispatch mode's cooperative deadline (a time.monotonic()
+        # value), checked between its launches; None = no deadline
+        self.dispatch_deadline = None
 
     # ------------------------------------------------------------------ gen
 
@@ -265,20 +313,21 @@ class DPF(object):
     # ------------------------------------------------------------ eval_gpu
 
     def eval_gpu(self, keys) -> torch.Tensor:
-        """Batched server evaluation on the device.
+        """Batched server evaluation on the device (the blocking loop).
 
         keys: a list of wire keys (tensors or arrays) or one [B, W]
         array.  Batches of at most ``BATCH_SIZE`` keys, each padded to a
-        power of two by repeating its last key.  Returns
+        power of two by repeating its last key, each through
+        ``_dispatch_packed`` (the serving engine's route).  Returns
         [len(keys), entry_size] int32 shares on the server's device."""
         if self.table_device is None:
             raise RuntimeError("Must call `eval_init` before `eval_gpu`")
-        wire = (sqrtn.stack_sqrt_wire_keys(keys) if self.scheme == "sqrtn"
-                else keygen.stack_wire_keys(keys))
+        pk = self._decode_batch(keys)
         results = []
-        for i in range(0, wire.shape[0], self.BATCH_SIZE):
-            cur = wire[i:i + self.BATCH_SIZE]
-            results.append(self._eval_batch(cur))
+        for lo in range(0, pk.batch, self.BATCH_SIZE):
+            part = pk.slice(lo, min(lo + self.BATCH_SIZE, pk.batch))
+            staged = self._stage_packed(part, u128.next_pow2(part.batch))
+            results.append(self._dispatch_packed(staged)[:part.batch])
         return torch.cat(results)[:, :self.table_effective_entry_size]
 
     # The JAX package's name for the same call.
@@ -295,7 +344,8 @@ class DPF(object):
         return keygen.decode_keys_batched(keys)
 
     def _decode_batch(self, keys):
-        """Wire keys -> packed batch, validated against the table."""
+        """Wire keys -> packed batch, validated against the table (the
+        ingest shared with the serving engine)."""
         pk = self._decode(keys)
         n = self.table_num_entries
         if n is not None and pk.n != n:
@@ -307,72 +357,159 @@ class DPF(object):
         return tuple(from_u32(a).to(self.device)
                      for a in (pk.cw1, pk.cw2, pk.last))
 
-    def _eval_batch(self, wire: np.ndarray) -> torch.Tensor:
-        pk = self._decode_batch(wire)
-        n_real = pk.batch
+    # ------------------------------------------------ staged dispatch
+
+    def _stage_packed(self, pk, size: int | None = None,
+                      stage=None) -> "StagedKeys":
+        """Lay a packed batch out in one host buffer in the layout the
+        device takes (host work only).  Log-N: three planes, cw1
+        ``[size, 64, 4]``, cw2 and the start seeds ``[size, 4]``, padded
+        here to ``size`` rows by repeating the last key (2 KiB a row).
+        Sqrt-N: ``[rows, 4 (K + 2R)]``, a key's seeds and codewords per
+        row, padded on the device (48 KiB a row at N = 2^20).
+
+        ``stage``: a pinned staging slot (``serve.engine.PinnedStage``:
+        ``buffer(words)`` hands out its pinned buffer once the last
+        copy that read it has passed); None = a fresh pageable buffer."""
+        rows = pk.batch
+        size = rows if size is None else int(size)
+        if size < rows:
+            raise ValueError("cannot stage %d keys in %d rows"
+                             % (rows, size))
         if self.scheme == "sqrtn":
-            return self._eval_batch_sqrt(wire, pk)[:n_real]
-        pk = pk.pad_to(u128.next_pow2(n_real))
-        cw1, cw2, last = self._device_keys(pk)
-        knobs = self.resolved_eval_knobs(pk.batch)
+            k, r = pk.n_keys, pk.n_codewords
+            width = 4 * (k + 2 * r)
+            host = _host_buffer(rows * width, stage).view(rows, width)
+            h = host.numpy().view(np.uint32)
+            h[:, :4 * k] = pk.seeds.reshape(rows, 4 * k)
+            h[:, 4 * k:4 * (k + r)] = pk.cw1.reshape(rows, 4 * r)
+            h[:, 4 * (k + r):] = pk.cw2.reshape(rows, 4 * r)
+        else:
+            host = _host_buffer(size * LOGN_KEY_WORDS, stage)
+            for plane, src in zip(_logn_planes(host.numpy().view(np.uint32),
+                                               size),
+                                  (pk.cw1, pk.cw2, pk.last)):
+                plane[:rows] = src
+                plane[rows:] = src[-1]
+        return StagedKeys(host, rows, size, pk, stage)
+
+    def _upload(self, staged: "StagedKeys") -> torch.Tensor:
+        """The staged buffer on the server's device: from pinned memory
+        an asynchronous copy on the current stream, after which the
+        staging slot records the event that frees it; from pageable
+        memory a copy the host waits for; on the CPU the buffer
+        itself."""
+        host = staged.host
+        if self.device.type == "cpu":
+            return host
+        dev = host.to(self.device, non_blocking=host.is_pinned())
+        if staged.stage is not None:
+            staged.stage.record_copy()
+        return dev
+
+    def _dispatch_packed(self, pk) -> torch.Tensor:
+        """Dispatch one packed batch (``keygen.PackedKeys``,
+        ``sqrtn.PackedSqrtKeys`` or a ``StagedKeys`` from
+        ``_stage_packed``) and return the ``[size, E]`` int32 shares on
+        the device WITHOUT a host sync: on the card every copy and
+        kernel is enqueued on the current stream, so the caller (the
+        serving engine) packs the next batch while this one runs.  A
+        packed batch is staged in a pageable buffer at its own size."""
+        if self.table_device is None:
+            raise RuntimeError("Must call `eval_init` before dispatch")
+        staged = (pk if isinstance(pk, StagedKeys)
+                  else self._stage_packed(pk))
+        if self.scheme == "sqrtn":
+            return self._dispatch_packed_sqrt(staged)
         if self.radix == 4:
-            out = radix4.expand_and_contract_mixed(
+            return self._dispatch_packed_r4(staged)
+        cw1, cw2, last = _logn_planes(self._upload(staged), staged.size)
+        n = self.table_num_entries
+        depth = n.bit_length() - 1
+        k = self.resolved_eval_knobs(staged.size)
+        if k["kernel_impl"] == "dispatch":
+            return expand.eval_dispatch(
+                cw1, cw2, last, self.table_device, depth=depth,
+                prf_method=self.prf_method, chunk_leaves=k["chunk_leaves"],
+                group=k["dispatch_group"], deadline=self.dispatch_deadline)
+        return expand.expand_and_contract(
+            cw1, cw2, last, self.table_device, depth=depth,
+            prf_method=self.prf_method, chunk_leaves=k["chunk_leaves"])
+
+    def _dispatch_packed_r4(self, staged: "StagedKeys") -> torch.Tensor:
+        """Radix-4 device dispatch, asynchronous like
+        ``_dispatch_packed``."""
+        cw1, cw2, last = _logn_planes(self._upload(staged), staged.size)
+        k = self.resolved_eval_knobs(staged.size)
+        if k["kernel_impl"] == "dispatch":
+            return radix4.eval_dispatch_mixed(
                 cw1, cw2, last, self.table_device,
                 n=self.table_num_entries, prf_method=self.prf_method,
-                chunk_leaves=knobs["chunk_leaves"])
-        else:
-            out = expand.expand_and_contract(
-                cw1, cw2, last, self.table_device,
-                depth=self.table_num_entries.bit_length() - 1,
-                prf_method=self.prf_method,
-                chunk_leaves=knobs["chunk_leaves"])
-        return out[:n_real]
+                chunk_leaves=k["chunk_leaves"], group=k["dispatch_group"],
+                deadline=self.dispatch_deadline)
+        return radix4.expand_and_contract_mixed(
+            cw1, cw2, last, self.table_device, n=self.table_num_entries,
+            prf_method=self.prf_method, chunk_leaves=k["chunk_leaves"])
 
-    def _eval_batch_sqrt(self, wire: np.ndarray,
-                         pk: sqrtn.PackedSqrtKeys) -> torch.Tensor:
-        """The wire buffer goes to the device as it is and is padded and
-        sliced there; K4 reads seeds and codewords at the wire's key
+    def _dispatch_packed_sqrt(self, staged: "StagedKeys") -> torch.Tensor:
+        """Sqrt-N device dispatch: the staged rows go to the device, are
+        padded there, and K4 reads seeds and codewords at the key
         stride.  An explicit ``row_chunk`` passes straight through (an
         invalid pin raises), else the scan's heuristic chunk is clamped
         to the batch's split and the kernel's cell cap."""
-        bsz = u128.next_pow2(pk.batch)
-        seeds, cw1, cw2 = sqrtn.device_sqrt_keys(wire, pk, self.device,
-                                                 pad_to=bsz)
+        pk = staged.pk
+        seeds, cw1, cw2 = sqrtn.sqrt_key_views(
+            self._upload(staged), pk.n_keys, pk.n_codewords,
+            pad_to=staged.size)
         rc = self.row_chunk
         if rc is None:
-            rc = sqrtn.clamp_row_chunk(None, pk.n_codewords, pk.n_keys, bsz)
+            rc = sqrtn.clamp_row_chunk(None, pk.n_codewords, pk.n_keys,
+                                       staged.size)
         return sqrtn.eval_contract_batched(
             seeds, cw1, cw2, self.table_device, prf_method=self.prf_method,
             row_chunk=rc)
 
     def resolved_eval_knobs(self, batch: int) -> dict:
         """Program knobs for one dispatch batch size: the heuristic branch
-        of ``dpf_tpu``'s resolution under ``kernel_impl="pallas"`` (the
-        tuning cache is not ported yet).  The stream ciphers take the
-        subtree kernel's block of at most 4096 leaves; AES and DUMMY take
-        the 64 MiB live-seed chunk (``expand.choose_chunk``).  For radix
-        4 the chunk is rounded down to a product of trailing arities
-        (``radix4._suffix_chunk``) and the kernels are the radix-4 ones:
-        K2 ``subtree_contract_mixed``, K1 at arity 4."""
+        of ``dpf_tpu``'s resolution (the tuning cache is not ported
+        yet).  ``kernel_impl`` is the config's (``"xla"`` by default);
+        ``"xla"``, ``"pallas"`` and the auto state take the fused
+        kernels (``kernel_impl: "fused"``): the stream ciphers the subtree
+        kernel's block of at most 4096 leaves, AES and DUMMY the 64 MiB
+        live-seed chunk (``expand.choose_chunk``).  ``"dispatch"`` takes
+        the per-level mode with the live-seed chunk for every PRF and
+        its ``dispatch_group`` (``kernel_resolved_from: "config"``).  For radix 4 the chunk is rounded down to a
+        product of trailing arities (``radix4._suffix_chunk``) and the
+        kernels are the radix-4 ones: K2 ``subtree_contract_mixed``, K1
+        at arity 4.  ``kernel`` names the kernel that expands the
+        levels."""
         n = self.table_num_entries
         if n is None:
             raise RuntimeError("Must call `eval_init` before resolving")
         if self.scheme == "sqrtn":
             return self._resolved_sqrt_knobs(n, batch)
-        if self.prf_method in expand.SUBTREE_PRFS:
+        cfg = self._config
+        dispatch = cfg is not None and cfg.kernel_impl == "dispatch"
+        group = cfg.dispatch_group if dispatch else None
+        if self.prf_method in expand.SUBTREE_PRFS and not dispatch:
             from .ops.subtree import subtree_chunk_leaves
             chunk, kernel = subtree_chunk_leaves(n), "subtree_contract"
         else:
             chunk = expand.clamp_chunk(None, n, batch)
-            kernel = ("aes_level_step" if self.prf_method == PRF_AES128
-                      else "plain_level_step")
+            kernel = {PRF_AES128: "aes_level_step",
+                      PRF_CHACHA20: "chacha_level_step"}.get(
+                          self.prf_method, "plain_level_step")
         if self.radix == 4:
             chunk = radix4._suffix_chunk(radix4.arities(n), chunk)[1]
             kernel = {"subtree_contract": "subtree_contract_mixed",
-                      "aes_level_step": "aes_level_step_a4"}.get(kernel,
-                                                                 kernel)
+                      "aes_level_step": "aes_level_step_a4",
+                      "chacha_level_step": "plain_level_step"}.get(kernel,
+                                                                   kernel)
         return {"chunk_leaves": chunk, "kernel": kernel,
-                "kernel_resolved_from": "heuristic"}
+                "kernel_impl": "dispatch" if dispatch else "fused",
+                "dispatch_group": group,
+                "kernel_resolved_from": "config" if dispatch
+                else "heuristic"}
 
     def _resolved_sqrt_knobs(self, n: int, batch: int) -> dict:
         """The sqrt-N branch: every PRF id goes to K4.  ``row_chunk`` is
@@ -385,7 +522,7 @@ class DPF(object):
         eff = sqrt_row_chunk(r, k, rc if rc is not None else
                              sqrtn.clamp_row_chunk(None, r, k, batch))
         return {"row_chunk": rc, "row_chunk_effective": eff,
-                "kernel": "sqrt_grid_contract",
+                "kernel": "sqrt_grid_contract", "kernel_impl": "fused",
                 "kernel_resolved_from": "heuristic"}
 
     # ------------------------------------------------- one-hot and points
@@ -477,6 +614,17 @@ class DPF(object):
             if (k.n, k.n_keys) != (sk[0].n, sk[0].n_keys):
                 raise ValueError("keys for mixed sqrt-N splits")
         return sk
+
+    # ------------------------------------------------------- serving_engine
+
+    def serving_engine(self, **kwargs):
+        """A ``serve.ServingEngine`` over this DPF's initialized table:
+        vectorized key ingest, bucketed batches, double-buffered dispatch
+        on CUDA events with pinned key staging.  kwargs forward to
+        ``ServingEngine`` (``max_in_flight``, ``buckets``, ``warmup``,
+        ...).  Requires a prior ``eval_init``."""
+        from .serve import ServingEngine
+        return ServingEngine(self, **kwargs)
 
     # ------------------------------------------------------------ eval_free
 

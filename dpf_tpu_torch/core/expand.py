@@ -13,22 +13,29 @@ wrapping int32 product.
 ``expand_and_contract`` routes each PRF as the JAX package's
 ``kernel_impl="pallas"`` path does:
 
-* AES-128: one kernel launch per level (K1, ``ops/aes_level.py``) over
-  groups of frontier subtrees, the last level of each group storing only
-  its leaves' low limbs, each group contracted by K3
-  (``ops/matmul128.py``) -- ``_expand_contract_pallas_aes``;
 * Salsa/ChaCha and their block-PRG ids: the fused subtree kernel (K2,
   ``ops/subtree.py``), which here starts at the root --
   ``_expand_contract_pallas``;
-* DUMMY: plain level steps over one frontier subtree at a time, then
-  K3 -- the XLA path of ``_expand_contract_core`` (JAX has no Pallas
-  path for DUMMY).
+* AES-128 and DUMMY: ``eval_dispatch`` without a deadline -- one launch
+  a level (AES: K1, ``ops/aes_level.py``; DUMMY: the plain step, as
+  JAX's XLA path) over groups of frontier subtrees, the last level of
+  each group keeping only its leaves' low limbs, each group contracted
+  by K3 (``ops/matmul128.py``) -- ``_expand_contract_pallas_aes``.
+
+``eval_dispatch`` is also the per-level mode (``kernel_impl=
+"dispatch"``) for every PRF: a monotonic deadline checked between
+launches (``DeadlineExceeded``), the frontier in groups of ``group``
+subtrees.  There ChaCha20-12 levels go to K5
+(``ops/subtree.chacha_level_step``) and Salsa20 and the block-PRG ids
+to the plain level step (the JAX package computes those with XLA ops).
 
 On CPU tensors every kernel wrapper takes its plain version, so the same
 code is the CPU reference.  ``lax.scan`` becomes a Python loop.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -100,95 +107,47 @@ def _level_step_multi(seeds: torch.Tensor, cw1_lvl: torch.Tensor,
     return torch.stack(children, dim=2).reshape(bsz, arity * w, 4)
 
 
-def _level_step(seeds, cw1, cw2, i: int, prf_method: int) -> torch.Tensor:
-    """One plain GGM level: [B, w, 4] -> [B, 2w, 4]; ``i`` is the flat
-    level index (codeword slots 2i, 2i+1)."""
-    return _level_step_multi(seeds, cw1[:, 2 * i:2 * i + 2, :],
-                             cw2[:, 2 * i:2 * i + 2, :], prf_method)
+def route_level(seeds, cw1_lvl, cw2_lvl, prf_method: int, arity: int = 2,
+                low32: bool = False) -> torch.Tensor:
+    """One GGM level on the port's route, this level's codewords
+    ``[B, arity, 4]`` given: AES through K1 at the level's arity, binary
+    ChaCha20 through K5, the rest through the plain step.  ``low32``:
+    only the children's limb 0, ``[B, a*w]`` contiguous (K1 stores only
+    it; the other routes copy it out)."""
+    if prf_method == PRF_AES128:
+        from ..ops.aes_level import aes_level_step
+        return aes_level_step(seeds, cw1_lvl, cw2_lvl, arity=arity,
+                              low32=low32)
+    if prf_method == PRF_CHACHA20 and arity == 2:
+        from ..ops.subtree import chacha_level_step
+        out = chacha_level_step(seeds, cw1_lvl, cw2_lvl)
+    else:
+        out = _level_step_multi(seeds, cw1_lvl, cw2_lvl, prf_method, arity)
+    return out[..., 0].contiguous() if low32 else out
 
 
 def level_step(seeds, cw1, cw2, i: int, prf_method: int,
                low32: bool = False) -> torch.Tensor:
-    """One GGM level on the port's route: AES through K1, the others
-    through the plain step.  ``low32``: only the children's limb 0,
-    [B, 2w] contiguous."""
-    if prf_method == PRF_AES128:
-        from ..ops.aes_level import aes_level_step
-        return aes_level_step(seeds, cw1[:, 2 * i:2 * i + 2, :],
-                              cw2[:, 2 * i:2 * i + 2, :], low32=low32)
-    out = _level_step(seeds, cw1, cw2, i, prf_method)
-    return out[..., 0].contiguous() if low32 else out
+    """Binary level ``i`` (codeword slots 2i, 2i+1 of the full
+    ``[B, 64, 4]`` arrays) through ``route_level``."""
+    return route_level(seeds, cw1[:, 2 * i:2 * i + 2], cw2[:, 2 * i:2 * i + 2],
+                       prf_method, 2, low32)
+
+
+def pack_keys(flat_keys) -> tuple:
+    """List of ``keygen.FlatKey`` -> (cw1 [B, 64, 4], cw2, last [B, 4])
+    uint32 arrays: the scalar codec's packing (the batched wire path is
+    ``keygen.decode_keys_batched``)."""
+    cw1 = np.stack([k.cw1 for k in flat_keys]).astype(np.uint32, copy=False)
+    cw2 = np.stack([k.cw2 for k in flat_keys]).astype(np.uint32, copy=False)
+    last = np.stack([u128.int_to_limbs(k.last_key) for k in flat_keys])
+    return cw1, cw2, last
 
 
 def permute_table(table_i32: np.ndarray) -> np.ndarray:
     """Bit-reverse-permute table rows once at init (host side)."""
     n = table_i32.shape[0]
     return np.ascontiguousarray(table_i32[u128.bit_reverse_indices(n)])
-
-
-def _expand_contract_core(cw1, cw2, last, table_perm, *, depth: int,
-                          prf_method: int, f: int) -> torch.Tensor:
-    """The plain two-phase engine: expand every key from the root to ``f``
-    frontier nodes, then one frontier subtree at a time to its C = N/f
-    leaves, contracting each against its table rows with K3."""
-    from ..ops.matmul128 import dot_i32
-    n, e = table_perm.shape
-    c = n // f
-    f_levels = f.bit_length() - 1
-    seeds = last[:, None, :]
-    for lv in range(f_levels):
-        seeds = _level_step(seeds, cw1, cw2, depth - 1 - lv, prf_method)
-    acc = torch.zeros((last.shape[0], e), dtype=torch.int32,
-                      device=last.device)
-    for j in range(f):
-        s = seeds[:, j:j + 1, :]
-        for lv in range(f_levels, depth):
-            s = _level_step(s, cw1, cw2, depth - 1 - lv, prf_method)
-        acc = acc + dot_i32(s[..., 0], table_perm[j * c:(j + 1) * c])
-    return acc
-
-
-def grouped_scan_contract(seeds, table_perm, expand_fn, *, f: int,
-                          c: int) -> torch.Tensor:
-    """Split the ``f`` frontier nodes ([B, F, 4] ``seeds``) into equal
-    groups of g, expand each group with ``expand_fn([B, g, 4]) ->
-    [B, g*c]`` (the low limbs of its leaves, contiguous), contract them
-    against the matching table rows with K3, and accumulate [B, E].  The
-    group's leaves are ``B x g x c x 4 B``; its widest live tensor, the
-    level before them, ``B x g x c/a x 16 B`` at arity a."""
-    from ..ops.matmul128 import dot_i32
-    e = table_perm.shape[1]
-    g = choose_group(f, c)
-    acc = torch.zeros((seeds.shape[0], e), dtype=torch.int32,
-                      device=seeds.device)
-    for start in range(0, f, g):
-        low = expand_fn(seeds[:, start:start + g, :].contiguous())
-        acc = acc + dot_i32(low, table_perm[start * c:(start + g) * c])
-    return acc
-
-
-def _expand_contract_aes(cw1, cw2, last, table_perm, *, depth: int,
-                         chunk_leaves: int) -> torch.Tensor:
-    """AES: one K1 launch per level, frontier groups through
-    ``grouped_scan_contract`` (port of ``_expand_contract_pallas_aes``)."""
-    n = table_perm.shape[0]
-    c = chunk_leaves
-    f = n // c
-    f_levels = f.bit_length() - 1
-    seeds = last[:, None, :]
-    for lv in range(f_levels):
-        seeds = level_step(seeds, cw1, cw2, depth - 1 - lv, PRF_AES128)
-
-    def expand_fn(node_seeds):
-        s = node_seeds
-        if f_levels == depth:                 # one leaf a frontier node
-            return s[..., 0].contiguous()
-        for lv in range(f_levels, depth):
-            s = level_step(s, cw1, cw2, depth - 1 - lv, PRF_AES128,
-                           low32=lv == depth - 1)
-        return s
-
-    return grouped_scan_contract(seeds, table_perm, expand_fn, f=f, c=c)
 
 
 def expand_and_contract(cw1, cw2, last, table_perm, *, depth: int,
@@ -206,16 +165,94 @@ def expand_and_contract(cw1, cw2, last, table_perm, *, depth: int,
     if n != 1 << depth or c < 1 or n % c or c & (c - 1):
         raise ValueError("chunk_leaves (%d) must be a power of two dividing "
                          "the table size %d = 2^%d" % (c, n, depth))
-    if prf_method == PRF_AES128:
-        return _expand_contract_aes(cw1, cw2, last, table_perm, depth=depth,
-                                    chunk_leaves=c)
     if prf_method in SUBTREE_PRFS:
         from ..ops.subtree import subtree_contract
         return subtree_contract(last[:, None, :], cw1, cw2, table_perm,
                                 depth=depth, f_levels=0,
                                 prf_method=prf_method, block_leaves=c)
-    return _expand_contract_core(cw1, cw2, last, table_perm, depth=depth,
-                                 prf_method=prf_method, f=n // c)
+    return eval_dispatch(cw1, cw2, last, table_perm, depth=depth,
+                         prf_method=prf_method, chunk_leaves=c)
+
+
+class DeadlineExceeded(RuntimeError):
+    """Raised by the per-level modes between launches when their
+    deadline (a ``time.monotonic()`` value) has passed; the launches
+    already enqueued run to their end on the device."""
+
+
+def check_deadline(deadline: float | None) -> None:
+    """Raise ``DeadlineExceeded`` once ``time.monotonic()`` is past
+    ``deadline`` (monotonic: an NTP step neither fires nor starves it)."""
+    if deadline is not None and time.monotonic() > deadline:
+        raise DeadlineExceeded(
+            "eval_dispatch soft deadline passed between dispatches")
+
+
+def dispatch_group_size(f: int, c: int, group: int | None) -> int:
+    """Frontier subtrees a dispatch-mode pass expands: ``group`` (None =
+    ``choose_group``) clamped to ``f`` and lowered to a divisor of it."""
+    if group is not None and group < 1:
+        raise ValueError("dispatch group must be >= 1 (got %r)" % (group,))
+    g = min(group or choose_group(f, c), f)
+    while f % g:
+        g -= 1
+    return g
+
+
+def dispatch_contract(last, table_perm, level, n_levels: int, f_lv: int,
+                      c: int, group: int | None,
+                      deadline: float | None) -> torch.Tensor:
+    """The per-level mode's loop over any level schedule:
+    ``level(seeds, j, low32)`` runs eval level ``j``; the root goes to
+    the ``f = N / c`` frontier nodes at eval level ``f_lv``, then each
+    group of subtrees to its leaves, contracted by K3.  The deadline is
+    checked before every launch."""
+    from ..ops.matmul128 import dot_i32
+    n, e = table_perm.shape
+    f = n // c
+    g = dispatch_group_size(f, c, group)
+    seeds = last[:, None, :]
+    for j in range(f_lv):
+        check_deadline(deadline)
+        seeds = level(seeds, j, False)                  # [B, f, 4]
+    acc = torch.zeros((last.shape[0], e), dtype=torch.int32,
+                      device=last.device)
+    for start in range(0, f, g):
+        s = seeds[:, start:start + g, :].contiguous()
+        if f_lv == n_levels:                      # one leaf a node
+            s = s[..., 0].contiguous()
+        for j in range(f_lv, n_levels):
+            check_deadline(deadline)
+            s = level(s, j, j == n_levels - 1)    # last: [B, g*c]
+        check_deadline(deadline)
+        acc = acc + dot_i32(s, table_perm[start * c:(start + g) * c])
+    return acc
+
+
+def eval_dispatch(cw1, cw2, last, table_perm, *, depth: int,
+                  prf_method: int, chunk_leaves: int,
+                  group: int | None = None,
+                  deadline: float | None = None) -> torch.Tensor:
+    """Per-level evaluation of the binary tree (port of
+    ``expand.eval_dispatch``): the same shares as
+    ``expand_and_contract``, one launch a level.
+
+    ``chunk_leaves``: leaves per frontier subtree (a power of two
+    dividing N); ``group``: frontier subtrees expanded together (None =
+    ``choose_group``; a value that does not divide the frontier is
+    lowered to one that does); ``deadline``: a ``time.monotonic()``
+    value checked before every launch."""
+    n = table_perm.shape[0]
+    c = chunk_leaves
+    if n != 1 << depth or c < 1 or n % c or c & (c - 1):
+        raise ValueError("chunk_leaves (%d) must be a power of two dividing "
+                         "the table size %d = 2^%d" % (c, n, depth))
+
+    def level(s, j, low32):
+        return level_step(s, cw1, cw2, depth - 1 - j, prf_method, low32)
+
+    return dispatch_contract(last, table_perm, level, depth,
+                             (n // c).bit_length() - 1, c, group, deadline)
 
 
 def expand_leaves(cw1, cw2, last, *, depth: int,

@@ -134,18 +134,6 @@ class PackedKeys:
         return PackedKeys(self.cw1[lo:hi], self.cw2[lo:hi],
                           self.last[lo:hi], self.depth, self.n)
 
-    def pad_to(self, size: int) -> "PackedKeys":
-        """Pad the batch axis to ``size`` by repeating the last key (pad
-        rows are computed and discarded).  No-op when already at least
-        ``size``."""
-        reps = size - self.batch
-        if reps <= 0:
-            return self
-        return PackedKeys(
-            np.concatenate([self.cw1, np.repeat(self.cw1[-1:], reps, 0)]),
-            np.concatenate([self.cw2, np.repeat(self.cw2[-1:], reps, 0)]),
-            np.concatenate([self.last, np.repeat(self.last[-1:], reps, 0)]),
-            self.depth, self.n)
 
 
 def decode_keys_batched(keys) -> PackedKeys:

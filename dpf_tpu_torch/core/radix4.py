@@ -21,13 +21,19 @@ same ``(alpha, n, seed, prf)``.  Evaluation runs on int32 limb tensors:
   arity over groups of frontier subtrees, each group contracted by K3;
   Salsa/ChaCha and the block-PRG ids through the mixed K2
   (``ops/subtree.subtree_contract_mixed``) from the root; DUMMY through
-  plain level steps and K3.
+  plain level steps and K3 (AES and DUMMY by ``eval_dispatch_mixed``
+  without a deadline).
 * ``expand_leaves_mixed`` (one-hot) and ``eval_points_mixed`` (root to
   leaf walks).
 
+* ``eval_dispatch_mixed``, the per-level mode (``kernel_impl=
+  "dispatch"``): one launch a level, AES through K1 at the level's
+  arity, the other PRFs through the plain mixed step, one K3 a group
+  of frontier subtrees, a cooperative deadline between launches.
+
 ``gen_batched_r4`` is the batched generator, on ``[B, 4]`` limb
-tensors as ``keygen.gen_batched``.  Per-key tables and the per-level
-dispatch mode are not ported yet (ROADMAP Queue 1 items 5 and 6).
+tensors as ``keygen.gen_batched``.  Per-key tables are not ported yet
+(ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -38,12 +44,12 @@ import numpy as np
 import torch
 
 from . import u128
-from .expand import SUBTREE_PRFS, _level_step_multi, grouped_scan_contract
+from .expand import SUBTREE_PRFS, dispatch_contract, route_level
 from .keygen import (KEY_WORDS, PackedKeys, Shake256Drbg, _check_batch_args,
                      _even, _keygen_knob_fns, _odd, _wire_batch, beta_limbs,
                      drbg_u128_batch, stack_wire_keys)
 from .prf import prf_multi
-from .prf_ref import MASK128, PRF_AES128, PRF_FUNCS
+from .prf_ref import MASK128, PRF_FUNCS
 
 MAX_CW = 64
 
@@ -379,18 +385,13 @@ def _suffix_chunk(ars, target: int) -> tuple:
 
 def level_step_mixed(seeds, cw1, cw2, ars, offs, j: int, prf_method: int,
                      low32: bool = False) -> torch.Tensor:
-    """Eval level ``j`` on the port's route: AES through K1 at the level's
-    arity, the other PRFs through the plain step.  seeds [B, w, 4],
-    full codeword arrays [B, 64, 4] -> [B, ars[j]*w, 4], or with
-    ``low32`` only the children's limb 0, [B, ars[j]*w] contiguous."""
+    """Eval level ``j`` (codeword slots ``offs[j]`` on of the full
+    ``[B, 64, 4]`` arrays) through ``expand.route_level`` at the level's
+    arity: seeds [B, w, 4] -> [B, ars[j]*w, 4], or with ``low32`` only
+    the children's limb 0, [B, ars[j]*w] contiguous."""
     a = ars[j]
-    c1 = cw1[:, offs[j]:offs[j] + a, :]
-    c2 = cw2[:, offs[j]:offs[j] + a, :]
-    if prf_method == PRF_AES128:
-        from ..ops.aes_level import aes_level_step
-        return aes_level_step(seeds, c1, c2, arity=a, low32=low32)
-    out = _level_step_multi(seeds, c1, c2, prf_method, a)
-    return out[..., 0].contiguous() if low32 else out
+    return route_level(seeds, cw1[:, offs[j]:offs[j] + a],
+                       cw2[:, offs[j]:offs[j] + a], prf_method, a, low32)
 
 
 def expand_leaves_mixed(cw1, cw2, last, *, n: int,
@@ -448,26 +449,39 @@ def expand_and_contract_mixed(cw1, cw2, last, table_perm, *, n: int,
         raise ValueError("table of %d rows for n=%d"
                          % (table_perm.shape[0], n))
     ars = arities(n)
-    offs = cw_offsets(ars)
-    f_lv, c = _suffix_chunk(ars, chunk_leaves or n)
+    c = _suffix_chunk(ars, chunk_leaves or n)[1]
     if prf_method in SUBTREE_PRFS:
         from ..ops.subtree import subtree_contract_mixed
         return subtree_contract_mixed(last[:, None, :], cw1, cw2, table_perm,
                                       ars=ars, f_lv=0, prf_method=prf_method,
                                       block_leaves=c)
+    return eval_dispatch_mixed(cw1, cw2, last, table_perm, n=n,
+                               prf_method=prf_method, chunk_leaves=c)
 
-    def level(s, j, low32=False):
+
+def eval_dispatch_mixed(cw1, cw2, last, table_perm, *, n: int,
+                        prf_method: int, chunk_leaves: int | None,
+                        group: int | None = None,
+                        deadline: float | None = None) -> torch.Tensor:
+    """Per-level evaluation of the radix-4 tree (port of
+    ``radix4.eval_dispatch_mixed``): the same shares as
+    ``expand_and_contract_mixed``, one launch a level.  AES levels go to
+    K1 at the level's arity (the last of each group storing only the
+    leaves' low limbs), a binary ChaCha20 base level (odd depth) to K5,
+    the other levels to the plain mixed step; each
+    group of ``group`` frontier subtrees (None = auto) goes to K3.
+    ``chunk_leaves`` is rounded down to a product of trailing arities
+    (None = N); ``deadline`` is checked before every launch."""
+    if table_perm.shape[0] != n:
+        raise ValueError("table of %d rows for n=%d"
+                         % (table_perm.shape[0], n))
+    ars = arities(n)
+    offs = cw_offsets(ars)
+    f_lv, c = _suffix_chunk(ars, chunk_leaves or n)
+
+    def level(s, j, low32):
         return level_step_mixed(s, cw1, cw2, ars, offs, j, prf_method,
                                 low32)
 
-    seeds = last[:, None, :]
-    for j in range(f_lv):
-        seeds = level(seeds, j)                        # [B, F, 4]
-
-    def expand_fn(node_seeds):
-        s = node_seeds
-        for j in range(f_lv, len(ars)):
-            s = level(s, j, low32=j == len(ars) - 1)  # last: [B, g*c]
-        return s
-
-    return grouped_scan_contract(seeds, table_perm, expand_fn, f=n // c, c=c)
+    return dispatch_contract(last, table_perm, level, len(ars), f_lv, c,
+                             group, deadline)

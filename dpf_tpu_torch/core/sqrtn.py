@@ -289,7 +289,7 @@ def pack_sqrt_keys(keys: list) -> tuple:
 @dataclass
 class PackedSqrtKeys:
     """A sqrt-N key batch decoded into device-layout arrays, with the
-    ``batch``/``slice``/``pad_to`` surface of ``keygen.PackedKeys``."""
+    ``batch``/``slice`` surface of ``keygen.PackedKeys``."""
     seeds: np.ndarray    # [B, K, 4] uint32 column seeds
     cw1: np.ndarray      # [B, R, 4] uint32
     cw2: np.ndarray      # [B, R, 4] uint32
@@ -310,20 +310,6 @@ class PackedSqrtKeys:
     def slice(self, lo: int, hi: int) -> "PackedSqrtKeys":
         return PackedSqrtKeys(self.seeds[lo:hi], self.cw1[lo:hi],
                               self.cw2[lo:hi], self.n)
-
-    def pad_to(self, size: int) -> "PackedSqrtKeys":
-        """Pad the batch axis to ``size`` by repeating the last key (pad
-        rows are computed and discarded).  No-op when already at least
-        ``size``."""
-        reps = size - self.batch
-        if reps <= 0:
-            return self
-        return PackedSqrtKeys(
-            np.concatenate([self.seeds,
-                            np.repeat(self.seeds[-1:], reps, 0)]),
-            np.concatenate([self.cw1, np.repeat(self.cw1[-1:], reps, 0)]),
-            np.concatenate([self.cw2, np.repeat(self.cw2[-1:], reps, 0)]),
-            self.n)
 
 
 def stack_sqrt_wire_keys(keys) -> np.ndarray:
@@ -382,20 +368,19 @@ def decode_sqrt_keys_batched(keys) -> PackedSqrtKeys:
         n=int(n[0]))
 
 
-def device_sqrt_keys(wire: np.ndarray, pk: PackedSqrtKeys, device,
-                     pad_to: int | None = None) -> tuple:
-    """The decoded batch's wire buffer on ``device`` as (seeds, cw1, cw2)
-    int32 views ``[B, K, 4]``, ``[B, R, 4]``, ``[B, R, 4]`` with the key
-    stride of the wire (one host-to-device copy, no host repacking).
-    ``pad_to`` repeats the last key on the device."""
-    buf = torch.from_numpy(wire).to(device)
+def sqrt_key_views(buf: torch.Tensor, k: int, r: int,
+                   pad_to: int | None = None) -> tuple:
+    """A staged ``[B, 4 (K + 2R)]`` int32 key buffer on its device (each
+    row a key's seeds, cw1 and cw2, as the wire holds them after its
+    header) -> (seeds, cw1, cw2) views ``[B, K, 4]``, ``[B, R, 4]``,
+    ``[B, R, 4]`` at the buffer's key stride.  ``pad_to`` repeats the
+    last key on the device."""
     if pad_to is not None and pad_to > buf.shape[0]:
         buf = torch.cat([buf, buf[-1:].expand(pad_to - buf.shape[0], -1)])
-    k, r = pk.n_keys, pk.n_codewords
 
     def view(slot, rows):
         return buf[:, 4 * slot:4 * (slot + rows)].unflatten(1, (rows, 4))
-    return view(4, k), view(4 + k, r), view(4 + k + r, r)
+    return view(0, k), view(k, r), view(k + r, r)
 
 
 # -------------------------------------------------- row-chunk rules

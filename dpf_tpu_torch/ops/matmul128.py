@@ -11,9 +11,9 @@ the entry, so the contraction is a wrapping int32 product.
   int32 products over slices of k in int64 and keeps the low 32 bits.
 * ``dot_i32`` -- the wrapper of kernel K3 ``contract_i32``
   (``csrc/contract.cu``): CUDA tensors launch the kernel, CPU tensors
-  take the plain version.  ``a`` may have any strides: the AES path
-  hands in a contiguous plane of low limbs, DUMMY's binary path the
-  low limbs of ``[B, K, 4]`` leaves (element stride 4).
+  take the plain version.  ``a`` may have any strides: the paths hand
+  in a contiguous plane of low limbs; the low limbs of ``[B, K, 4]``
+  leaves (element stride 4) are taken too.
 
 * ``dot_i32_mxu`` -- the port of ``dot_i32_mxu``: both operands split
   into four byte limbs, biased into int8, the ten limb-pair products

@@ -67,9 +67,9 @@ def test_round_trip_matches_dpf_tpu(method, n):
 @pytest.mark.parametrize("method", [0, 3])
 def test_grouped_servers_match_dpf_tpu(method, radix, monkeypatch):
     """AES and DUMMY servers whose batch runs over several frontier
-    groups (chunk and group forced small): the AES groups, and DUMMY's
-    in the radix-4 tree, hand K3 a contiguous plane of low limbs; the
-    shares equal dpf_tpu's jitted server's."""
+    groups (chunk and group forced small): every group hands K3 a
+    contiguous plane of low limbs; the shares equal dpf_tpu's jitted
+    server's."""
     from dpf_tpu.utils.config import EvalConfig as JaxEvalConfig
     from dpf_tpu_torch.ops import matmul128
     n = 256
@@ -96,9 +96,7 @@ def test_grouped_servers_match_dpf_tpu(method, radix, monkeypatch):
     ka, kb = [p[0] for p in pairs], [p[1] for p in pairs]
     sa = ours.eval_gpu(ka)
     # binary: 8 subtrees of 32 leaves; radix-4: 16 of 16, 2 to a group
-    if radix == 2 and method == 0:        # one subtree at a time, strided
-        assert calls == [((4, 32), False)] * 8
-    elif radix == 2:
+    if radix == 2:
         assert calls == [((4, 64), True)] * 4
     else:
         assert calls == [((4, 32), True)] * 8
@@ -192,6 +190,7 @@ def test_more_keys_than_batch_size():
     assert torch.equal(sa, d.eval_cpu([p[0] for p in pairs]))
     assert d.eval_tpu is not None and d.resolved_eval_knobs(4) == {
         "chunk_leaves": 128, "kernel": "subtree_contract",
+        "kernel_impl": "fused", "dispatch_group": None,
         "kernel_resolved_from": "heuristic"}
 
 

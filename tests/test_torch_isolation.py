@@ -26,6 +26,9 @@ def test_import_loads_no_jax_and_no_dpf_tpu():
             "dpf_tpu_torch.utils.profile_batch, dpf_tpu_torch.native, "
             "dpf_tpu_torch.benchmark, dpf_tpu_torch.ops.matmul128, "
             "dpf_tpu_torch.core.keygen, dpf_tpu_torch.core.radix4; "
+            "import dpf_tpu_torch.serve, dpf_tpu_torch.serve.bench_load, "
+            "dpf_tpu_torch.serve.bench_serve, dpf_tpu_torch.obs, "
+            "dpf_tpu_torch.tune, dpf_tpu_torch.utils.profiling; "
             "print('\\n'.join(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
@@ -40,6 +43,13 @@ def test_sources_import_no_jax_and_no_dpf_tpu():
     files = sorted((ROOT / "dpf_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    walked = {p.relative_to(ROOT).as_posix() for p in files}
+    for part in ("dpf_tpu_torch/serve/engine.py",
+                 "dpf_tpu_torch/serve/router.py",
+                 "dpf_tpu_torch/obs/tracer.py",
+                 "dpf_tpu_torch/tune/search.py",
+                 "dpf_tpu_torch/utils/profiling.py"):
+        assert part in walked, part
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -180,9 +180,9 @@ def test_subtree_wrapper_rejects_bad_input():
 
 @pytest.mark.parametrize("method", [0, 3])
 def test_expand_and_contract_grouped_routes(method, monkeypatch):
-    """AES (level steps over frontier groups) and DUMMY (one frontier
-    subtree at a time), with several groups forced, against dpf_tpu's
-    numpy oracle."""
+    """AES (K1 level steps) and DUMMY (plain level steps) over frontier
+    groups, with several groups forced, against dpf_tpu's numpy
+    oracle."""
     n, depth = 256, 8
     flat, packed = _keys(n, 3, method, seed=b"grp")
     table = np.random.default_rng(8).integers(

@@ -43,8 +43,6 @@ def test_decode_keys_batched_identical():
     for f in ("cw1", "cw2", "last"):
         assert (getattr(ours, f) == getattr(theirs, f)).all()
     assert (ours.depth, ours.n) == (theirs.depth, theirs.n)
-    padded = ours.pad_to(8)
-    assert padded.batch == 8 and (padded.last[5:] == ours.last[-1]).all()
     flat = keygen.deserialize_key(wires[3])
     jflat = jkeygen.deserialize_key(wires[3])
     assert flat.last_key == jflat.last_key and flat.n == jflat.n
