@@ -98,6 +98,35 @@ Phases (any failure raises and the script exits non-zero):
    depth bound can trip) legs of about 10 s, qps, p50 / p99
    and sheds, every served batch gated against ``eval_cpu`` with 0
    rejections.
+8. tables and tenants (``serve.registry``, ``serve.tenant``, the chaos
+   and multitenant benches), AES-128 in the three constructions, each
+   part's counts set to 0 just before it and read just after: (1) a
+   ``TableRegistry`` with a budget of two versions of A (2^20 x 16 in
+   three layouts, 192 MiB), registering A twice, B (2^18 x 8) and C
+   (2^16 x 4): every promotion and demotion must move
+   ``torch.cuda.memory_allocated()`` by the version's bytes and the
+   bytes live above the registry's base must equal its resident-bytes
+   gauge after every step; A's shares on 512 distinct keys in each
+   construction equal after a demotion and re-promotion (the promotion's
+   ms printed); a ``GranuleStore`` over A's permuted layout in 2^16-row
+   granules with a budget of 4 must show misses, evictions and a
+   deferred demotion, its leased granules equal to the host slices;
+   (2) ``bench_chaos.chaos_bench`` at N = 2^20, cap 512: baseline,
+   faults (12% dispatch errors, stragglers, 3% corrupted shares) and
+   chaos (+ the favourite's death) legs of 3 s, with 0 gate escapes,
+   every corruption detected, and the chaos leg failing over and
+   rebuilding; availability, p50 / p99, retries, failovers and breaker
+   walks printed; (3) ``bench_multitenant.multitenant_bench`` with four
+   tenants (2^20 x 16 cap 512, 2^18 x 8 cap 256, a 2^16 x 4 victim cap
+   128, and one sharing the first table): solo, combined, cold-table
+   (the combined traces again with the first table demoted, so its
+   promotion runs under load) and noisy-neighbour legs of 2.5 s, 0 gate
+   escapes and every tenant's
+   label in the record's metrics (raised), the isolation verdict
+   (availability, p99 against 1.5 x solo + the slack derived from the
+   probed top-bucket cost) printed as measured.  The CPU oracle's keys
+   are few (2 a construction and table): ``eval_cpu`` costs ~2 s a
+   radix-4 or sqrt-N key at 2^20.
 
 The last lines are the card's name and power limit, one
 ``{"kernels": [...]}`` line, and ``{"ok": true, "device": {...}}``.
@@ -362,6 +391,261 @@ def serving_phase(smi, read_counts, zero_counts, n=1 << 20,
     by_part["7.4 router"] = read_counts()
     torch.cuda.empty_cache()
     log("phase 7: %.1f s" % (time.perf_counter() - t0))
+    return by_part, records
+
+
+def multitable_phase(smi, read_counts, zero_counts, n=1 << 20,
+                     device=None) -> tuple:
+    """Phase 8 at table size ``n`` on ``device`` (None = the card; the
+    CPU rehearses it at a small n, where the byte checks on
+    ``torch.cuda.memory_allocated`` are skipped and the multitenant
+    bench serves its default tenants): the table registry and a granule
+    store, the chaos bench and the multitenant bench, AES-128 in the
+    three constructions; returns ({part: launch counts}, the phase's
+    records)."""
+    import numpy as np
+
+    from dpf_tpu_torch import DPF
+    from dpf_tpu_torch.api import resolve_device
+    from dpf_tpu_torch.core import expand
+    from dpf_tpu_torch.serve import bench_chaos, bench_multitenant, loadgen
+    from dpf_tpu_torch.serve.registry import (GranulePrefetcher,
+                                              TableRegistry)
+
+    dev = resolve_device(device)
+    cuda = dev.type == "cuda"
+    aes = DPF.PRF_AES128
+    by_part, records = {}, {}
+    t0 = time.perf_counter()
+
+    def allocated():
+        return torch.cuda.memory_allocated() if cuda else 0
+
+    def held_bytes(what, want, base):
+        """The device bytes live above ``base`` must be ``want``."""
+        if cuda and allocated() - base != want:
+            raise AssertionError("%s: %d bytes allocated above the base, "
+                                 "%d expected" % (what, allocated() - base,
+                                                  want))
+
+    # 8.1 registry residency: A (n x 16) twice, B (n/4 x 8), C (n/16 x 4)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+    zero_counts()
+    rng = np.random.default_rng(8)
+    shapes = {"A": (n, 16), "B": (n // 4, 8), "C": (n // 16, 4)}
+    tables = {k: rng.integers(0, 2 ** 31, shp, dtype=np.int64)
+              .astype(np.int32) for k, shp in shapes.items()}
+    one = 3 * n * 16 * 4
+    reg = TableRegistry(2 * one, prf_method=aes, device=dev)
+    base = allocated()
+    log("phase 8.1 registry: budget %d bytes (two versions of A, %d x 16 "
+        "in three layouts)" % (2 * one, n))
+    steps = []
+
+    def step(what, fn):
+        before = allocated()
+        fn()
+        if cuda:
+            torch.cuda.synchronize()
+        steps.append((what, allocated() - before, reg.resident_bytes))
+        held_bytes(what, reg.resident_bytes, base)
+        log("  %-34s allocated %+12d bytes, resident %d, counters %s"
+            % (what, steps[-1][1], reg.resident_bytes,
+               json.dumps(reg.counters)))
+        return steps[-1][1]
+
+    step("register A v1", lambda: reg.register("A", tables["A"]))
+    a2 = tables["A"].copy()
+    a2[::7] ^= 0x5A5A
+    step("register A v2", lambda: reg.register("A", a2))
+    nb = {k: None for k in ("A", "B", "C")}
+    nb["A"] = reg._get("A", 1).nbytes
+    if nb["A"] != one:
+        raise AssertionError("A's nbytes %d != %d" % (nb["A"], one))
+    d = step("register B (evicts A v1)", lambda: reg.register("B",
+                                                               tables["B"]))
+    nb["B"] = reg._get("B", None).nbytes
+    if cuda and d != nb["B"] - nb["A"]:
+        raise AssertionError("register B moved %d bytes, %d expected"
+                             % (d, nb["B"] - nb["A"]))
+    step("register C", lambda: reg.register("C", tables["C"]))
+    nb["C"] = reg._get("C", None).nbytes
+    if reg.counters["evictions"] != 1 or reg._get("A", 1).resident:
+        raise AssertionError("A v1 was not the LRU eviction")
+
+    # shares of A v2 before and after a demotion, on 512 distinct keys
+    idx = np.array([(i * 0x9E3779B1) % n for i in range(512)])
+    keys, before = {}, {}
+    with reg.acquire("A", 2) as lease:
+        for lb, srv in lease.servers.items():
+            keys[lb] = srv.gen_batch(idx, n)[0]
+            before[lb] = srv.eval_gpu(keys[lb]).cpu()
+    d = step("demote A v2", lambda: reg.demote("A", 2))
+    if cuda and d != -nb["A"]:
+        raise AssertionError("demotion moved %d bytes, %d expected"
+                             % (d, -nb["A"]))
+    promo = {}
+
+    def promote():
+        t1 = time.perf_counter()
+        reg.acquire("A", 2).release()
+        if cuda:
+            torch.cuda.synchronize()
+        promo["ms"] = 1e3 * (time.perf_counter() - t1)
+    d = step("acquire A v2 (promotes)", promote)
+    if cuda and d != nb["A"]:
+        raise AssertionError("promotion moved %d bytes, %d expected"
+                             % (d, nb["A"]))
+    with reg.acquire("A", 2) as lease:
+        for lb, srv in lease.servers.items():
+            after = srv.eval_gpu(keys[lb]).cpu()
+            if not torch.equal(after, before[lb]):
+                raise AssertionError("%s: shares after re-promotion differ"
+                                     % lb)
+    log("  re-promoted A v2: 512 distinct keys x 3 constructions, shares "
+        "bit-equal to before the demotion; promotion %.3f ms for %d bytes "
+        "(host permute + pageable upload of three layouts) on %s"
+        % (promo["ms"], nb["A"], smi))
+    d = step("acquire A v1 (promotes, evicts)",
+             lambda: reg.acquire("A", 1).release())
+    if reg.counters["promotions"] != 2:
+        raise AssertionError("registry counters %s" % reg.counters)
+
+    # a granule store over A v2's permuted layout: 2^16-row granules
+    # (n / 16 on the CPU), a budget of 4 granules
+    g = max(n // 16, 64)
+    store = reg.granule_store("A", 2, granule=g,
+                              budget_bytes=4 * g * 16 * 4)
+    perm = expand.permute_table(reg._get("A", 2).servers["logn"].table)
+    gbase = allocated()
+    page = []
+    for i in range(6):
+        t1 = time.perf_counter()
+        with store.lease(i * g) as lease:
+            page.append(1e3 * (time.perf_counter() - t1))
+            want = torch.from_numpy(perm[i * g:(i + 1) * g]).to(dev)
+            if not torch.equal(lease.table, want):
+                raise AssertionError("granule %d differs from its host "
+                                     "slice" % i)
+            del want
+        held_bytes("granule store", store.resident_bytes, gbase)
+    pinned = store.lease(0)
+    store.demote(0)
+    store.lease(5 * g).release()
+    pinned.release()
+    pf = GranulePrefetcher(store, rates_fn=lambda: loadgen.bucket_rates(
+        loadgen.default_bursty(512), (64, 128, 256, 512)), max_per_tick=4)
+    pf.tick()
+    held_bytes("granule store", store.resident_bytes, gbase)
+    st = store.stats()["counters"]
+    for k in ("misses", "evictions", "deferred_demotions"):
+        if st[k] <= 0:
+            raise AssertionError("granule store: no %s (%s)" % (k, st))
+    log("  granule store %d x %d rows (%d bytes a granule, budget 4): "
+        "counters %s, prefetcher %s; leased granules == host slices; "
+        "demand lease ms %s (pageable copy) on %s"
+        % (len(store.row0s), g, store.granule_bytes, json.dumps(st),
+           json.dumps(pf.stats()), ", ".join("%.3f" % x for x in page), smi))
+    records["registry"] = {
+        "steps": steps, "promotion_ms": promo["ms"], "nbytes": nb,
+        "counters": dict(reg.counters), "granule": store.stats(),
+        "granule_lease_ms": page}
+    del reg, store, pf, pinned, lease, before, keys, perm
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    by_part["8.1 registry"] = read_counts()
+
+    # 8.2 chaos: three legs over one bursty trace
+    zero_counts()
+    log("phase 8.2 chaos: N=%d E=16 cap 512 AES-128, baseline / faults / "
+        "faults + the favourite's death" % n)
+    rec = bench_chaos.chaos_bench(
+        n=n, entry_size=16, cap=512, prf=aes, duration_s=3.0,
+        on_rate=40.0, distinct=2, device=dev, quiet=True)
+    chaos = rec["chaos_leg"]
+    if rec["gate_escapes"] != 0:
+        raise AssertionError("phase 8.2: %d gate escapes"
+                             % rec["gate_escapes"])
+    for leg in ("baseline_leg", "faults_leg", "chaos_leg"):
+        r = rec[leg]
+        f = r["faults"]
+        if f["corruptions_detected"] != f["corruptions_injected"]:
+            raise AssertionError("phase 8.2 %s: %d corruptions detected, "
+                                 "%d injected" % (leg,
+                                                  f["corruptions_detected"],
+                                                  f["corruptions_injected"]))
+        log("  %-12s availability %s, p50 %s ms, p99 %s ms, qps %s, "
+            "recovery %s, injected %s, corruptions %d/%d detected on %s"
+            % (leg, r["availability"], r["p50_ms"], r["p99_ms"], r["qps"],
+               json.dumps(r["recovery"]), json.dumps(f["injected"]),
+               f["corruptions_detected"], f["corruptions_injected"], smi))
+        log("  %-12s breaker transitions %s" % (leg, json.dumps(
+            {lb: [s for _, s in b["transitions"]]
+             for lb, b in r["breakers"].items()})))
+    if (chaos["recovery"]["failovers"] < 1
+            or chaos["recovery"]["engine_restarts"] < 1):
+        raise AssertionError("phase 8.2: the chaos leg did not fail over "
+                             "and rebuild (%s)" % chaos["recovery"])
+    log("  victim %s killed at arrival %d; trace %s; checked %s"
+        % (chaos["victim"], chaos["killed_at_arrival"],
+           json.dumps(rec["trace"]), rec["checked"]))
+    records["chaos"] = {k: v for k, v in rec.items() if k != "obs"}
+    by_part["8.2 chaos"] = read_counts()
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # 8.3 multitenant: one TenantRouter over one TableRegistry
+    zero_counts()
+    full = n >= 1 << 20
+    log("phase 8.3 multitenant: %s tenants, AES-128, solo / combined / "
+        "noisy-neighbour legs" % ("full-width" if full else "default"))
+    rec = bench_multitenant.multitenant_bench(
+        duration_s=2.5, prf=aes, distinct=2, full_width=full, device=dev,
+        quiet=True)
+    if rec["gate_escapes"] != 0:
+        raise AssertionError("phase 8.3: %d gate escapes"
+                             % rec["gate_escapes"])
+    if not rec["per_tenant_series"]["visible"] or not rec["ladder_shared"]:
+        raise AssertionError("phase 8.3: per-tenant series %s, ladder "
+                             "shared %s" % (rec["per_tenant_series"],
+                                            rec["ladder_shared"]))
+    for leg, per in (("solo", rec["solo"]),
+                     ("combined", rec["combined"]["per_tenant"]),
+                     ("cold", rec["cold_table"]["per_tenant"]),
+                     ("chaos", rec["chaos"]["per_tenant"])):
+        for name, r in per.items():
+            log("  %-8s %-6s availability %s, p50 %s ms, p99 %s ms, ok %d "
+                "shed %d failed %d of %d" % (
+                    leg, name, r["availability"], r["p50_ms"], r["p99_ms"],
+                    r["ok_batches"], r["shed_batches"], r["failed_batches"],
+                    r["arrivals"]))
+    cold = rec["cold_table"]
+    log("  cold leg: %s's table demoted first, %d promotion(s) under load, "
+        "%s s (host permutes + uploads, the registry lock held) on %s"
+        % (cold["demoted"], cold["promotions"], cold["promotion_s"], smi))
+    log("  isolation (tolerance %.1f x solo p99 + slack %.3f ms = %d x "
+        "%s's %s top bucket %.3f ms): %s; victim degraded %s; checked %s "
+        "on %s" % (rec["tolerance"], rec["slack"]["ms"],
+                   rec["slack"]["batches"], rec["slack"]["tenant"],
+                   rec["slack"]["construction"], rec["slack"]["batch_ms"],
+                   json.dumps(rec["isolation"]), rec["victim_degraded"],
+                   rec["checked"], smi))
+    log("  combined %d qps (ok batches); registry %s; metrics tenants %s"
+        % (rec["value"], json.dumps(rec["scheduler"]["registry"]
+                                    ["counters"]),
+           rec["per_tenant_series"]["metrics_tenants"]))
+    records["multitenant"] = {k: v for k, v in rec.items() if k not in (
+        "obs", "scheduler", "flight_on_gate_failure")}
+    by_part["8.3 multitenant"] = read_counts()
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    log("phase 8: %.1f s" % (time.perf_counter() - t0))
     return by_part, records
 
 
@@ -1129,6 +1413,19 @@ def main() -> int:
                                      "%s" % (k, part))
     by_path.update(parts)
     log(json.dumps({"phase7": serving}))
+
+    # --------------------------------------- 8. tables and tenants
+    parts, multitable = multitable_phase(smi, read_counts, zero_counts)
+    path8 = ("aes_level_step", "aes_level_step_a4", "sqrt_grid_contract",
+             "contract_i32")
+    for part, counts in parts.items():
+        log("phase %s launches: %s" % (part, counts))
+        for k in path8:
+            if counts[k] <= 0:
+                raise AssertionError("kernel %s was never launched in phase "
+                                     "%s" % (k, part))
+    by_path.update(parts)
+    log(json.dumps({"phase8": multitable}, default=str))
 
     meta = {
         "aes_level_step": ("dpf_tpu_torch/csrc/aes_level.cu",

@@ -33,6 +33,7 @@ launch with ``dispatch_deadline`` checked between launches.
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 import torch
@@ -254,17 +255,32 @@ class DPF(object):
 
         ``seeds``: a list of per-key DRBG seeds (None = a fresh
         ``os.urandom`` seed a key).  Returns two ``[B, words]`` int32 CPU
-        tensors; row i equals ``gen(indices[i], n, seed=seeds[i])``."""
+        tensors; row i equals ``gen(indices[i], n, seed=seeds[i])``.
+        Each call is counted in the ``dpf_keygen_*`` metric series
+        (``obs.metrics.observe_keygen``)."""
         indices = _to_numpy(indices).astype(np.int64).reshape(-1)
         n = self._check_gen_domain(
             int(indices.max()) if indices.size else 0, int(n))
+        t0 = time.perf_counter()
         if self.scheme == "sqrtn":
-            return sqrtn.gen_sqrt_batched(indices, n, seeds,
-                                          prf_method=self.prf_method)
-        if self.radix == 4:
-            return radix4.gen_batched_r4(indices, n, seeds,
-                                         prf_method=self.prf_method)
-        return gen_batched_binary(indices, n, seeds, self.prf_method)
+            construction = "sqrtn.r2"
+            wa, wb = sqrtn.gen_sqrt_batched(indices, n, seeds,
+                                            prf_method=self.prf_method)
+        elif self.radix == 4:
+            construction = "logn.r4"
+            wa, wb = radix4.gen_batched_r4(indices, n, seeds,
+                                           prf_method=self.prf_method)
+        else:
+            construction = "logn.r2"
+            wa, wb = gen_batched_binary(indices, n, seeds, self.prf_method)
+        try:  # observability must never break keygen
+            from .obs.metrics import observe_keygen
+            observe_keygen(construction, indices.size,
+                           time.perf_counter() - t0)
+        except Exception as e:
+            from .utils.profiling import note_swallowed
+            note_swallowed("api.keygen_metrics", e)
+        return wa, wb
 
     # ----------------------------------------------------------- eval_init
 

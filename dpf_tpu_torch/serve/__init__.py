@@ -11,9 +11,18 @@ cost model; ``faults.py`` has seeded fault injection and the recovery
 machinery (``RetryPolicy``, ``CircuitBreaker``, ``EngineSupervisor``);
 ``bench_serve.py`` compares the engine with the blocking loop and
 ``bench_load.py`` races the router against the sticky engine under a
-bursty trace, every answer gated against ``DPF.eval_cpu``.  Built via
-``DPF.serving_engine()``.  The table registry, the multi-tenant tier
-and the other benchmark scripts of ``dpf_tpu/serve`` are not ported yet.
+bursty trace, every answer gated against ``DPF.eval_cpu``, and
+``bench_chaos.py`` replays that trace under escalating fault plans to
+measure availability.  Built via ``DPF.serving_engine()``.
+
+The multi-tenant tier sits on top: ``TableRegistry`` (registry.py) holds
+named, versioned tables with LRU residency on the card under a byte
+budget (and ``GranuleStore`` pages one table by row granules),
+``TenantRouter`` (tenant.py) runs one isolated ``SchemeRouter`` per
+tenant under a weighted-fair deficit-round-robin scheduler, and
+``bench_multitenant.py`` measures the noisy-neighbour isolation.  The
+``bench_pir``, ``bench_bigtable``, ``bench_multichip`` and
+``bench_multihost`` scripts of ``dpf_tpu/serve`` are not ported yet.
 """
 
 from .buckets import Buckets  # noqa: F401
@@ -24,4 +33,6 @@ from .faults import (CircuitBreaker, EngineDead, EngineSupervisor,  # noqa: F401
                      InjectedCompileError, InjectedDispatchError,
                      RetryPolicy, submit_with_retry)
 from .loadgen import Arrival, make_trace  # noqa: F401
+from .registry import TableLease, TableRegistry, TableVersion  # noqa: F401
 from .router import RouteDecision, SchemeRouter  # noqa: F401
+from .tenant import TenantFuture, TenantRouter, TenantSpec  # noqa: F401

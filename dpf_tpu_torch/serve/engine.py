@@ -190,6 +190,11 @@ class ServingEngine:
         self._pending = deque()   # futures with unresolved parts, FIFO
         self._stages = []         # PinnedStage ring (CUDA servers)
         self._next_stage = 0
+        try:
+            from ..obs.metrics import register_engine
+            register_engine(self)
+        except Exception as e:  # observability must never break serving
+            note_swallowed("serve.engine.register_metrics", e, self.stats)
         if warmup:
             self.warmup()
 

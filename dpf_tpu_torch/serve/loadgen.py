@@ -16,8 +16,11 @@ independent of service progress, so queues grow when the server falls
 behind.  An arrival is ``Arrival(t, n, batch)``: seconds since trace
 start, the table domain (None = the harness's single table), and the
 number of queries arriving together.  ``squeeze`` replays a trace
-faster; the planning helpers (``scale_rate``, ``concat_traces``,
-``bucket_rates``) come with the planner and the registry.
+faster; the planning helpers ``scale_rate`` (the same under the
+planner's name), ``concat_traces`` (traces end to end) and
+``bucket_rates`` (dispatches per second at each bucket, what
+``serve.registry.GranulePrefetcher`` sizes its page-ins by) compose
+and summarize traces.
 """
 
 from __future__ import annotations
@@ -60,6 +63,56 @@ def squeeze(trace, factor: float) -> list:
     if factor <= 0:
         raise ValueError("factor must be > 0 (got %r)" % (factor,))
     return [Arrival(a.t / factor, a.n, a.batch) for a in trace]
+
+
+def scale_rate(trace, factor: float) -> list:
+    """``squeeze`` under the planner's name: scale the offered load by
+    ``factor`` (> 1 = hotter) by compressing arrival times, batches
+    untouched."""
+    return squeeze(trace, factor)
+
+
+def concat_traces(*traces, gap_s: float = 0.0) -> list:
+    """Traces end to end: each trace's arrivals shifted to start
+    ``gap_s`` seconds after the previous trace's last arrival (an empty
+    trace adds nothing).  The batch mix is untouched."""
+    if gap_s < 0:
+        raise ValueError("gap_s must be >= 0 (got %r)" % (gap_s,))
+    out = []
+    offset = 0.0
+    for tr in traces:
+        if not tr:
+            continue
+        base = offset - tr[0].t
+        out.extend(Arrival(base + a.t, a.n, a.batch) for a in tr)
+        offset = out[-1].t + gap_s
+    return out
+
+
+def bucket_rates(trace, buckets, *, duration_s: float | None = None) -> dict:
+    """``{bucket size: dispatches per second}`` of a trace, a zero entry
+    for every rung of the ladder (``buckets``: a ``Buckets`` or a size
+    list).  Each arrival counts as the engine dispatches it: a batch
+    over the cap splits by ``Buckets.chunks``, each chunk in its own
+    bucket.  ``duration_s`` defaults to the last arrival's time, at
+    least 1 s.  The offline twin of ``SchemeRouter.arrival_rates``."""
+    from .buckets import Buckets
+    bk = buckets if isinstance(buckets, Buckets) else Buckets(buckets)
+    counts = {s: 0 for s in bk.sizes}
+    t_last = 0.0
+    for a in trace:
+        if isinstance(a, Arrival):
+            t_last = max(t_last, a.t)
+            b = a.batch
+        else:
+            b = int(a)
+        for lo, hi in bk.chunks(b):
+            counts[bk.bucket_for(hi - lo)] += 1
+    if duration_s is None:
+        duration_s = max(t_last, 1.0)
+    if duration_s <= 0:
+        raise ValueError("duration_s must be > 0 (got %r)" % (duration_s,))
+    return {s: c / duration_s for s, c in counts.items()}
 
 
 def _draw_batch(rng, lo: int, hi: int) -> int:

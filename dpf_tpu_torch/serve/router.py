@@ -14,7 +14,9 @@ constructions at runtime by a live cost model:
   bucket once every available construction has an estimate; until then
   it falls back to the sticky construction (``resolve_sticky``: the
   binary-tree heuristic, ``routed_from="heuristic"``; the tuning cache
-  that ``dpf_tpu`` consults first is not ported yet).
+  that ``dpf_tpu`` consults first is not ported yet).  The router's
+  breakers, cost table and route counts export as metrics
+  (``obs.metrics.register_router``).
 
 Per-construction circuit breakers, retries with failover and the
 engine supervisor (``serve/faults.py``) keep a failing construction's
@@ -263,6 +265,12 @@ class SchemeRouter:
         self.routed_from = self.sticky_resolved_from
         self.route_counts = {lb: 0 for lb in labels}
         self.routed_from_counts = {}
+        try:
+            from ..obs.metrics import register_router
+            register_router(self)
+        except Exception as e:  # observability must never break serving
+            note_swallowed("serve.router.register_metrics", e,
+                           self.recovery)
         if warmup or probe:
             self.warmup(probe=probe, probe_reps=probe_reps)
 
@@ -394,6 +402,11 @@ class SchemeRouter:
             note_swallowed("serve.router.dispatch_kernel", e)
         return {}
 
+    def dispatch_kernel(self, lb: str, bucket: int) -> str | None:
+        """The bare ``kernel_impl`` of :meth:`dispatch_kernel_info`: the
+        ``kernel`` label of the cost-table metric series."""
+        return self.dispatch_kernel_info(lb, bucket).get("kernel_impl")
+
     # ----------------------------------------- arrival-rate estimator
 
     def note_arrival(self, bucket: int, t: float | None = None) -> None:
@@ -423,7 +436,9 @@ class SchemeRouter:
         return None if rec is None or rec[1] is None else 1.0 / rec[1]
 
     def arrival_rates(self) -> dict:
-        """The live per-bucket arrival-rate estimate ``{bucket: Hz}``;
+        """The live per-bucket arrival-rate estimate ``{bucket: Hz}``
+        (what ``registry.GranulePrefetcher`` sizes its page-ins by; the
+        offline twin over a whole trace is ``loadgen.bucket_rates``);
         buckets seen fewer than twice are omitted."""
         return {bk: 1.0 / gap
                 for bk, (_, gap) in sorted(self._arrivals.items())

@@ -29,6 +29,10 @@ def test_import_loads_no_jax_and_no_dpf_tpu():
             "import dpf_tpu_torch.serve, dpf_tpu_torch.serve.bench_load, "
             "dpf_tpu_torch.serve.bench_serve, dpf_tpu_torch.obs, "
             "dpf_tpu_torch.tune, dpf_tpu_torch.utils.profiling; "
+            "import dpf_tpu_torch.serve.registry, "
+            "dpf_tpu_torch.serve.tenant, dpf_tpu_torch.serve.bench_chaos, "
+            "dpf_tpu_torch.serve.bench_multitenant, "
+            "dpf_tpu_torch.obs.metrics; "
             "print('\\n'.join(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
@@ -48,7 +52,12 @@ def test_sources_import_no_jax_and_no_dpf_tpu():
                  "dpf_tpu_torch/serve/router.py",
                  "dpf_tpu_torch/obs/tracer.py",
                  "dpf_tpu_torch/tune/search.py",
-                 "dpf_tpu_torch/utils/profiling.py"):
+                 "dpf_tpu_torch/utils/profiling.py",
+                 "dpf_tpu_torch/serve/registry.py",
+                 "dpf_tpu_torch/serve/tenant.py",
+                 "dpf_tpu_torch/serve/bench_chaos.py",
+                 "dpf_tpu_torch/serve/bench_multitenant.py",
+                 "dpf_tpu_torch/obs/metrics.py"):
         assert part in walked, part
     bad = []
     for path in files:
