@@ -40,7 +40,16 @@ Phases (any failure raises and the script exits non-zero):
    AES kernels' lookup floor (their shared-memory table lookups at one
    warp-wide lookup per SM per clock) and K2's pipe bound (its cipher
    cores' xors and rotations on the INT32 pipe, its products on the FMA
-   pipe, each at half the issue rate);
+   pipe, each at half the issue rate); then the per-key-table forms of
+   batch-PIR (phase 9) at its group of G = 256 bins of n = 4096 rows,
+   E = 16: K6 ``contract_i32_per_key`` (also small, ragged, strided and
+   row-chunk shapes; ``torch.bmm`` on int32 CUDA tensors probed as the
+   library yardstick and its error printed), K2's per-key mode for
+   every stream-cipher id at ragged key tiles and for binary and
+   radix-4 ChaCha20 at G = 256, and K4's per-key mode for every id and
+   for AES-128 at G = 256; these four rows' ms is device time under
+   ``torch.profiler`` (CUDA events around their wrappers, printed
+   beside it as ``events_ms``, time the host's enqueue rate);
 3. the sample flow for PRF ids 0-5, binary tree at N = 16384, radix-4
    tree and sqrt-N grid at N = 16384 and 8192 (odd depth): two ``DPF``
    servers answer 8 distinct indices, the client recovers each row
@@ -127,6 +136,19 @@ Phases (any failure raises and the script exits non-zero):
    probed top-bucket cost) printed as measured.  The CPU oracle's keys
    are few (2 a construction and table): ``eval_cpu`` costs ~2 s a
    radix-4 or sqrt-N key at 2^20.
+9. batch-PIR (``apps.batch_pir``, ``serve.bench_pir``), its counts set
+   to 0 before and read after: a 2^20 x 16 table planned into 256 bins
+   of 4096 rows (``HotColdConfig(1.0)``, ``CollocateConfig(0)``,
+   ``PIRConfig(bin_fraction=1/256)``), each server holding one
+   ``[256, 4096, 16]`` stack of per-key tables; for the binary, radix-4
+   and sqrt-N constructions with AES-128 and with ChaCha20: one round
+   through ``answer`` on two servers, equal to ``answer_scalar``, every
+   planned row recovered exactly (then one server's warm round timed,
+   best of 3), then 6 rounds through ``LookupStream`` equal to
+   ``answer`` and recovered exactly (bin-queries/s printed);
+   then ``bench_pir.pir_point`` at 2^20 and ``pir_bench``'s default
+   points, their records printed.  K1, K6 and the per-key modes of K2
+   and K4 must have been launched, and no shared-table K2, K3 or K4.
 
 The last lines are the card's name and power limit, one
 ``{"kernels": [...]}`` line, and ``{"ok": true, "device": {...}}``.
@@ -195,6 +217,40 @@ def log(*a):
     print(*a, flush=True)
 
 
+def kernels_ms(calls: dict, reps: int = 20) -> dict:
+    """{name: device ms a call} of each ``calls[name] = (fn, kernel)``:
+    the device time of the kernels whose name holds ``kernel``, all
+    timed in one ``torch.profiler`` session after one warm call (the
+    wrapper's host work and its output's zero fill left out: at tens of
+    microseconds a launch, CUDA events around the calls time the host's
+    enqueue rate, not the kernel).  Raises when a kernel has no device
+    time (late in a run, in phase 9, the card's sessions recorded none
+    or only some kernels, so this runs in phase 2)."""
+    from dpf_tpu_torch.utils.profile_batch import _device_us
+
+    def run():
+        for fn, _ in calls.values():
+            fn()
+    run()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    kernels = {evt.key: _device_us(evt) / 1e3 / reps
+               for evt in prof.key_averages()
+               if str(getattr(evt, "device_type", "")).endswith("CUDA")}
+    out = {}
+    for name, (_, kernel) in calls.items():
+        out[name] = sum(v for k, v in kernels.items() if kernel in k)
+        if out[name] <= 0:
+            raise AssertionError("no device time for %s: %s"
+                                 % (kernel, sorted(kernels)))
+    return out
+
+
 def launch_counters():
     """kernel name -> the wrapper that counts its launches, and the
     read / zero helpers over them."""
@@ -206,10 +262,18 @@ def launch_counters():
         "subtree_contract_mixed": subtree.subtree_contract_mixed,
         "contract_i32": matmul128.dot_i32,
         "sqrt_grid_contract": sqrt_grid.sqrt_grid_contract,
-        "chacha_level_step": subtree.chacha_level_step}
+        "chacha_level_step": subtree.chacha_level_step,
+        "contract_i32_per_key": matmul128.dot_i32_per_key,
+        "subtree_contract_pkt": subtree.subtree_contract,
+        "subtree_contract_mixed_pkt": subtree.subtree_contract_mixed,
+        "sqrt_grid_contract_pkt": sqrt_grid.sqrt_grid_contract}
 
     def attr(name):
-        return "launches_a4" if name == "aes_level_step_a4" else "launches"
+        # K1 at arity 4 and the per-key modes count on their wrapper's
+        # second counter
+        if name == "aes_level_step_a4":
+            return "launches_a4"
+        return "launches_pkt" if name.endswith("_pkt") else "launches"
 
     def read_counts():
         return {k: getattr(fn, attr(k)) for k, fn in counters.items()}
@@ -649,6 +713,119 @@ def multitable_phase(smi, read_counts, zero_counts, n=1 << 20,
     return by_part, records
 
 
+def batch_pir_phase(smi, read_counts, zero_counts, entries=1 << 20,
+                    device=None, rounds=6, reps=3) -> tuple:
+    """Phase 9: batch-PIR (``apps.batch_pir``) over an ``entries`` x 16
+    table in bins of 1/256 of it (256 bins of 4096 at 2^20), the counts
+    set to 0 before and read after.  For each construction x {AES-128,
+    ChaCha20} on two servers: one round through ``answer`` equal to
+    ``answer_scalar`` and every planned row recovered exactly, then
+    ``rounds`` rounds through ``LookupStream`` equal to ``answer`` and
+    recovered exactly; then ``bench_pir.pir_point`` at ``entries`` and
+    ``pir_bench``'s default points.  Rehearse on the CPU with a small
+    ``entries`` and ``device="cpu"``.  Returns (launch counts, the
+    phase's records)."""
+    from dpf_tpu_torch.apps.batch_pir import (PrivateLookupClient,
+                                              PrivateLookupServer)
+    from dpf_tpu_torch.serve import bench_pir
+    import numpy as np
+
+    t9 = time.perf_counter()
+    table, opt = bench_pir._workload(entries, 16, 1 / 256.)
+    bins = opt.hot_table_bins
+    rounds_w = bench_pir._wanted_rounds(opt, entries, rounds)
+    log("phase 9 batch-PIR: %d x 16 table in %d bins of %d, two servers, "
+        "3 constructions x AES-128 / ChaCha20, 1 answer round + %d stream "
+        "rounds each (plan %.1f s)" % (entries, len(bins),
+                                      len(bins[0]), rounds,
+                                      time.perf_counter() - t9))
+
+    def exact(got, plan, what):
+        want = sum(t is not None for t in plan)
+        if len(got) != want or not all(
+                np.array_equal(row, table[w]) for w, row in got.items()):
+            raise AssertionError("phase 9 %s: recovered rows differ from "
+                                 "the table" % what)
+        return want
+
+    zero_counts()
+    records = []
+    for scheme, radix, label in (("logn", 2, "binary"),
+                                 ("logn", 4, "radix-4"),
+                                 ("sqrtn", 2, "sqrt-N")):
+        for prf in (3, 2):                  # AES-128, ChaCha20
+            what = "%s prf %d" % (label, prf)
+            servers = [PrivateLookupServer(table, bins, prf=prf, radix=radix,
+                                           scheme=scheme, device=device)
+                       for _ in range(2)]
+            client = PrivateLookupClient(bins, servers[0].bin_sizes,
+                                         prf=prf, radix=radix, scheme=scheme,
+                                         entry_size=16)
+            t0 = time.perf_counter()
+            key_rounds = [client.make_queries(w) for w in rounds_w]
+            keygen_s = (time.perf_counter() - t0) / rounds
+            ka, kb, plan = key_rounds[0]
+            sa = servers[0].answer(ka)
+            if not np.array_equal(sa, servers[0].answer_scalar(ka)):
+                raise AssertionError("phase 9 %s: answer differs from "
+                                     "answer_scalar" % what)
+            rows_ok = exact(client.recover(sa, servers[1].answer(kb), plan),
+                            plan, what + " answer")
+            # a warm round: the best of 3 (the first call of a server
+            # also allocates its pinned key buffer)
+            answer_ms = float("inf")
+            for _ in range(3):
+                t0 = time.perf_counter()
+                servers[0].answer(ka)
+                answer_ms = min(answer_ms, 1e3 * (time.perf_counter() - t0))
+            streams = [sv.stream(max_in_flight=2, warmup=True)
+                       for sv in servers]
+            t0 = time.perf_counter()
+            futs = [(streams[0].submit(a), streams[1].submit(b), p)
+                    for a, b, p in key_rounds]
+            shares = [(fa.result(), fb.result(), p) for fa, fb, p in futs]
+            stream_s = time.perf_counter() - t0
+            for (ra, rb, p), (a, b, _) in zip(shares, key_rounds):
+                if not (np.array_equal(ra, servers[0].answer(a))
+                        and np.array_equal(rb, servers[1].answer(b))):
+                    raise AssertionError("phase 9 %s: LookupStream differs "
+                                         "from answer" % what)
+                rows_ok += exact(client.recover(ra, rb, p), p,
+                                 what + " stream")
+            rec = dict(construction=label, prf=prf, bins=len(bins),
+                       bin_rows=servers[0].bin_sizes[0],
+                       groups=servers[0].group_constructions(),
+                       keygen_s_a_round=keygen_s, answer_ms=answer_ms,
+                       stream_s=stream_s, rounds=rounds,
+                       stream_bin_queries_per_s=len(bins) * rounds
+                       / stream_s, rows_recovered=rows_ok,
+                       stream_stats=streams[0].stats())
+            records.append(rec)
+            log("  %-8s prf %d: answer == answer_scalar, %d rows recovered "
+                "exactly, stream == answer; answer %.3f ms (one server, "
+                "one warm round, best of 3), stream %.1f bin-queries/s (%d "
+                "rounds, two servers), keygen %.3f s a round on %s"
+                % (label, prf, rows_ok, answer_ms,
+                   rec["stream_bin_queries_per_s"], rounds, keygen_s, smi))
+            del servers, streams
+    point = bench_pir.pir_point(entries=entries, bin_fraction=1 / 256.,
+                                rounds=rounds, reps=reps, quiet=True,
+                                device=device)
+    log("  pir_point entries=%d: e2e %.1f bin-queries/s (per-key path "
+        "%.1f), stream %.1f on %s" % (entries, point["e2e"]["batched_qps"],
+                                      point["e2e"]["scalar_qps"],
+                                      point["streaming"]["qps"], smi))
+    log(json.dumps({"pir_point": point}))
+    bench = bench_pir.pir_bench(rounds=rounds, reps=reps, quiet=True,
+                                device=device)
+    bench.pop("obs")
+    log(json.dumps({"pir_bench": bench}))
+    counts = read_counts()
+    log("phase 9: %.1f s" % (time.perf_counter() - t9))
+    return counts, {"rounds": records, "pir_point": point,
+                    "pir_bench": bench}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -772,7 +949,9 @@ def main() -> int:
     errs = {"aes_level_step": 0, "aes_level_step_a4": 0,
             "subtree_contract": 0, "subtree_contract_mixed": 0,
             "contract_i32": 0, "sqrt_grid_contract": 0,
-            "chacha_level_step": 0}
+            "chacha_level_step": 0, "contract_i32_per_key": 0,
+            "subtree_contract_pkt": 0, "subtree_contract_mixed_pkt": 0,
+            "sqrt_grid_contract_pkt": 0}
     rows = {}
 
     def k1_low(r, seeds, c1, c2, arity):
@@ -1116,6 +1295,154 @@ def main() -> int:
     del seeds, cw1, cw2, tbl, tbl1
     torch.cuda.empty_cache()
 
+    # the per-key-table forms (batch-PIR, phase 9): every key its own
+    # table of [G, n, E]; at phase 9's shape G = 256 bins of n = 4096
+    # rows, E = 16 (2^20 x 16 in 256 bins).  K6 first: small, ragged,
+    # strided and row-chunk shapes, then the main path's.  Why it exists:
+    # torch's int32 batched product on CUDA (probed, not relied on)
+    try:
+        probe = torch.bmm(rnd(2, 1, 4), rnd(2, 4, 3))
+        bmm_note = "supported (%s)" % probe.dtype
+    except (NotImplementedError, RuntimeError) as exc:
+        bmm_note = "%s: %s" % (type(exc).__name__,
+                               str(exc).splitlines()[0])
+    log("  torch.bmm int32 on CUDA: %s" % bmm_note)
+    for bsz, k, e, inc in ((1, 7, 16, 1), (3, 1001, 16, 1), (5, 300, 4, 4),
+                           (3, 300, 3, 1), (2, 400, 20, 3), (1, 64, 260, 1),
+                           (256, 4096, 16, 4)):
+        a, t = rnd(bsz, k, inc)[..., 0], rnd(bsz, k, e)
+        errs["contract_i32_per_key"] |= held(
+            "K6 contract_i32_per_key B=%d C=%d E=%d inc=%d"
+            % (bsz, k, e, inc), matmul128.dot_i32_per_key(a, t),
+            matmul128.dot_i32_per_key_plain(a, t))
+    g9, n9 = 256, 4096
+    a, t = rnd(g9, n9), rnd(g9, 2 * n9, 16)
+    errs["contract_i32_per_key"] |= held(
+        "K6 contract_i32_per_key row chunk of [256, 8192, 16]",
+        matmul128.dot_i32_per_key(a, t[:, n9 // 2:3 * n9 // 2]),
+        matmul128.dot_i32_per_key_plain(a, t[:, n9 // 2:3 * n9 // 2]))
+    t = t[:, :n9].contiguous()
+    t0 = time.perf_counter()
+    want = matmul128.dot_i32_per_key_plain(a, t)
+    sync()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    errs["contract_i32_per_key"] |= held(
+        "K6 contract_i32_per_key B=256 C=4096 E=16",
+        matmul128.dot_i32_per_key(a, t), want)
+    # each new row's kernel time comes from one profiler session below
+    pkt_calls = {"contract_i32_per_key": (
+        lambda a=a, t=t: matmul128.dot_i32_per_key(a, t),
+        "contract_pkt_kernel<true>")}
+    rows["contract_i32_per_key"] = dict(
+        events_ms=cuda_ms(lambda: matmul128.dot_i32_per_key(a, t), 50),
+        plain_ms=plain_ms, library_ms=None, library_note=bmm_note,
+        bytes=g9 * n9 * 16 * 4 + g9 * n9 * 4 + g9 * 16 * 4,
+        ops=2 * g9 * n9 * 16,
+        shape="[256, 4096] x [256, 4096, 16] (phase 9's group)")
+    del a, t, want
+    # K2's per-key mode: ragged key tiles (TB - 1, TB + 1, 2 TB + 3) and
+    # small n for every stream-cipher id in both trees, then binary and
+    # radix-4 ChaCha20 at phase 9's group
+    for prf in subtree.SUBTREE_PRFS:
+        for bsz, depth, cb in ((tb - 1, 7, 128), (tb + 1, 9, 64),
+                               (2 * tb + 3, 12, 4096), (2, 8, 2)):
+            fr, cw1, cw2 = rnd(bsz, 1, 4), rnd(bsz, 64, 4), rnd(bsz, 64, 4)
+            tbl = rnd(bsz, 1 << depth, 16)
+            kw = dict(depth=depth, f_levels=0, prf_method=prf,
+                      block_leaves=cb)
+            errs["subtree_contract_pkt"] |= held(
+                "K2 per-key prf=%d B=%d n=2^%d" % (prf, bsz, depth),
+                subtree.subtree_contract(fr, cw1, cw2, tbl, **kw),
+                subtree.subtree_contract_plain(fr, cw1, cw2, tbl, **kw))
+            ars = radix4.arities(1 << depth)
+            kw = dict(ars=ars, f_lv=0, prf_method=prf,
+                      block_leaves=radix4._suffix_chunk(ars, cb)[1])
+            errs["subtree_contract_mixed_pkt"] |= held(
+                "K2 mixed per-key prf=%d B=%d n=2^%d" % (prf, bsz, depth),
+                subtree.subtree_contract_mixed(fr, cw1, cw2, tbl, **kw),
+                subtree.subtree_contract_mixed_plain(fr, cw1, cw2, tbl,
+                                                     **kw))
+    fr, cw1, cw2 = rnd(g9, 1, 4), rnd(g9, 64, 4), rnd(g9, 64, 4)
+    tbl = rnd(g9, n9, 16)
+    chacha = dpf_tpu_torch.PRF_CHACHA20
+    for name, entry, plain, kw, nodes, arity in (
+            ("subtree_contract_pkt", subtree.subtree_contract,
+             subtree.subtree_contract_plain,
+             dict(depth=12, f_levels=0, prf_method=chacha,
+                  block_leaves=4096), n9 - 1, 2),
+            ("subtree_contract_mixed_pkt", subtree.subtree_contract_mixed,
+             subtree.subtree_contract_mixed_plain,
+             dict(ars=radix4.arities(n9), f_lv=0, prf_method=chacha,
+                  block_leaves=4096), (n9 - 1) // 3, 4)):
+        t0 = time.perf_counter()
+        want = plain(fr, cw1, cw2, tbl, **kw)
+        sync()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        errs[name] |= held("K2 %s ChaCha20 G=256 n=4096" % name,
+                           entry(fr, cw1, cw2, tbl, **kw), want)
+        # ChaCha20 takes one core block a child
+        ops = g9 * (nodes * (arity * OPS_CORE_BLOCK + arity * OPS_CHILD_ADD)
+                    + n9 * 16 * 2)
+        pkt_calls[name] = (
+            lambda entry=entry, kw=kw, fr=fr, cw1=cw1, cw2=cw2, tbl=tbl:
+            entry(fr, cw1, cw2, tbl, **kw),
+            "subtree_kernel<2, %s, true>" % ("true" if arity == 2
+                                             else "false"))
+        rows[name] = dict(
+            events_ms=cuda_ms(lambda: entry(fr, cw1, cw2, tbl, **kw), 20),
+            plain_ms=plain_ms, library_ms=None,
+            bytes=g9 * 16 + 2 * g9 * 64 * 16 + g9 * n9 * 16 * 4
+            + g9 * 16 * 4, ops=ops,
+            pipe_bound_ms=pipe_bound_ms(
+                ops, g9 * nodes * arity * OPS_CORE_BLOCK_ALU, g9 * n9 * 16),
+            shape="%s ChaCha20 G=256 n=4096 E=16, per-key tables"
+                  % ("binary" if arity == 2 else "radix-4"))
+        del want
+    del fr, cw1, cw2, tbl
+    # K4's per-key mode: every id at small and ragged key tiles (8
+    # keys a tile), then AES-128 at phase 9's group
+    for prf in range(6):
+        for bsz, n in ((3, 1 << 11), (9, 1 << 12)):
+            k, r = sqrtn.default_split(n)
+            seeds, cw1, cw2, _ = sqrt_case(bsz, n, 1)
+            tbl = rnd(bsz, n, 16)
+            errs["sqrt_grid_contract_pkt"] |= held(
+                "K4 per-key prf=%d B=%d n=2^%d" % (prf, bsz,
+                                                    n.bit_length() - 1),
+                sqrt_grid.sqrt_grid_contract(seeds, cw1, cw2, tbl,
+                                             prf_method=prf),
+                sqrt_grid.sqrt_grid_contract_plain(seeds, cw1, cw2, tbl,
+                                                   prf_method=prf))
+    seeds, cw1, cw2, _ = sqrt_case(g9, n9, 1)
+    tbl = rnd(g9, n9, 16)
+    k, r = sqrtn.default_split(n9)
+    rc = sqrtn.clamp_row_chunk(None, r, k, g9)
+    kw = dict(prf_method=dpf_tpu_torch.PRF_AES128, row_chunk=rc)
+    t0 = time.perf_counter()
+    want = sqrt_grid.sqrt_grid_contract_plain(seeds, cw1, cw2, tbl, **kw)
+    sync()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    errs["sqrt_grid_contract_pkt"] |= held(
+        "K4 per-key AES-128 G=256 n=4096",
+        sqrt_grid.sqrt_grid_contract(seeds, cw1, cw2, tbl, **kw), want)
+    pkt_calls["sqrt_grid_contract_pkt"] = (
+        lambda kw=kw, seeds=seeds, cw1=cw1, cw2=cw2, tbl=tbl:
+        sqrt_grid.sqrt_grid_contract(seeds, cw1, cw2, tbl, **kw),
+        "sqrt_grid_kernel<3, true>")
+    rows["sqrt_grid_contract_pkt"] = dict(
+        events_ms=cuda_ms(lambda: sqrt_grid.sqrt_grid_contract(
+            seeds, cw1, cw2, tbl, **kw), 20),
+        plain_ms=plain_ms, library_ms=None,
+        bytes=g9 * k * 16 + 2 * g9 * r * 16 + g9 * n9 * 16 * 4 + g9 * 16 * 4,
+        ops=sqrt_ops(dpf_tpu_torch.PRF_AES128, g9 * n9, 16),
+        lookups=g9 * n9 * (LOOKUPS_AES_BLOCK + LOOKUPS_AES_SCHEDULE // 4),
+        shape="AES-128 sqrt-N G=256 n=4096 (K=R=%d, rc=%d) E=16, per-key "
+              "tables" % (k, sqrt_grid.sqrt_row_chunk(r, k, rc)))
+    for name, ms in kernels_ms(pkt_calls).items():
+        rows[name]["ms"] = ms
+    del seeds, cw1, cw2, tbl, want, pkt_calls
+    torch.cuda.empty_cache()
+
     for name, r in rows.items():
         log_row(name, r)
 
@@ -1427,6 +1754,24 @@ def main() -> int:
     by_path.update(parts)
     log(json.dumps({"phase8": multitable}, default=str))
 
+    # ------------------------------------------------------- 9. batch-PIR
+    counts, _ = batch_pir_phase(smi, read_counts, zero_counts)
+    log("phase 9 launches: %s" % counts)
+    for k in ("aes_level_step", "aes_level_step_a4", "contract_i32_per_key",
+              "subtree_contract_pkt", "subtree_contract_mixed_pkt",
+              "sqrt_grid_contract_pkt"):
+        if counts[k] <= 0:
+            raise AssertionError("kernel %s was never launched in phase 9"
+                                 % k)
+    shared = {k: counts[k] for k in ("subtree_contract",
+                                     "subtree_contract_mixed",
+                                     "contract_i32", "sqrt_grid_contract")
+              if counts[k]}
+    if shared:
+        raise AssertionError("phase 9 launched shared-table kernels: %s"
+                             % shared)
+    by_path["phase 9"] = counts
+
     meta = {
         "aes_level_step": ("dpf_tpu_torch/csrc/aes_level.cu",
                            "dpf_tpu/ops/aes_planes.py:408"),
@@ -1442,6 +1787,14 @@ def main() -> int:
                                "dpf_tpu/ops/pallas_sqrt.py:312"),
         "chacha_level_step": ("dpf_tpu_torch/csrc/chacha_level.cu",
                               "dpf_tpu/ops/pallas_level.py:251"),
+        "contract_i32_per_key": ("dpf_tpu_torch/csrc/contract_pkt.cu",
+                                 "dpf_tpu/core/expand.py:470"),
+        "subtree_contract_pkt": ("dpf_tpu_torch/csrc/subtree.cu",
+                                 "dpf_tpu/ops/pallas_level.py:402"),
+        "subtree_contract_mixed_pkt": ("dpf_tpu_torch/csrc/subtree.cu",
+                                       "dpf_tpu/ops/pallas_level.py:442"),
+        "sqrt_grid_contract_pkt": ("dpf_tpu_torch/csrc/sqrt_grid.cu",
+                                   "dpf_tpu/ops/pallas_sqrt.py:312"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -44,6 +44,7 @@ from .core.prf_ref import (PRF_AES128, PRF_CHACHA20, PRF_CHACHA20_BLK,
                            PRF_DUMMY, PRF_NAMES, PRF_SALSA20,
                            PRF_SALSA20_BLK)
 from .core.u32 import from_u32
+from .utils.config import check_construction
 
 
 def resolve_device(device=None) -> torch.device:
@@ -68,13 +69,7 @@ def _to_numpy(x, dtype=None) -> np.ndarray:
 
 
 def _check_construction(scheme: str, radix: int) -> None:
-    if scheme not in ("logn", "sqrtn", "auto"):
-        raise ValueError("scheme must be one of ('logn', 'sqrtn', 'auto') "
-                         "(got %r)" % (scheme,))
-    if radix not in (2, 4):
-        raise ValueError("radix must be 2 or 4")
-    if scheme == "sqrtn" and radix == 4:
-        raise ValueError("scheme='sqrtn' has no radix; use radix=2")
+    check_construction(scheme, radix)
     if scheme == "auto":
         raise NotImplementedError("scheme='auto' needs the tuning cache, "
                                   "not ported yet (ROADMAP Queue 1 item 8)")
@@ -118,7 +113,7 @@ def _host_buffer(words: int, stage=None) -> torch.Tensor:
 
 
 class StagedKeys:
-    """A packed batch laid out in one host buffer (``DPF._stage_packed``):
+    """A packed batch laid out in one host buffer (``stage_packed``):
     ``rows`` real keys, dispatched as ``size`` rows; ``stage`` is the
     pinned staging slot that holds ``host``, or None."""
     __slots__ = ("host", "rows", "size", "pk", "stage")
@@ -129,6 +124,53 @@ class StagedKeys:
         self.size = size
         self.pk = pk
         self.stage = stage
+
+
+def stage_packed(pk, size: int | None, stage, sqrt: bool) -> StagedKeys:
+    """Lay a packed batch out in one host buffer in the layout the
+    device takes (host work only).  Log-N: three planes, cw1
+    ``[size, 64, 4]``, cw2 and the start seeds ``[size, 4]``, padded here
+    to ``size`` rows by repeating the last key (2 KiB a row).  Sqrt-N
+    (``sqrt``): ``[rows, 4 (K + 2R)]``, a key's seeds and codewords per
+    row, padded on the device (48 KiB a row at N = 2^20).
+
+    ``stage``: a pinned staging slot (``serve.engine.PinnedStage``:
+    ``buffer(words)`` hands out its pinned buffer once the last copy
+    that read it has passed); None = a fresh pageable buffer."""
+    rows = pk.batch
+    size = rows if size is None else int(size)
+    if size < rows:
+        raise ValueError("cannot stage %d keys in %d rows" % (rows, size))
+    if sqrt:
+        k, r = pk.n_keys, pk.n_codewords
+        width = 4 * (k + 2 * r)
+        host = _host_buffer(rows * width, stage).view(rows, width)
+        h = host.numpy().view(np.uint32)
+        h[:, :4 * k] = pk.seeds.reshape(rows, 4 * k)
+        h[:, 4 * k:4 * (k + r)] = pk.cw1.reshape(rows, 4 * r)
+        h[:, 4 * (k + r):] = pk.cw2.reshape(rows, 4 * r)
+    else:
+        host = _host_buffer(size * LOGN_KEY_WORDS, stage)
+        for plane, src in zip(_logn_planes(host.numpy().view(np.uint32),
+                                           size),
+                              (pk.cw1, pk.cw2, pk.last)):
+            plane[:rows] = src
+            plane[rows:] = src[-1]
+    return StagedKeys(host, rows, size, pk, stage)
+
+
+def upload(staged: StagedKeys, device: torch.device) -> torch.Tensor:
+    """The staged buffer on ``device``: from pinned memory an
+    asynchronous copy on the current stream, after which the staging
+    slot records the event that frees it; from pageable memory a copy the
+    host waits for; on the CPU the buffer itself."""
+    host = staged.host
+    if device.type == "cpu":
+        return host
+    dev = host.to(device, non_blocking=host.is_pinned())
+    if staged.stage is not None:
+        staged.stage.record_copy()
+    return dev
 
 
 def _native_gen(k: int, n: int, seed: bytes, prf_method: int):
@@ -377,51 +419,8 @@ class DPF(object):
 
     def _stage_packed(self, pk, size: int | None = None,
                       stage=None) -> "StagedKeys":
-        """Lay a packed batch out in one host buffer in the layout the
-        device takes (host work only).  Log-N: three planes, cw1
-        ``[size, 64, 4]``, cw2 and the start seeds ``[size, 4]``, padded
-        here to ``size`` rows by repeating the last key (2 KiB a row).
-        Sqrt-N: ``[rows, 4 (K + 2R)]``, a key's seeds and codewords per
-        row, padded on the device (48 KiB a row at N = 2^20).
-
-        ``stage``: a pinned staging slot (``serve.engine.PinnedStage``:
-        ``buffer(words)`` hands out its pinned buffer once the last
-        copy that read it has passed); None = a fresh pageable buffer."""
-        rows = pk.batch
-        size = rows if size is None else int(size)
-        if size < rows:
-            raise ValueError("cannot stage %d keys in %d rows"
-                             % (rows, size))
-        if self.scheme == "sqrtn":
-            k, r = pk.n_keys, pk.n_codewords
-            width = 4 * (k + 2 * r)
-            host = _host_buffer(rows * width, stage).view(rows, width)
-            h = host.numpy().view(np.uint32)
-            h[:, :4 * k] = pk.seeds.reshape(rows, 4 * k)
-            h[:, 4 * k:4 * (k + r)] = pk.cw1.reshape(rows, 4 * r)
-            h[:, 4 * (k + r):] = pk.cw2.reshape(rows, 4 * r)
-        else:
-            host = _host_buffer(size * LOGN_KEY_WORDS, stage)
-            for plane, src in zip(_logn_planes(host.numpy().view(np.uint32),
-                                               size),
-                                  (pk.cw1, pk.cw2, pk.last)):
-                plane[:rows] = src
-                plane[rows:] = src[-1]
-        return StagedKeys(host, rows, size, pk, stage)
-
-    def _upload(self, staged: "StagedKeys") -> torch.Tensor:
-        """The staged buffer on the server's device: from pinned memory
-        an asynchronous copy on the current stream, after which the
-        staging slot records the event that frees it; from pageable
-        memory a copy the host waits for; on the CPU the buffer
-        itself."""
-        host = staged.host
-        if self.device.type == "cpu":
-            return host
-        dev = host.to(self.device, non_blocking=host.is_pinned())
-        if staged.stage is not None:
-            staged.stage.record_copy()
-        return dev
+        """``stage_packed`` in this server's layout (host work only)."""
+        return stage_packed(pk, size, stage, self.scheme == "sqrtn")
 
     def _dispatch_packed(self, pk) -> torch.Tensor:
         """Dispatch one packed batch (``keygen.PackedKeys``,
@@ -439,7 +438,7 @@ class DPF(object):
             return self._dispatch_packed_sqrt(staged)
         if self.radix == 4:
             return self._dispatch_packed_r4(staged)
-        cw1, cw2, last = _logn_planes(self._upload(staged), staged.size)
+        cw1, cw2, last = _logn_planes(upload(staged, self.device), staged.size)
         n = self.table_num_entries
         depth = n.bit_length() - 1
         k = self.resolved_eval_knobs(staged.size)
@@ -455,7 +454,7 @@ class DPF(object):
     def _dispatch_packed_r4(self, staged: "StagedKeys") -> torch.Tensor:
         """Radix-4 device dispatch, asynchronous like
         ``_dispatch_packed``."""
-        cw1, cw2, last = _logn_planes(self._upload(staged), staged.size)
+        cw1, cw2, last = _logn_planes(upload(staged, self.device), staged.size)
         k = self.resolved_eval_knobs(staged.size)
         if k["kernel_impl"] == "dispatch":
             return radix4.eval_dispatch_mixed(
@@ -475,7 +474,7 @@ class DPF(object):
         to the batch's split and the kernel's cell cap."""
         pk = staged.pk
         seeds, cw1, cw2 = sqrtn.sqrt_key_views(
-            self._upload(staged), pk.n_keys, pk.n_codewords,
+            upload(staged, self.device), pk.n_keys, pk.n_codewords,
             pad_to=staged.size)
         rc = self.row_chunk
         if rc is None:

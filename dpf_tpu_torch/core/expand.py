@@ -29,6 +29,11 @@ subtrees.  There ChaCha20-12 levels go to K5
 (``ops/subtree.chacha_level_step``) and Salsa20 and the block-PRG ids
 to the plain level step (the JAX package computes those with XLA ops).
 
+``expand_and_contract_per_key_tables`` is the batch-PIR form, every key
+with its own table (``[B, N, E]``): the stream ciphers through K2's
+per-key mode, AES and DUMMY through ``dispatch_contract`` with each
+group contracted by K6 (``matmul128.dot_i32_per_key``) in place of K3.
+
 On CPU tensors every kernel wrapper takes its plain version, so the same
 code is the CPU reference.  ``lax.scan`` becomes a Python loop.
 """
@@ -205,10 +210,11 @@ def dispatch_contract(last, table_perm, level, n_levels: int, f_lv: int,
     """The per-level mode's loop over any level schedule:
     ``level(seeds, j, low32)`` runs eval level ``j``; the root goes to
     the ``f = N / c`` frontier nodes at eval level ``f_lv``, then each
-    group of subtrees to its leaves, contracted by K3.  The deadline is
-    checked before every launch."""
-    from ..ops.matmul128 import dot_i32
-    n, e = table_perm.shape
+    group of subtrees to its leaves, contracted by K3 (per-key tables
+    ``[B, N, E]``: by K6, each key against its own rows).  The deadline
+    is checked before every launch."""
+    from ..ops.matmul128 import dot_i32, dot_i32_per_key
+    n, e = table_perm.shape[-2:]
     f = n // c
     g = dispatch_group_size(f, c, group)
     seeds = last[:, None, :]
@@ -225,7 +231,11 @@ def dispatch_contract(last, table_perm, level, n_levels: int, f_lv: int,
             check_deadline(deadline)
             s = level(s, j, j == n_levels - 1)    # last: [B, g*c]
         check_deadline(deadline)
-        acc = acc + dot_i32(s, table_perm[start * c:(start + g) * c])
+        rows = slice(start * c, (start + g) * c)
+        if table_perm.dim() == 3:
+            acc = acc + dot_i32_per_key(s, table_perm[:, rows])
+        else:
+            acc = acc + dot_i32(s, table_perm[rows])
     return acc
 
 
@@ -235,14 +245,15 @@ def eval_dispatch(cw1, cw2, last, table_perm, *, depth: int,
                   deadline: float | None = None) -> torch.Tensor:
     """Per-level evaluation of the binary tree (port of
     ``expand.eval_dispatch``): the same shares as
-    ``expand_and_contract``, one launch a level.
+    ``expand_and_contract``, one launch a level.  ``table_perm`` may be
+    ``[B, N, E]``, one table a key (contracted by K6).
 
     ``chunk_leaves``: leaves per frontier subtree (a power of two
     dividing N); ``group``: frontier subtrees expanded together (None =
     ``choose_group``; a value that does not divide the frontier is
     lowered to one that does); ``deadline``: a ``time.monotonic()``
     value checked before every launch."""
-    n = table_perm.shape[0]
+    n = table_perm.shape[-2]
     c = chunk_leaves
     if n != 1 << depth or c < 1 or n % c or c & (c - 1):
         raise ValueError("chunk_leaves (%d) must be a power of two dividing "
@@ -253,6 +264,37 @@ def eval_dispatch(cw1, cw2, last, table_perm, *, depth: int,
 
     return dispatch_contract(last, table_perm, level, depth,
                              (n // c).bit_length() - 1, c, group, deadline)
+
+
+def expand_and_contract_per_key_tables(cw1, cw2, last, tables_perm, *,
+                                       depth: int, prf_method: int,
+                                       chunk_leaves: int) -> torch.Tensor:
+    """Fused evaluation where every key has its own table (port of
+    ``expand.expand_and_contract_per_key_tables``, the batch-PIR bin
+    protocol: one dispatch answers a query round across all bins of one
+    size).
+
+    tables_perm: ``[B, N, E]`` int32, each bit-reverse-permuted and
+    contiguous.  Returns ``[B, E]`` int32 shares, ``out[b] = sum_j
+    leaf32[b, j] * tables_perm[b, j]`` mod 2^32.  Routed as
+    ``expand_and_contract``: the stream ciphers through K2's per-key
+    mode from the root (``chunk_leaves`` its block, at most 4096), AES
+    and DUMMY through ``dispatch_contract`` with K6 per group."""
+    if tables_perm.dim() != 3 or tables_perm.shape[0] != last.shape[0]:
+        raise ValueError("per-key tables %s for %d keys"
+                         % (tuple(tables_perm.shape), last.shape[0]))
+    n = tables_perm.shape[1]
+    c = chunk_leaves
+    if n != 1 << depth or c < 1 or n % c or c & (c - 1):
+        raise ValueError("chunk_leaves (%d) must be a power of two dividing "
+                         "the table size %d = 2^%d" % (c, n, depth))
+    if prf_method in SUBTREE_PRFS:
+        from ..ops.subtree import subtree_contract
+        return subtree_contract(last[:, None, :], cw1, cw2, tables_perm,
+                                depth=depth, f_levels=0,
+                                prf_method=prf_method, block_leaves=c)
+    return eval_dispatch(cw1, cw2, last, tables_perm, depth=depth,
+                         prf_method=prf_method, chunk_leaves=c)
 
 
 def expand_leaves(cw1, cw2, last, *, depth: int,

@@ -135,6 +135,17 @@ class PackedKeys:
                           self.last[lo:hi], self.depth, self.n)
 
 
+def wire_headers(arr: np.ndarray):
+    """Per-key ``(radix marker, table size n)`` from a stacked [B, 524]
+    wire buffer: the container's header limbs (marker at slot 0 limb 1:
+    0 = binary, 4 = mixed-radix; n at slot 130, limbs 0/1), read before
+    a full decode so that a batch caller can name the key at fault."""
+    slots = arr.view(np.uint32).reshape(-1, 131, 4)
+    n = (slots[:, 130, 0].astype(np.int64)
+         | (slots[:, 130, 1].astype(np.int64) << 32))
+    return slots[:, 0, 1], n
+
+
 
 def decode_keys_batched(keys) -> PackedKeys:
     """Vectorized wire -> packed-arrays codec for a uniform key batch:

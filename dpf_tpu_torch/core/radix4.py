@@ -31,9 +31,13 @@ same ``(alpha, n, seed, prf)``.  Evaluation runs on int32 limb tensors:
   arity, the other PRFs through the plain mixed step, one K3 a group
   of frontier subtrees, a cooperative deadline between launches.
 
+* ``expand_and_contract_per_key_tables_mixed``, the batch-PIR form
+  (every key its own digit-reversed table, ``[B, N, E]``): the stream
+  ciphers through the mixed K2's per-key mode, AES and DUMMY through
+  ``eval_dispatch_mixed`` with each group contracted by K6.
+
 ``gen_batched_r4`` is the batched generator, on ``[B, 4]`` limb
-tensors as ``keygen.gen_batched``.  Per-key tables are not ported yet
-(ROADMAP Queue 1 item 5).
+tensors as ``keygen.gen_batched``.
 """
 
 from __future__ import annotations
@@ -439,15 +443,16 @@ def expand_and_contract_mixed(cw1, cw2, last, table_perm, *, n: int,
     """Batched fused mixed-radix evaluation against one shared table.
 
     cw1, cw2: [B, 64, 4] int32 codeword limbs; last: [B, 4] start seeds;
-    table_perm: [N, E] int32 permuted with ``mixed_reverse_indices``.
-    ``chunk_leaves`` (rounded down to a suffix product of the arities,
-    None = N): leaves per frontier subtree (AES, DUMMY) or per K2 block
-    (the stream ciphers); it changes no bit of the result.  Returns
-    [B, E] int32 server shares.
+    table_perm: [N, E] int32 permuted with ``mixed_reverse_indices``
+    (or [B, N, E], one such table a key).  ``chunk_leaves`` (rounded
+    down to a suffix product of the arities, None = N): leaves per
+    frontier subtree (AES, DUMMY) or per K2 block (the stream ciphers);
+    it changes no bit of the result.  Returns [B, E] int32 server
+    shares.
     """
-    if table_perm.shape[0] != n:
+    if table_perm.shape[-2] != n:
         raise ValueError("table of %d rows for n=%d"
-                         % (table_perm.shape[0], n))
+                         % (table_perm.shape[-2], n))
     ars = arities(n)
     c = _suffix_chunk(ars, chunk_leaves or n)[1]
     if prf_method in SUBTREE_PRFS:
@@ -469,12 +474,13 @@ def eval_dispatch_mixed(cw1, cw2, last, table_perm, *, n: int,
     K1 at the level's arity (the last of each group storing only the
     leaves' low limbs), a binary ChaCha20 base level (odd depth) to K5,
     the other levels to the plain mixed step; each
-    group of ``group`` frontier subtrees (None = auto) goes to K3.
+    group of ``group`` frontier subtrees (None = auto) goes to K3 (to K6
+    when ``table_perm`` is ``[B, N, E]``, one table a key).
     ``chunk_leaves`` is rounded down to a product of trailing arities
     (None = N); ``deadline`` is checked before every launch."""
-    if table_perm.shape[0] != n:
+    if table_perm.shape[-2] != n:
         raise ValueError("table of %d rows for n=%d"
-                         % (table_perm.shape[0], n))
+                         % (table_perm.shape[-2], n))
     ars = arities(n)
     offs = cw_offsets(ars)
     f_lv, c = _suffix_chunk(ars, chunk_leaves or n)
@@ -485,3 +491,30 @@ def eval_dispatch_mixed(cw1, cw2, last, table_perm, *, n: int,
 
     return dispatch_contract(last, table_perm, level, len(ars), f_lv, c,
                              group, deadline)
+
+
+def expand_and_contract_per_key_tables_mixed(cw1, cw2, last, tables_perm,
+                                             *, n: int, prf_method: int,
+                                             chunk_leaves: int | None
+                                             ) -> torch.Tensor:
+    """Radix-4 fused evaluation where every key has its own table (port
+    of ``radix4.expand_and_contract_per_key_tables_mixed``, the batch-PIR
+    bin protocol's one-dispatch-per-round path).
+
+    tables_perm: ``[B, N, E]`` int32, each permuted with
+    ``mixed_reverse_indices`` and contiguous.  Returns ``[B, E]`` int32
+    shares.  Routed as ``expand_and_contract_mixed``: the stream ciphers
+    through the mixed K2's per-key mode from the root, AES and DUMMY
+    through ``eval_dispatch_mixed`` with K6 per group; ``chunk_leaves``
+    (rounded down to a suffix product of the arities, None = N; at most
+    K2's block of 4096 leaves for the stream ciphers) changes no bit of
+    the result."""
+    if tables_perm.dim() != 3 or tables_perm.shape[0] != last.shape[0]:
+        raise ValueError("per-key tables %s for %d keys"
+                         % (tuple(tables_perm.shape), last.shape[0]))
+    if prf_method in SUBTREE_PRFS:
+        from ..ops.subtree import MAX_BLOCK_LEAVES
+        chunk_leaves = min(chunk_leaves or n, MAX_BLOCK_LEAVES)
+    return expand_and_contract_mixed(cw1, cw2, last, tables_perm, n=n,
+                                     prf_method=prf_method,
+                                     chunk_leaves=chunk_leaves)

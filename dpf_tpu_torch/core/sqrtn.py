@@ -19,15 +19,17 @@ tensors:
 * ``eval_contract_batched`` -- the server's fused path: K4
   ``ops/sqrt_grid.sqrt_grid_contract`` on CUDA tensors (every PRF id),
   its plain version (the port of the JAX row-chunked scan) on CPU ones;
+* ``eval_contract_per_key_tables`` -- the batch-PIR form, every key with
+  its own natural-order table (``[B, N, E]``): K4's per-key mode on CUDA
+  tensors, the plain scan on CPU ones;
 * ``eval_grid`` (one key's one-hot share) and ``eval_points_sqrt`` (one
   PRF call per queried index), plain PyTorch on any device.
 
 ``gen_sqrt_batched`` is the batched generator: one PRF call over the
-``[B, R]`` target-column grid of ``[B, R, 4]`` limb tensors.  Per-key
-tables (``eval_contract_per_key_tables``), the sharded path
-(``eval_sharded_sqrt``), the tuner's ``sqrt_chunk_candidates`` and the
-per-key reference ``eval_contract`` are not ported yet (ROADMAP Queue 1
-items 5, 9 and 8).
+``[B, R]`` target-column grid of ``[B, R, 4]`` limb tensors.  The
+sharded path (``eval_sharded_sqrt``), the tuner's
+``sqrt_chunk_candidates`` and the per-key reference ``eval_contract``
+are not ported yet (ROADMAP Queue 1 items 9 and 8).
 """
 
 from __future__ import annotations
@@ -457,6 +459,27 @@ def eval_contract_batched(seeds, cw1, cw2, table, *, prf_method: int,
     changes no bit of the result."""
     from ..ops.sqrt_grid import sqrt_grid_contract
     return sqrt_grid_contract(seeds, cw1, cw2, table, prf_method=prf_method,
+                              row_chunk=row_chunk)
+
+
+def eval_contract_per_key_tables(seeds, cw1, cw2, tables, *,
+                                 prf_method: int,
+                                 row_chunk: int | None = None
+                                 ) -> torch.Tensor:
+    """Fused batched sqrt-N evaluation where every key has its own table
+    (port of ``sqrtn.eval_contract_per_key_tables``, the sqrt-N
+    construction's batch-PIR surface).
+
+    tables: ``[B, N, E]`` int32 in natural order (no permutation) and
+    contiguous.  Returns ``[B, E]`` int32: ``out[b] = sum_x leaf32[b, x]
+    * tables[b, x]`` mod 2^32.  K4's per-key mode on CUDA tensors, the
+    plain scan on CPU ones; ``row_chunk`` follows the rules of
+    ``eval_contract_batched`` and changes no bit of the result."""
+    from ..ops.sqrt_grid import sqrt_grid_contract
+    if tables.dim() != 3 or tables.shape[0] != seeds.shape[0]:
+        raise ValueError("per-key tables %s for %d keys"
+                         % (tuple(tables.shape), seeds.shape[0]))
+    return sqrt_grid_contract(seeds, cw1, cw2, tables, prf_method=prf_method,
                               row_chunk=row_chunk)
 
 

@@ -48,7 +48,15 @@
 //     encryptions of a quad never replay a lookup).  96 KB fit two blocks
 //     on an SM.  Half the copies would fit three, but lanes l and l + 16
 //     would share a bank and nearly every lookup would take two
-//     wavefronts: twice the lookup floor for 1.5 times the warps.
+//     wavefronts: twice the lookup floor for 1.5 times the warps;
+//   * a per-key-table mode (PKT, a second instance of each id; the
+//     shared-table instances compile to the same code as before it
+//     existed) serves batch-PIR, where key b has its own natural-order
+//     table at table + b N E (tables [B, N, E]; the JAX package's
+//     counterpart is the scan core/sqrtn.py:612, whose contraction is a
+//     batched XLA dot_general).  The grid is unchanged; phase 2 reads
+//     each live key's own table value of a cell, so no value serves more
+//     than one key and the keys past the batch's end read nothing.
 //
 // Bound on the H100: operations.  A cell costs ~592 32-bit operations of
 // one ChaCha/Salsa block (a quarter of that for ids 4 and 5) or ~520 of
@@ -107,7 +115,7 @@ __device__ __forceinline__ void quad_low_limbs(const uint32_t s[4],
   }
 }
 
-template <int PRF>
+template <int PRF, bool PKT>
 __global__ void __launch_bounds__(kThreads)
     sqrt_grid_kernel(const uint32_t* __restrict__ seeds, long long ld_seed,
                      const uint32_t* __restrict__ cw1,
@@ -182,17 +190,30 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
       __syncthreads();
-      // phase 2: each table value once for the 8 keys; cell p of the
-      // sub-tile is row lr0 + p / ct, column c0 + p % ct
+      // phase 2: each table value once for the 8 keys (per-key tables:
+      // each live key's own value); cell p of the sub-tile is row
+      // lr0 + p / ct, column c0 + p % ct
       if (e < e_total) {
         for (int p = lane; p < cells; p += lanes) {
           const int lr = lr0 + p / ct;
           const int cc = c0 + p % ct;
           if (lr < r_end && cc < k) {
-            const uint32_t t =
-                (uint32_t)table[((long long)lr * k + cc) * e_total + e];
+            if constexpr (PKT) {
+              const long long key_ld = (long long)r * k * e_total;
+              const int32_t* tp = table + key0 * key_ld +
+                                  ((long long)lr * k + cc) * e_total + e;
 #pragma unroll
-            for (int kb = 0; kb < kKeys; ++kb) acc[kb] += leaves[kb][p] * t;
+              for (int kb = 0; kb < kKeys; ++kb) {
+                if (key0 + kb < batch)
+                  acc[kb] += leaves[kb][p] * (uint32_t)tp[kb * key_ld];
+              }
+            } else {
+              const uint32_t t =
+                  (uint32_t)table[((long long)lr * k + cc) * e_total + e];
+#pragma unroll
+              for (int kb = 0; kb < kKeys; ++kb)
+                acc[kb] += leaves[kb][p] * t;
+            }
           }
         }
       }
@@ -219,23 +240,23 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Shared memory above 48 KB must be allowed per kernel, once per process.
-template <int P>
+template <int P, bool PKT>
 cudaError_t allow_smem() {
   static const cudaError_t err = cudaFuncSetAttribute(
-      sqrt_grid_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sqrt_grid_kernel<P, PKT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes<P>);
   return err;
 }
 
-template <int P>
+template <int P, bool PKT>
 cudaError_t launch_kernel(dim3 grid, cudaStream_t st, const void* seeds,
                           long long ld_seed, const void* cw1, const void* cw2,
                           long long ld_cw, const void* table, void* out,
                           int batch, int k, int r, int rc, int e_total,
                           uint32_t row0) {
-  const cudaError_t err = allow_smem<P>();
+  const cudaError_t err = allow_smem<P, PKT>();
   if (err != cudaSuccess) return err;
-  sqrt_grid_kernel<P><<<grid, kThreads, kSmemBytes<P>, st>>>(
+  sqrt_grid_kernel<P, PKT><<<grid, kThreads, kSmemBytes<P>, st>>>(
       (const uint32_t*)seeds, ld_seed, (const uint32_t*)cw1,
       (const uint32_t*)cw2, ld_cw, (const int32_t*)table, (uint32_t*)out,
       batch, k, r, rc, e_total, row0);
@@ -249,12 +270,14 @@ cudaError_t launch_kernel(dim3 grid, cudaStream_t st, const void* seeds,
 // [R K, E] contiguous, out [B, E] zeroed by the caller; rows are
 // row0 .. row0 + R - 1, grid steps of rc rows (rc < R: a multiple of 4
 // for the block-PRG ids, whose row0 must be a multiple of 4 too).
+// per_key: table is [B, R K, E], one natural-order table a key.
 // Returns the launch's cudaError_t.
 extern "C" int sqrt_grid_launch(const void* seeds, long long ld_seed,
                                 const void* cw1, const void* cw2,
                                 long long ld_cw, const void* table, void* out,
                                 int batch, int k, int r, int rc, int e_total,
-                                long long row0, int prf, void* stream) {
+                                long long row0, int prf, int per_key,
+                                void* stream) {
   const bool blk = prf == 4 || prf == 5;
   if (batch <= 0 || k <= 0 || r <= 0 || e_total <= 0 || rc <= 0 ||
       rc > r || row0 < 0 || row0 > 0xffffffffLL ||
@@ -268,10 +291,16 @@ extern "C" int sqrt_grid_launch(const void* seeds, long long ld_seed,
   const dim3 grid((unsigned)key_tiles, (unsigned)row_chunks,
                   (unsigned)e_chunks);
   cudaStream_t st = (cudaStream_t)stream;
-#define DPF_LAUNCH(P)                                                      \
-  return (int)launch_kernel<P>(grid, st, seeds, ld_seed, cw1, cw2, ld_cw,  \
-                               table, out, batch, k, r, rc, e_total,       \
-                               (uint32_t)row0)
+#define DPF_LAUNCH_PKT(P, PKT)                                            \
+  return (int)launch_kernel<P, PKT>(grid, st, seeds, ld_seed, cw1, cw2,   \
+                                    ld_cw, table, out, batch, k, r, rc,   \
+                                    e_total, (uint32_t)row0)
+#define DPF_LAUNCH(P)          \
+  if (per_key) {               \
+    DPF_LAUNCH_PKT(P, true);   \
+  } else {                     \
+    DPF_LAUNCH_PKT(P, false);  \
+  }
   switch (prf) {
     case 0: DPF_LAUNCH(0);
     case 1: DPF_LAUNCH(1);
@@ -282,6 +311,7 @@ extern "C" int sqrt_grid_launch(const void* seeds, long long ld_seed,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef DPF_LAUNCH
+#undef DPF_LAUNCH_PKT
 }
 
 extern "C" const char* sqrt_grid_error_string(int code) {

@@ -47,7 +47,17 @@
 //     then the block reduces each (key, column) in shared memory and adds
 //     it atomically into the zeroed [B, E] output.  int32 addition wraps
 //     mod 2^32 and is associative, so the order of the atomics changes no
-//     bit.
+//     bit;
+//   * a per-key-table mode (PKT, a second instance of each PRF and
+//     schedule; the shared-table instances compile to the same code as
+//     before it existed) serves batch-PIR, where key b of the batch has
+//     its own table rows at table + b N E (tables [B, N, E], each
+//     permuted like the shared one; no JAX counterpart of its own: the
+//     JAX package's per-key paths, core/expand.py:448 and
+//     core/radix4.py:628, run the same expansion with a batched XLA
+//     dot_general).  The expansion is unchanged; the contraction reads
+//     each live key's own row values, so no table value serves more than
+//     one key and the keys past the batch's end read nothing.
 //
 // Bound on the H100: operations.  A parent of arity a costs a 12-round
 // core blocks (one for the block-PRG ids, whose block feeds all four
@@ -168,13 +178,14 @@ __device__ __forceinline__ void expand_node(const uint32_t s[4], int a,
   }
 }
 
+// PKT: every key has its own [N, E] table (see above).
 // BIN: every level below the block subtrees' roots is binary (the whole
 // binary tree, and radix-4 trees of one binary level above the block), so
 // arities are the constant 2 there and the depth-first stack holds one
 // sibling per level.  Otherwise the children loops keep a run-time trip
 // count: unrolled with a guard they hold kid in registers, 48 instead of
 // 32 for the block-PRG ids, and fewer blocks fit on an SM.
-template <int PRF, bool BIN>
+template <int PRF, bool BIN, bool PKT>
 __global__ void __launch_bounds__(kThreads)
     subtree_kernel(const uint32_t* __restrict__ frontier,
                    const uint32_t* __restrict__ cw1,
@@ -307,8 +318,9 @@ __global__ void __launch_bounds__(kThreads)
   // contract the tile's leaves with table rows row0 .. row0 + CB - 1:
   // thread tid takes column e0 + tid % ew and the row quads tid / ew,
   // tid / ew + lanes, ...  Keys past the batch's end multiply whatever
-  // their leaves hold and are not added.  The lane sums go to the nodes'
-  // buffer, free since the barrier above
+  // their leaves hold and are not added (with per-key tables they read
+  // no row).  The lane sums go to the nodes' buffer, free since the
+  // barrier above
   const long long row0 =
       ((long long)f << sc.log_c) + (s_idx << sc.log_cb);
   const long long ld = e_total;
@@ -326,18 +338,42 @@ __global__ void __launch_bounds__(kThreads)
       const long long o1 = cb > 1 ? ld : 0, o2 = cb > 2 ? 2 * ld : o1,
                       o3 = cb > 2 ? 3 * ld : o1;
       const int q0 = tid / ew;
-      const int32_t* row = table + (row0 + 4 * q0) * ld + e;
-      for (int qd = q0; 4 * qd < cb; qd += lanes, row += 4 * lanes * ld) {
-        const uint32_t t0 = row[0], t1 = row[o1], t2 = row[o2], t3 = row[o3];
-        const uint4* lq =
-            reinterpret_cast<const uint4*>(leaves) + qd * kTileKeys;
+      if constexpr (PKT) {
+        // key k0 + k's rows start N E words after key k0 + k - 1's
+        const long long key_ld = ((long long)f_cnt << sc.log_c) * ld;
+        const int32_t* row = table + key0 * key_ld + (row0 + 4 * q0) * ld + e;
+        for (int qd = q0; 4 * qd < cb; qd += lanes, row += 4 * lanes * ld) {
+          const uint4* lq =
+              reinterpret_cast<const uint4*>(leaves) + qd * kTileKeys;
 #pragma unroll
-        for (int k = 0; k < kTileKeys; ++k) {
-          const uint4 l = lq[k];
-          acc[k] += l.x * t0;
-          acc[k] += l.y * t1;
-          acc[k] += l.z * t2;
-          acc[k] += l.w * t3;
+          for (int k = 0; k < kTileKeys; ++k) {
+            if (k < nk) {
+              const int32_t* rk = row + k * key_ld;
+              const uint32_t t0 = rk[0], t1 = rk[o1], t2 = rk[o2],
+                             t3 = rk[o3];
+              const uint4 l = lq[k];
+              acc[k] += l.x * t0;
+              acc[k] += l.y * t1;
+              acc[k] += l.z * t2;
+              acc[k] += l.w * t3;
+            }
+          }
+        }
+      } else {
+        const int32_t* row = table + (row0 + 4 * q0) * ld + e;
+        for (int qd = q0; 4 * qd < cb; qd += lanes, row += 4 * lanes * ld) {
+          const uint32_t t0 = row[0], t1 = row[o1], t2 = row[o2],
+                         t3 = row[o3];
+          const uint4* lq =
+              reinterpret_cast<const uint4*>(leaves) + qd * kTileKeys;
+#pragma unroll
+          for (int k = 0; k < kTileKeys; ++k) {
+            const uint4 l = lq[k];
+            acc[k] += l.x * t0;
+            acc[k] += l.y * t1;
+            acc[k] += l.z * t2;
+            acc[k] += l.w * t3;
+          }
         }
       }
     }
@@ -398,16 +434,16 @@ bool split_schedule(Sched& sc, int f_cnt, int f_lv, int log_cb, int log_kt,
 }
 
 // Shared memory above 48 KB must be allowed per kernel, once per process.
-template <int P, bool BIN>
+template <int P, bool BIN, bool PKT>
 cudaError_t launch_kernel(dim3 grid, size_t smem, cudaStream_t st,
                           const void* frontier, const void* cw1,
                           const void* cw2, const void* table, void* out,
                           int batch, int f_cnt, int e_total, const Sched& sc) {
   static const cudaError_t err = cudaFuncSetAttribute(
-      subtree_kernel<P, BIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      subtree_kernel<P, BIN, PKT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kMaxDynSmemBytes);
   if (err != cudaSuccess) return err;
-  subtree_kernel<P, BIN><<<grid, kThreads, smem, st>>>(
+  subtree_kernel<P, BIN, PKT><<<grid, kThreads, smem, st>>>(
       (const uint32_t*)frontier, (const uint32_t*)cw1, (const uint32_t*)cw2,
       (const int32_t*)table, (uint32_t*)out, batch, f_cnt, e_total, sc);
   return cudaGetLastError();
@@ -422,11 +458,12 @@ cudaError_t launch_kernel(dim3 grid, size_t smem, cudaStream_t st,
 // [B, F, 4] holds the nodes at level f_lv (F = the product of the first
 // f_lv arities), table [N, E] rows in digit-reversed order, out [B, E]
 // zeroed by the caller, block subtrees of 2^log_cb leaves (a product of
-// trailing arities).  Returns the launch's cudaError_t.
+// trailing arities).  per_key: table is [B, N, E], one permuted table a
+// key.  Returns the launch's cudaError_t.
 extern "C" int subtree_contract_launch(
     const void* frontier, const void* cw1, const void* cw2, const void* table,
     void* out, int batch, int f_cnt, int levels, const int* lg,
-    const int* off, int f_lv, int log_cb, int e_total, int prf,
+    const int* off, int f_lv, int log_cb, int e_total, int prf, int per_key,
     void* stream) {
   Sched sc{};
   if (levels < 1 || levels > kMaxLevels) return (int)cudaErrorInvalidValue;
@@ -448,13 +485,20 @@ extern "C" int subtree_contract_launch(
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks);
   cudaStream_t st = (cudaStream_t)stream;
-#define DPF_LAUNCH(P)                                                       \
-  return (int)(bin ? launch_kernel<P, true>(grid, smem, st, frontier, cw1,  \
-                                            cw2, table, out, batch, f_cnt,  \
-                                            e_total, sc)                    \
-                   : launch_kernel<P, false>(grid, smem, st, frontier, cw1, \
-                                             cw2, table, out, batch, f_cnt, \
-                                             e_total, sc))
+#define DPF_LAUNCH_PKT(P, PKT)                                              \
+  return (int)(bin ? launch_kernel<P, true, PKT>(grid, smem, st, frontier,  \
+                                                 cw1, cw2, table, out,      \
+                                                 batch, f_cnt, e_total, sc) \
+                   : launch_kernel<P, false, PKT>(grid, smem, st, frontier, \
+                                                  cw1, cw2, table, out,     \
+                                                  batch, f_cnt, e_total,    \
+                                                  sc))
+#define DPF_LAUNCH(P)          \
+  if (per_key) {               \
+    DPF_LAUNCH_PKT(P, true);   \
+  } else {                     \
+    DPF_LAUNCH_PKT(P, false);  \
+  }
   switch (prf) {
     case 1: DPF_LAUNCH(1);
     case 2: DPF_LAUNCH(2);
@@ -463,6 +507,7 @@ extern "C" int subtree_contract_launch(
     default: return (int)cudaErrorInvalidValue;
   }
 #undef DPF_LAUNCH
+#undef DPF_LAUNCH_PKT
 }
 
 extern "C" const char* subtree_contract_error_string(int code) {

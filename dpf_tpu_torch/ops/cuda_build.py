@@ -41,14 +41,17 @@ SOURCES = {
                                         _I, _P]},
                   "aes_level_error_string"),
     "subtree": ({"subtree_contract_launch": [_P] * 5 + [_I] * 3
-                 + [_IP] * 2 + [_I] * 4 + [_P]},
+                 + [_IP] * 2 + [_I] * 5 + [_P]},
                 "subtree_contract_error_string"),
     "contract": ({"contract_i32_launch": [_P, _LL, _LL, _P, _P, _LL, _LL,
                                           _I, _I, _P]},
                  "contract_i32_error_string"),
     "sqrt_grid": ({"sqrt_grid_launch": [_P, _LL, _P, _P, _LL, _P, _P]
-                   + [_I] * 5 + [_LL, _I, _P]},
+                   + [_I] * 5 + [_LL, _I, _I, _P]},
                   "sqrt_grid_error_string"),
+    "contract_pkt": ({"contract_pkt_launch": [_P, _LL, _LL, _P, _LL, _P,
+                                              _LL, _LL, _I, _I, _P]},
+                     "contract_pkt_error_string"),
     "chacha_level": ({"chacha_level_launch": [_P, _P, _P, _LL, _P, _LL, _LL,
                                               _P]},
                      "chacha_level_error_string"),

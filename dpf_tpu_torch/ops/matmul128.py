@@ -15,6 +15,18 @@ the entry, so the contraction is a wrapping int32 product.
   in a contiguous plane of low limbs; the low limbs of ``[B, K, 4]``
   leaves (element stride 4) are taken too.
 
+* ``dot_i32_per_key`` / ``dot_i32_per_key_plain`` -- the per-key form
+  ``[B, C] x [B, C, E] -> [B, E]``, ``out[b] = sum_j a[b, j] t[b, j]``
+  mod 2^32: the batched ``bdot`` of the JAX package's per-key-table
+  evaluations (``core/expand.py:470``, ``radix4.py:611``,
+  ``sqrtn.py:637``, an XLA ``dot_general`` with a batch axis), where
+  every key has its own table (batch-PIR).  CUDA tensors launch kernel
+  K6 ``contract_i32_per_key`` (``csrc/contract_pkt.cu``); ``a`` may be
+  strided, each key's ``[C, E]`` rows contiguous at any key stride (a
+  group's chunk of rows of ``[B, N, E]`` tables).  torch has no int32
+  ``bmm`` on CUDA, so the plain version sums wrapped products in int64
+  as ``dot_i32_plain`` does there.
+
 * ``dot_i32_mxu`` -- the port of ``dot_i32_mxu``: both operands split
   into four byte limbs, biased into int8, the ten limb-pair products
   with shift < 32 run by ``torch._int_mm`` (int8 x int8 -> int32) and
@@ -35,13 +47,15 @@ from . import cuda_build
 
 def _dot_i32_sliced(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Device-generic plain product: wrapped int32 products summed in
-    int64 over slices of k (at most ~16M products live at once)."""
+    int64 over slices of k (at most ~16M products live at once).  ``b``
+    is one ``[K, E]`` table or ``[B, K, E]``, one a row of ``a``."""
     bsz, k = a.shape
-    e = b.shape[1]
+    e = b.shape[-1]
+    tables = b[None] if b.dim() == 2 else b
     out = torch.zeros((bsz, e), dtype=torch.int64, device=a.device)
     step = max(1, (1 << 24) // max(1, bsz * e))
     for k0 in range(0, k, step):
-        prod = a[:, k0:k0 + step, None] * b[None, k0:k0 + step, :]
+        prod = a[:, k0:k0 + step, None] * tables[:, k0:k0 + step, :]
         out += prod.sum(dim=1, dtype=torch.int64)
     return out.to(torch.int32)
 
@@ -92,6 +106,57 @@ def dot_i32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 dot_i32.launches = 0
+
+
+def dot_i32_per_key_plain(a: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """[B, C] x [B, C, E] -> [B, E], wrapping int32 (plain PyTorch)."""
+    if a.device.type == "cpu":
+        return torch.bmm(a[:, None, :], t)[:, 0, :]
+    return _dot_i32_sliced(a, t)
+
+
+def _check_per_key(a: torch.Tensor, t: torch.Tensor) -> None:
+    if a.dtype != torch.int32 or t.dtype != torch.int32:
+        raise TypeError("dot_i32_per_key takes int32 operands, got %s, %s"
+                        % (a.dtype, t.dtype))
+    if a.dim() != 2 or t.dim() != 3 or tuple(a.shape) != tuple(t.shape[:2]):
+        raise ValueError("dot_i32_per_key shapes %s x %s do not contract"
+                         % (tuple(a.shape), tuple(t.shape)))
+    if a.device != t.device:
+        raise ValueError("dot_i32_per_key operands on %s and %s"
+                         % (a.device, t.device))
+    # the kernel's layout, checked on every device so CPU runs catch it
+    if t.stride(2) != 1 or (t.shape[1] > 1 and t.stride(1) != t.shape[2]):
+        raise ValueError("dot_i32_per_key: each key's table rows must be "
+                         "contiguous")
+
+
+def dot_i32_per_key(a: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Exact wrapping int32 per-key product ``[B, C] x [B, C, E] ->
+    [B, E]``.
+
+    CPU tensors take ``dot_i32_per_key_plain``; CUDA tensors launch K6
+    (``a`` may be strided; each key's rows contiguous, any key
+    stride)."""
+    _check_per_key(a, t)
+    if a.device.type == "cpu":
+        return dot_i32_per_key_plain(a, t)
+    if a.device.type != "cuda":
+        raise ValueError("dot_i32_per_key: unsupported device %s" % a.device)
+    bsz, k = a.shape
+    e = t.shape[2]
+    out = torch.zeros((bsz, e), dtype=torch.int32, device=a.device)
+    with torch.cuda.device(a.device):
+        sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+        cuda_build.launch(
+            "contract_pkt", "contract_pkt_launch", a.data_ptr(), a.stride(0),
+            a.stride(1), t.data_ptr(), t.stride(0), out.data_ptr(), bsz, k,
+            e, sms, torch.cuda.current_stream().cuda_stream)
+    dot_i32_per_key.launches += 1
+    return out
+
+
+dot_i32_per_key.launches = 0
 
 
 def _pad_to(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:

@@ -23,6 +23,13 @@ add needs the low limb alone.
   ids 1, 2, 4, 5; JAX runs AES and DUMMY through the scan, which gives
   the same bits), CPU tensors take the plain version.
 
+Per-key tables: both functions also take a ``[B, R*K, E]`` stack, one
+natural-order table a key (batch-PIR's bins; the JAX package's
+``sqrtn.eval_contract_per_key_tables`` runs the same grid and
+contracts with a batched ``dot_general``): ``out[b] = sum_x leaf32[b,
+x] * tables[b, x]``.  K4 runs its per-key instances; their launches
+count in ``launches_pkt``.
+
 The Mosaic-only variant knobs of the TPU launcher (``grid_order``,
 ``dim_semantics``, ``limbs``, ``cw_add``) are not ported (ROADMAP Queue
 1 item 8).
@@ -36,7 +43,7 @@ from ..core import sqrtn
 from ..core.prf import _BLK_WORDS
 from ..core.prf_ref import PRF_NAMES
 from . import cuda_build
-from .matmul128 import dot_i32_plain
+from .matmul128 import dot_i32_per_key_plain, dot_i32_plain
 
 # the TPU kernel's cell budget per row tile (PALLAS_SQRT_MAX_CELLS); here
 # it sets the rows of K4's grid step, not a memory bound
@@ -93,9 +100,11 @@ def _check(seeds, cw1, cw2, table, prf_method, row0) -> tuple:
         raise ValueError("codewords must be [B, R, 4], got %s and %s"
                          % (tuple(cw1.shape), tuple(cw2.shape)))
     r = cw1.shape[1]
-    if table.dim() != 2 or table.shape[0] != r * k:
-        raise ValueError("table must be [R*K, E] = [%d, E], got %s"
-                         % (r * k, tuple(table.shape)))
+    if table.shape[-2:-1] != (r * k,) or table.dim() not in (2, 3) or \
+            (table.dim() == 3 and table.shape[0] != bsz):
+        raise ValueError("table must be [R*K, E] or [B, R*K, E] with "
+                         "R*K = %d, B = %d, got %s"
+                         % (r * k, bsz, tuple(table.shape)))
     if not 0 <= int(row0) < 1 << 32:
         raise ValueError("row0 (%d) must be a uint32" % int(row0))
     reason = sqrt_grid_unsupported(prf_method, r, row0)
@@ -107,7 +116,7 @@ def _check(seeds, cw1, cw2, table, prf_method, row0) -> tuple:
         raise ValueError("sqrt_grid_contract: seeds and codewords need "
                          "contiguous (row, limb) axes and equal codeword "
                          "strides; the table must be contiguous")
-    return bsz, k, r, table.shape[1]
+    return bsz, k, r, table.shape[-1]
 
 
 def sqrt_grid_contract_plain(seeds, cw1, cw2, table, *, prf_method: int,
@@ -115,7 +124,8 @@ def sqrt_grid_contract_plain(seeds, cw1, cw2, table, *, prf_method: int,
                              row0: int = 0) -> torch.Tensor:
     """Plain PyTorch: ``row_chunk`` rows at a time (None = the scan's
     ``choose_row_chunk``), the low limb of PRF + selected codeword, and
-    the wrapping int32 product against the chunk's table rows."""
+    the wrapping int32 product against the chunk's table rows (per-key
+    tables: each key's own rows)."""
     bsz, k, r, e = _check(seeds, cw1, cw2, table, prf_method, row0)
     rc = sqrtn._resolve_row_chunk(r, k, bsz, row_chunk)
     sel = (seeds[:, None, :, 0] & 1).bool()                # [B, 1, K]
@@ -127,7 +137,11 @@ def sqrt_grid_contract_plain(seeds, cw1, cw2, table, *, prf_method: int,
         cw = torch.where(sel, cw2[:, lo:lo + rc, None, 0],
                          cw1[:, lo:lo + rc, None, 0])      # [B, rc, K]
         leaves = (vals[..., 0] + cw).reshape(bsz, rc * k)
-        acc = acc + dot_i32_plain(leaves, table[lo * k:(lo + rc) * k])
+        rows = slice(lo * k, (lo + rc) * k)
+        if table.dim() == 3:
+            acc = acc + dot_i32_per_key_plain(leaves, table[:, rows])
+        else:
+            acc = acc + dot_i32_plain(leaves, table[rows])
     return acc
 
 
@@ -135,7 +149,8 @@ def sqrt_grid_contract(seeds, cw1, cw2, table, *, prf_method: int,
                        row_chunk: int | None = None,
                        row0: int = 0) -> torch.Tensor:
     """Fused sqrt-N grid expand + contract; K4 on CUDA tensors, plain on
-    CPU ones.  Returns [B, E] int32."""
+    CPU ones.  ``table``: one ``[R*K, E]`` table or ``[B, R*K, E]``, one
+    a key.  Returns [B, E] int32."""
     bsz, k, r, e = _check(seeds, cw1, cw2, table, prf_method, row0)
     if seeds.device.type == "cpu":
         return sqrt_grid_contract_plain(seeds, cw1, cw2, table,
@@ -151,9 +166,14 @@ def sqrt_grid_contract(seeds, cw1, cw2, table, *, prf_method: int,
             "sqrt_grid", "sqrt_grid_launch", seeds.data_ptr(),
             seeds.stride(0), cw1.data_ptr(), cw2.data_ptr(), cw1.stride(0),
             table.data_ptr(), out.data_ptr(), bsz, k, r, rc, e, int(row0),
-            prf_method, torch.cuda.current_stream().cuda_stream)
-    sqrt_grid_contract.launches += 1
+            prf_method, int(table.dim() == 3),
+            torch.cuda.current_stream().cuda_stream)
+    if table.dim() == 3:
+        sqrt_grid_contract.launches_pkt += 1
+    else:
+        sqrt_grid_contract.launches += 1
     return out
 
 
 sqrt_grid_contract.launches = 0
+sqrt_grid_contract.launches_pkt = 0

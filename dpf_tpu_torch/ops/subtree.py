@@ -26,6 +26,13 @@ and the bit-reversed table ``[N, E]`` -> ``[B, E]`` int32 shares:
   ``radix4.cw_offsets(ars)`` and the table is digit-reversed
   (``radix4.mixed_reverse_indices``).  ``block_leaves`` must be a product
   of trailing arities.
+* per-key tables: each of the four functions also takes a ``[B, N, E]``
+  stack of tables, one permuted table a key (batch-PIR's bins; the JAX
+  package's per-key paths ``expand.expand_and_contract_per_key_tables``
+  and ``radix4.expand_and_contract_per_key_tables_mixed`` expand the
+  same way and contract with a batched ``dot_general``).  K2 runs its
+  per-key instances; their launches count in ``launches_pkt``.
+
 * ``chacha_level_step`` / ``chacha_level_step_plain`` -- one ChaCha20-12
   GGM level, the port of ``pallas_level.chacha_level_step_pallas``:
   seeds ``[B, w, 4]`` and the level's codewords ``[B, 2, 4]`` ->
@@ -48,7 +55,7 @@ from ..core.prf_ref import PRF_CHACHA20
 from ..core.radix4 import _suffix_chunk, cw_offsets
 from . import cuda_build
 from .aes_level import check_level_operands
-from .matmul128 import dot_i32_plain
+from .matmul128 import dot_i32_per_key_plain, dot_i32_plain
 
 MAX_BLOCK_LEAVES = 4096   # leaves per key that a K2 block keeps
 
@@ -69,7 +76,8 @@ def _log2(x: int, what: str) -> int:
 
 
 def _operands(frontier, cw1, cw2, table_perm, prf_method):
-    """Checks shared by both schedules -> (B, F, N, E)."""
+    """Checks shared by both schedules -> (B, F, N, E); ``table_perm``
+    is one ``[N, E]`` table or ``[B, N, E]``, one a key."""
     if prf_method not in SUBTREE_PRFS:
         raise ValueError("subtree_contract serves PRF ids %s, got %r"
                          % (SUBTREE_PRFS, prf_method))
@@ -83,7 +91,13 @@ def _operands(frontier, cw1, cw2, table_perm, prf_method):
         if tuple(cw.shape) != (bsz, 64, 4):
             raise ValueError("codewords must be [B, 64, 4], got %s"
                              % (tuple(cw.shape),))
-    return (bsz, f_cnt) + tuple(table_perm.shape)
+    if table_perm.dim() == 3 and table_perm.shape[0] != bsz:
+        raise ValueError("per-key tables %s for %d keys"
+                         % (tuple(table_perm.shape), bsz))
+    if table_perm.dim() not in (2, 3):
+        raise ValueError("table must be [N, E] or [B, N, E], got %s"
+                         % (tuple(table_perm.shape),))
+    return (bsz, f_cnt) + tuple(table_perm.shape[-2:])
 
 
 def _shapes(frontier, cw1, cw2, table_perm, depth, f_levels, prf_method):
@@ -126,7 +140,7 @@ def _contract_plain(frontier, cw1, cw2, table_perm, sched, f_lv, s_lv, cb,
     """The plain engine of both trees: walk the frontier to the block
     subtrees' roots with plain level steps of the (arity, offset)
     schedule, expand a group of block subtrees at a time, and contract
-    the low limbs."""
+    the low limbs (per-key tables: each key's own rows)."""
     def level(s, j):
         a, o = sched[j]
         return _level_step_multi(s, cw1[:, o:o + a], cw2[:, o:o + a],
@@ -135,16 +149,20 @@ def _contract_plain(frontier, cw1, cw2, table_perm, sched, f_lv, s_lv, cb,
     seeds = frontier
     for j in range(f_lv, s_lv):
         seeds = level(seeds, j)
-    nodes = table_perm.shape[0] // cb
+    nodes = table_perm.shape[-2] // cb
     g = choose_group(nodes, cb)
-    acc = torch.zeros((frontier.shape[0], table_perm.shape[1]),
+    acc = torch.zeros((frontier.shape[0], table_perm.shape[-1]),
                       dtype=torch.int32, device=frontier.device)
     for start in range(0, nodes, g):
         s = seeds[:, start:start + g, :]
         for j in range(s_lv, len(sched)):
             s = level(s, j)
-        acc = acc + dot_i32_plain(s[..., 0],
-                                  table_perm[start * cb:(start + g) * cb])
+        rows = slice(start * cb, (start + g) * cb)
+        if table_perm.dim() == 3:
+            acc = acc + dot_i32_per_key_plain(s[..., 0],
+                                              table_perm[:, rows])
+        else:
+            acc = acc + dot_i32_plain(s[..., 0], table_perm[rows])
     return acc
 
 
@@ -157,16 +175,24 @@ def _contract_cuda(frontier, cw1, cw2, table_perm, sched, f_lv, cb,
     levels = len(sched)
     lg = (ctypes.c_int * levels)(*(a.bit_length() - 1 for a, _ in sched))
     off = (ctypes.c_int * levels)(*(o for _, o in sched))
-    bsz, e = frontier.shape[0], table_perm.shape[1]
+    bsz, e = frontier.shape[0], table_perm.shape[-1]
     out = torch.zeros((bsz, e), dtype=torch.int32, device=frontier.device)
     with torch.cuda.device(frontier.device):
         cuda_build.launch(
             "subtree", "subtree_contract_launch", frontier.data_ptr(),
             cw1.data_ptr(), cw2.data_ptr(), table_perm.data_ptr(),
             out.data_ptr(), bsz, frontier.shape[1], levels, lg, off, f_lv,
-            cb.bit_length() - 1, e, prf_method,
+            cb.bit_length() - 1, e, prf_method, int(table_perm.dim() == 3),
             torch.cuda.current_stream().cuda_stream)
     return out
+
+
+def _count(fn, table_perm) -> None:
+    """One launch more on ``fn``'s counter of its table form."""
+    if table_perm.dim() == 3:
+        fn.launches_pkt += 1
+    else:
+        fn.launches += 1
 
 
 def subtree_contract_plain(frontier, cw1, cw2, table_perm, *, depth: int,
@@ -184,7 +210,8 @@ def subtree_contract(frontier, cw1, cw2, table_perm, *, depth: int,
                      f_levels: int, prf_method: int,
                      block_leaves: int | None = None) -> torch.Tensor:
     """Fused subtree expand + contract; K2 on CUDA tensors, plain on CPU
-    ones.  Returns [B, E] int32."""
+    ones.  ``table_perm``: one ``[N, E]`` table or ``[B, N, E]``, one a
+    key.  Returns [B, E] int32."""
     _, _, s_lv, cb = _binary_split(frontier, cw1, cw2, table_perm, depth,
                                    f_levels, prf_method, block_leaves)
     _check_layout(frontier, cw1, cw2, table_perm)
@@ -194,11 +221,12 @@ def subtree_contract(frontier, cw1, cw2, table_perm, *, depth: int,
                                f_levels, s_lv, cb, prf_method)
     out = _contract_cuda(frontier, cw1, cw2, table_perm, sched, f_levels,
                          cb, prf_method)
-    subtree_contract.launches += 1
+    _count(subtree_contract, table_perm)
     return out
 
 
 subtree_contract.launches = 0
+subtree_contract.launches_pkt = 0
 
 
 def _mixed_split(frontier, cw1, cw2, table_perm, ars, f_lv, prf_method,
@@ -242,7 +270,8 @@ def subtree_contract_mixed(frontier, cw1, cw2, table_perm, *, ars,
                            f_lv: int, prf_method: int,
                            block_leaves: int | None = None) -> torch.Tensor:
     """Fused radix-4 subtree expand + contract; K2 on CUDA tensors, plain
-    on CPU ones.  Returns [B, E] int32."""
+    on CPU ones.  ``table_perm``: one ``[N, E]`` table or ``[B, N, E]``,
+    one a key.  Returns [B, E] int32."""
     _, _, s_lv, cb = _mixed_split(frontier, cw1, cw2, table_perm, ars, f_lv,
                                   prf_method, block_leaves)
     _check_layout(frontier, cw1, cw2, table_perm)
@@ -252,11 +281,12 @@ def subtree_contract_mixed(frontier, cw1, cw2, table_perm, *, ars,
                                s_lv, cb, prf_method)
     out = _contract_cuda(frontier, cw1, cw2, table_perm, sched, f_lv, cb,
                          prf_method)
-    subtree_contract_mixed.launches += 1
+    _count(subtree_contract_mixed, table_perm)
     return out
 
 
 subtree_contract_mixed.launches = 0
+subtree_contract_mixed.launches_pkt = 0
 
 
 def chacha_level_step_plain(seeds: torch.Tensor, cw1_lvl: torch.Tensor,

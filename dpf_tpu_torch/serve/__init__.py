@@ -20,9 +20,10 @@ named, versioned tables with LRU residency on the card under a byte
 budget (and ``GranuleStore`` pages one table by row granules),
 ``TenantRouter`` (tenant.py) runs one isolated ``SchemeRouter`` per
 tenant under a weighted-fair deficit-round-robin scheduler, and
-``bench_multitenant.py`` measures the noisy-neighbour isolation.  The
-``bench_pir``, ``bench_bigtable``, ``bench_multichip`` and
-``bench_multihost`` scripts of ``dpf_tpu/serve`` are not ported yet.
+``bench_multitenant.py`` measures the noisy-neighbour isolation, and
+``bench_pir.py`` batch-PIR (``apps.batch_pir``) end to end.  The
+``bench_bigtable``, ``bench_multichip`` and ``bench_multihost`` scripts
+of ``dpf_tpu/serve`` are not ported yet.
 """
 
 from .buckets import Buckets  # noqa: F401

@@ -24,6 +24,21 @@ from dataclasses import dataclass
 KERNEL_IMPLS = ("xla", "pallas", "dispatch", "auto", None)
 
 
+def check_construction(scheme: str, radix: int,
+                       schemes=("logn", "sqrtn", "auto")) -> None:
+    """The scheme / radix membership rule of every construction surface
+    (the ``DPF`` constructor, the batch-PIR server, client and cost
+    model; port of ``dpf_tpu``'s).  A narrower ``schemes`` drops
+    ``"auto"`` where a concrete construction is needed."""
+    if scheme not in schemes:
+        raise ValueError("scheme must be one of %s (got %r)"
+                         % (schemes, scheme))
+    if radix not in (2, 4):
+        raise ValueError("radix must be 2 or 4")
+    if scheme == "sqrtn" and radix == 4:
+        raise ValueError("scheme='sqrtn' has no radix; use radix=2")
+
+
 def is_auto(value) -> bool:
     """True when a knob is at its auto state: None or ``"auto"``."""
     return value is None or value == "auto"

@@ -9,8 +9,10 @@ radix-4 ChaCha20-BLK at B = 1, 2 and 8 (the server pads a batch to a
 power of two), all from the root at the 4096 leaves per block that the
 API resolves.  Each library's result is held bit for bit against the
 plain version before it is timed; with other libraries all are timed
-in turns: the others, this tree's twice, the others again.  Needs one
-CUDA card and the toolkit:
+in turns: the others, this tree's twice, the others again (every build
+gets ``per_key`` 0 before the stream; a build that predates the
+per-key mode reads that 0 as its stream, the default stream, which is
+the current one here).  Needs one CUDA card and the toolkit:
 
     python -m dpf_tpu_torch.utils.k2_times [other subtree library ...]
 """
@@ -62,7 +64,7 @@ def main() -> int:
         off = (ctypes.c_int * len(sched))(*(o for _, o in sched))
         code = fn(fr.data_ptr(), cw1.data_ptr(), cw2.data_ptr(),
                   table.data_ptr(), out.data_ptr(), bsz, 1, len(sched), lg,
-                  off, 0, 12, table.shape[1], prf,
+                  off, 0, 12, table.shape[1], prf, 0,
                   torch.cuda.current_stream().cuda_stream)
         if code != 0:
             raise RuntimeError("subtree_contract_launch: CUDA error %d"

@@ -23,11 +23,21 @@ its leaf-by-column products.  Each count is split by pipe: the INT32
 pipe (``ALU_OPS``), half the issue rate, and the FMA pipe (every
 ``IMAD`` form), the other half.
 
+K2's per-key-table instances (``subtree_kernel<PRF, BIN, true>``)
+count under ``"prf P binary|radix-4 per-key"``.
+
 Static counts: both sides of a branch inside a body are counted, and
 the loop bookkeeping around a node or a product is left out, so each
-result is a few instructions off.  Needs the card's toolkit:
+result is a few instructions off.
+
+``same_code(other)`` holds the shared-table instances of K2 and K4 in
+this tree's build against another build of the same source from before
+their per-key mode existed (a parent commit's): the per-key flag is a
+template parameter, so each shared instance must keep every
+instruction.  Needs the card's toolkit:
 
     python -m dpf_tpu_torch.utils.sass_count [subtree library]
+    python -m dpf_tpu_torch.utils.sass_count --same-as LIBRARY [...]
 """
 
 from __future__ import annotations
@@ -188,12 +198,45 @@ def k2_counts(lib: Path | None = None) -> dict:
         lib = cuda_build.library_path("subtree")
     out = {}
     for name, instrs in sass_functions(Path(lib)).items():
-        m = re.search(r"subtree_kernelILi(\d)ELb([01])E", name)
+        m = re.search(r"subtree_kernelILi(\d)ELb([01])E(?:Lb([01])E)?E",
+                      name)
         if m:
             prf, binary = int(m.group(1)), m.group(2) == "1"
-            out["prf %d %s" % (prf, "binary" if binary else "radix-4")] = \
-                subtree_per_leaf(instrs, not binary and prf in (1, 2),
-                                 2 if binary else 4)
+            key = "prf %d %s%s" % (prf, "binary" if binary else "radix-4",
+                                   " per-key" if m.group(3) == "1" else "")
+            out[key] = subtree_per_leaf(instrs, not binary and prf in (1, 2),
+                                        2 if binary else 4)
+    return out
+
+
+# a kernel's template argument list in a mangled name: I, then each
+# argument as L<type letter><value>E, then E
+_TEMPLATE_ARGS = re.compile(r"((?:subtree|sqrt_grid)_kernelI(?:L[a-z]\d+E)+)E")
+# nvcc names an anonymous namespace after a digest of its source file,
+# which changes with any edit of the file
+_ANON_NS = re.compile(r"\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+")
+
+
+def same_code(other: Path, source: str | None = None) -> dict:
+    """For each K2 or K4 kernel instance of ``other`` (a build of
+    ``subtree.cu`` or ``sqrt_grid.cu`` without the per-key flag), this
+    tree's instance with the flag false: ``{other's function name:
+    {"instructions": n, "same": bool}}``, ``same`` when every
+    instruction's text is equal.  ``source`` defaults to the stem of
+    ``other``'s file name."""
+    source = source or Path(other).name.split("-")[0]
+    cuda_build.build((source,))
+    mine = {_ANON_NS.sub("", name): instrs for name, instrs in
+            sass_functions(cuda_build.library_path(source)).items()}
+    out = {}
+    for name, instrs in sass_functions(Path(other)).items():
+        if not _TEMPLATE_ARGS.search(name):
+            continue
+        twin = mine.get(_TEMPLATE_ARGS.sub(r"\1Lb0EE", _ANON_NS.sub("", name),
+                                           count=1))
+        out[name] = {"instructions": len(instrs),
+                     "same": twin is not None
+                     and [t for _, t in twin] == [t for _, t in instrs]}
     return out
 
 
@@ -214,6 +257,11 @@ def k1_counts() -> dict:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--same-as"]:
+        res = {str(lib): same_code(Path(lib)) for lib in sys.argv[2:]}
+        print(json.dumps(res))
+        sys.exit(0 if all(v["same"] for r in res.values()
+                          for v in r.values()) else 1)
     if len(sys.argv) > 1:
         print(json.dumps(k2_counts(Path(sys.argv[1]))))
     else:

@@ -430,13 +430,14 @@ TB = 4
 
 def _subtree_launch(lib, fr, cw1, cw2, tbl, out, sched, f_lv, log_cb,
                     method):
-    """Call K2's C entry with a schedule of (arity, first slot) pairs."""
+    """Call K2's C entry with a schedule of (arity, first slot) pairs; a
+    [B, N, E] table takes the per-key mode."""
     lg = (ctypes.c_int * len(sched))(*(a.bit_length() - 1 for a, _ in sched))
     off = (ctypes.c_int * len(sched))(*(o for _, o in sched))
     return lib.subtree_contract_launch(
         fr.data_ptr(), cw1.data_ptr(), cw2.data_ptr(), tbl.data_ptr(),
         out.data_ptr(), out.shape[0], fr.shape[1], len(sched), lg, off,
-        f_lv, log_cb, out.shape[1], method, None)
+        f_lv, log_cb, out.shape[1], method, int(tbl.dim() == 3), None)
 
 
 @pytest.mark.parametrize("method", subtree.SUBTREE_PRFS)
@@ -529,7 +530,8 @@ def _sqrt_launch(lib, seeds, cw1, cw2, tbl, out, rc, row0, method):
     return lib.sqrt_grid_launch(
         seeds.data_ptr(), seeds.stride(0), cw1.data_ptr(), cw2.data_ptr(),
         cw1.stride(0), tbl.data_ptr(), out.data_ptr(), out.shape[0],
-        seeds.shape[1], cw1.shape[1], rc, out.shape[1], row0, method, None)
+        seeds.shape[1], cw1.shape[1], rc, out.shape[1], row0, method,
+        int(tbl.dim() == 3), None)
 
 
 @pytest.mark.parametrize("method", range(6))
@@ -569,6 +571,111 @@ def test_sqrt_grid_kernel_on_host_rejects(host_libs, method, rc, row0):
     tbl = torch.zeros(8 * 8, 1, dtype=torch.int32)
     assert _sqrt_launch(host_libs["sqrt_grid"], z[:, :8], z[:, :8], z[:, :8],
                         tbl, z[:, 0, :1], rc, row0, method) != 0
+
+
+@pytest.mark.parametrize("method", subtree.SUBTREE_PRFS)
+@pytest.mark.parametrize("radix,bsz,depth,f_lv,cb,e", [
+    (2, 1, 7, 0, 128, 16),       # one key, 256 threads
+    (2, TB - 1, 8, 1, 64, 17),   # a ragged tile, frontier of 2
+    (2, 2 * TB + 3, 7, 0, 2, 5),  # three tiles, a quad past CB
+    (4, TB + 1, 9, 1, 16, 3),    # radix 4, odd depth, two tiles
+    (4, 2, 8, 0, 256, 1),        # radix 4, even depth, one column
+])
+def test_subtree_per_key_kernel_on_host(host_libs, method, radix, bsz,
+                                        depth, f_lv, cb, e):
+    """K2's per-key mode: key b against table b of [B, N, E], ragged key
+    tiles reading no table past the last key's."""
+    from dpf_tpu_torch.core import radix4
+    rng = np.random.default_rng(depth * 10 + method + 2000)
+    n = 1 << depth
+    if radix == 4:
+        ars = radix4.arities(n)
+        sched = list(zip(ars, radix4.cw_offsets(ars)))
+        f_cnt = int(np.prod(ars[:f_lv]))
+    else:
+        sched, f_cnt = subtree._binary_schedule(depth), 1 << f_lv
+    fr = _rnd(rng, bsz, f_cnt, 4)
+    cw1, cw2 = _rnd(rng, bsz, 64, 4), _rnd(rng, bsz, 64, 4)
+    # the batch's tables, then one more that no key may read
+    tables = _rnd(rng, bsz + 1, n, e)
+    tables[bsz] = 0
+    out = torch.zeros(bsz, e, dtype=torch.int32)
+    assert _subtree_launch(host_libs["subtree"], fr, cw1, cw2,
+                           tables[:bsz], out, sched, f_lv,
+                           cb.bit_length() - 1, method) == 0
+    if radix == 4:
+        want = subtree.subtree_contract_mixed_plain(
+            fr, cw1, cw2, tables[:bsz], ars=ars, f_lv=f_lv,
+            prf_method=method, block_leaves=cb)
+    else:
+        want = subtree.subtree_contract_plain(
+            fr, cw1, cw2, tables[:bsz], depth=depth, f_levels=f_lv,
+            prf_method=method, block_leaves=cb)
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("method", range(6))
+@pytest.mark.parametrize("bsz,k,r,rc,e,row0", [
+    (3, 32, 16, 16, 5, 0),       # one key tile of 8, ragged
+    (9, 16, 8, 4, 3, 8),         # two key tiles, row chunks of 4
+    (1, 64, 32, 8, 16, 0),       # one key
+])
+def test_sqrt_grid_per_key_kernel_on_host(host_libs, method, bsz, k, r, rc,
+                                          e, row0):
+    """K4's per-key mode: key b against table b of [B, R K, E]."""
+    rng = np.random.default_rng(k * 7 + r + method + 3000)
+    wire = _rnd(rng, bsz, 4 * (k + 2 * r))
+    seeds = wire[:, :4 * k].unflatten(1, (k, 4))
+    cw1 = wire[:, 4 * k:4 * (k + r)].unflatten(1, (r, 4))
+    cw2 = wire[:, 4 * (k + r):].unflatten(1, (r, 4))
+    tables = _rnd(rng, bsz, r * k, e)
+    out = torch.zeros(bsz, e, dtype=torch.int32)
+    assert _sqrt_launch(host_libs["sqrt_grid"], seeds, cw1, cw2, tables,
+                        out, rc, row0, method) == 0
+    assert torch.equal(out, sqrt_grid.sqrt_grid_contract_plain(
+        seeds, cw1, cw2, tables, prf_method=method, row0=row0))
+
+
+def _contract_pkt_on_host(lib, a, t, sms=2):
+    out = torch.zeros(a.shape[0], t.shape[2], dtype=torch.int32)
+    assert lib.contract_pkt_launch(
+        a.data_ptr(), a.stride(0), a.stride(1), t.data_ptr(), t.stride(0),
+        out.data_ptr(), a.shape[0], a.shape[1], t.shape[2], sms, None) == 0
+    return out
+
+
+@pytest.mark.parametrize("bsz,k,e,inc,sms", [
+    (1, 7, 16, 1, 2),        # fewer rows than one sweep
+    (3, 1001, 16, 1, 2),     # 16-byte quads, ragged unrolled sweeps
+    (5, 300, 4, 4, 7),       # one quad a row, leaves at stride 4
+    (2, 600, 8, 1, 1),       # two quads a row, one block a key
+    (3, 300, 3, 1, 2),       # three columns: one word a thread
+    (2, 400, 20, 3, 2),      # five quads: not a power of two
+    (1, 64, 260, 1, 2),      # columns past one sweep of 256
+    (4, 2048, 16, 1, 64),    # more row ranges than rows a sweep
+])
+def test_contract_pkt_kernel_on_host(host_libs, bsz, k, e, inc, sms):
+    """K6 against ``dot_i32_per_key_plain`` in each form: 16-byte quads
+    (E = 4, 8, 16) and one word a thread (E = 3, 20, 260), strided
+    leaves, and the rows of a key split over blocks."""
+    rng = np.random.default_rng(bsz * 7 + k * 3 + e + inc)
+    a = _rnd(rng, bsz, k, inc)[..., 0]
+    t = _rnd(rng, bsz, k, e)
+    assert torch.equal(_contract_pkt_on_host(host_libs["contract_pkt"], a, t,
+                                             sms),
+                       matmul128.dot_i32_per_key_plain(a, t))
+
+
+@pytest.mark.parametrize("offset,e", [(64, 16), (3, 16), (5, 3)])
+def test_contract_pkt_kernel_row_chunks_on_host(host_libs, offset, e):
+    """A chunk of rows of [B, N, E] tables (keys N E words apart): at a
+    16-byte boundary the quads, off it one word a thread."""
+    rng = np.random.default_rng(offset + e)
+    tables = _rnd(rng, 3, 256, e)
+    t = tables[:, offset:offset + 128]
+    a = _rnd(rng, 3, 128)
+    assert torch.equal(_contract_pkt_on_host(host_libs["contract_pkt"], a, t),
+                       matmul128.dot_i32_per_key_plain(a, t))
 
 
 @pytest.mark.parametrize("bsz,w", [(1, 1), (3, 5), (2, 300)])

@@ -33,6 +33,9 @@ def test_import_loads_no_jax_and_no_dpf_tpu():
             "dpf_tpu_torch.serve.tenant, dpf_tpu_torch.serve.bench_chaos, "
             "dpf_tpu_torch.serve.bench_multitenant, "
             "dpf_tpu_torch.obs.metrics; "
+            "import dpf_tpu_torch.apps, dpf_tpu_torch.apps.batch_pir, "
+            "dpf_tpu_torch.apps.sweep, dpf_tpu_torch.apps.codesign, "
+            "dpf_tpu_torch.apps.plots, dpf_tpu_torch.serve.bench_pir; "
             "print('\\n'.join(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
@@ -57,7 +60,12 @@ def test_sources_import_no_jax_and_no_dpf_tpu():
                  "dpf_tpu_torch/serve/tenant.py",
                  "dpf_tpu_torch/serve/bench_chaos.py",
                  "dpf_tpu_torch/serve/bench_multitenant.py",
-                 "dpf_tpu_torch/obs/metrics.py"):
+                 "dpf_tpu_torch/obs/metrics.py",
+                 "dpf_tpu_torch/apps/batch_pir.py",
+                 "dpf_tpu_torch/apps/sweep.py",
+                 "dpf_tpu_torch/apps/codesign.py",
+                 "dpf_tpu_torch/apps/plots.py",
+                 "dpf_tpu_torch/serve/bench_pir.py"):
         assert part in walked, part
     bad = []
     for path in files:

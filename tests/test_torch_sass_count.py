@@ -167,3 +167,46 @@ def test_k1_counts_names_each_store_form(monkeypatch):
     # the rounds loop runs until the LDS equal 40 + 160 A lookups
     assert got["arity 2"]["lds"] == 3 + 2 * ((360 - 3) // 2)
     assert got["arity 4 low32"]["lds"] == 3 + 2 * ((680 - 3) // 2)
+
+
+def test_k2_counts_names_the_per_key_instances(monkeypatch):
+    """The per-key flag is a third template argument: its instances
+    count apart from the shared-table ones."""
+    names = ["_ZN2k214subtree_kernelILi2ELb1ELb0EEEvPKj",
+             "_ZN2k214subtree_kernelILi2ELb1ELb1EEEvPKj",
+             "_ZN2k214subtree_kernelILi5ELb0ELb1EEEvPKj"]
+    text = "".join(_k2_listing(n, False) for n in names)
+    monkeypatch.setattr(sass_count, "sass_functions",
+                        lambda lib: sass_count.parse_sass(text))
+    assert sorted(sass_count.k2_counts("lib.so")) == [
+        "prf 2 binary", "prf 2 binary per-key", "prf 5 radix-4 per-key"]
+
+
+def test_same_code_pairs_each_instance_with_its_shared_twin(monkeypatch):
+    """A build without the per-key flag against this tree's: each of its
+    K2 and K4 instances is held against the instance whose flag is
+    false, instruction for instruction, whatever digest of its source
+    names the anonymous namespace."""
+    instrs = sass_count.parse_sass(LISTING)[
+        "_ZN2k16aes_level_kernelILi2EEEvPK5uint4"]
+    old_ns = "_ZN43_GLOBAL__N__2051430a_10_subtree_cu_0123abcd"
+    new_ns = "_ZN43_GLOBAL__N__5e1f0a2b_10_subtree_cu_f8e2f0de"
+    other = {old_ns + "14subtree_kernelILi2ELb1EEEvPKj": instrs,
+             "_ZN2k216sqrt_grid_kernelILi3EEEvPKj": instrs,
+             "_ZN2k216sqrt_grid_kernelILi5EEEvPKj": instrs,
+             "other": instrs}
+    mine = {new_ns + "14subtree_kernelILi2ELb1ELb0EEEvPKj": instrs,
+            new_ns + "14subtree_kernelILi2ELb1ELb1EEEvPKj": instrs[:3],
+            "_ZN2k216sqrt_grid_kernelILi3ELb0EEEvPKj": instrs,
+            "_ZN2k216sqrt_grid_kernelILi5ELb0EEEvPKj": instrs[1:]}
+    monkeypatch.setattr(sass_count.cuda_build, "build", lambda names: {})
+    monkeypatch.setattr(sass_count, "sass_functions",
+                        lambda lib: other if str(lib) == "old.so" else mine)
+    got = sass_count.same_code("old.so", "subtree")
+    assert got == {
+        old_ns + "14subtree_kernelILi2ELb1EEEvPKj":
+            {"instructions": len(instrs), "same": True},
+        "_ZN2k216sqrt_grid_kernelILi3EEEvPKj":
+            {"instructions": len(instrs), "same": True},
+        "_ZN2k216sqrt_grid_kernelILi5EEEvPKj":
+            {"instructions": len(instrs), "same": False}}
