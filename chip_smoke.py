@@ -41,15 +41,21 @@ Phases (any failure raises and the script exits non-zero):
    warp-wide lookup per SM per clock) and K2's pipe bound (its cipher
    cores' xors and rotations on the INT32 pipe, its products on the FMA
    pipe, each at half the issue rate); then the per-key-table forms of
-   batch-PIR (phase 9) at its group of G = 256 bins of n = 4096 rows,
-   E = 16: K6 ``contract_i32_per_key`` (also small, ragged, strided and
-   row-chunk shapes; ``torch.bmm`` on int32 CUDA tensors probed as the
-   library yardstick and its error printed), K2's per-key mode for
-   every stream-cipher id at ragged key tiles and for binary and
-   radix-4 ChaCha20 at G = 256, and K4's per-key mode for every id and
-   for AES-128 at G = 256; these four rows' ms is device time under
-   ``torch.profiler`` (CUDA events around their wrappers, printed
-   beside it as ``events_ms``, time the host's enqueue rate);
+   batch-PIR (phase 9): K6 ``contract_i32_per_key`` at small, ragged,
+   strided and row-chunk shapes and at phase 9's group of G = 256 bins
+   of n = 4096 rows, E = 16 (``torch.bmm`` on int32 CUDA tensors probed
+   as the library yardstick and its error printed); the per-key kernels
+   of K2 (every stream-cipher id, both trees) and K4 (every id) at
+   ragged G = 1, 3, 5, 255, 257, small n and E = 16, 3, 1; then the
+   sweep of one 2^20 x 16 table cut into bins, (G, n) = (256, 4096),
+   (16, 65536) and (1024, 1024): K2 per-key for binary ChaCha20, radix-4
+   ChaCha20 and radix-4 ChaCha20-BLK, K4 per-key for AES-128, ChaCha20
+   and ChaCha20-BLK, each at the geometry its wrapper picks, with its
+   bound, its tighter limit (K2's pipe bound, K4 AES's lookup floor)
+   and the share of it reached; the per-key rows' ms is device time
+   under ``torch.profiler`` (CUDA events around a wrapper of tens of
+   microseconds time the host's enqueue rate; K6 prints those beside
+   it as ``events_ms``);
 3. the sample flow for PRF ids 0-5, binary tree at N = 16384, radix-4
    tree and sqrt-N grid at N = 16384 and 8192 (odd depth): two ``DPF``
    servers answer 8 distinct indices, the client recovers each row
@@ -144,8 +150,12 @@ Phases (any failure raises and the script exits non-zero):
    and sqrt-N constructions with AES-128 and with ChaCha20: one round
    through ``answer`` on two servers, equal to ``answer_scalar``, every
    planned row recovered exactly (then one server's warm round timed,
-   best of 3), then 6 rounds through ``LookupStream`` equal to
-   ``answer`` and recovered exactly (bin-queries/s printed);
+   best of 3) and the same warm round split into its stages (packed
+   decode, staging copy, the group's program on the host, the wait for
+   the card, download, the Python rest, with the upload's and the
+   kernels' device time from CUDA events; ``answer_split``), then 6
+   rounds through ``LookupStream`` equal to ``answer`` and recovered
+   exactly (bin-queries/s printed);
    then ``bench_pir.pir_point`` at 2^20 and ``pir_bench``'s default
    points, their records printed.  K1, K6 and the per-key modes of K2
    and K4 must have been launched, and no shared-table K2, K3 or K4.
@@ -215,40 +225,6 @@ OPS_CHILD_ADD = 12           # add128 + codeword select per child
 
 def log(*a):
     print(*a, flush=True)
-
-
-def kernels_ms(calls: dict, reps: int = 20) -> dict:
-    """{name: device ms a call} of each ``calls[name] = (fn, kernel)``:
-    the device time of the kernels whose name holds ``kernel``, all
-    timed in one ``torch.profiler`` session after one warm call (the
-    wrapper's host work and its output's zero fill left out: at tens of
-    microseconds a launch, CUDA events around the calls time the host's
-    enqueue rate, not the kernel).  Raises when a kernel has no device
-    time (late in a run, in phase 9, the card's sessions recorded none
-    or only some kernels, so this runs in phase 2)."""
-    from dpf_tpu_torch.utils.profile_batch import _device_us
-
-    def run():
-        for fn, _ in calls.values():
-            fn()
-    run()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            run()
-        torch.cuda.synchronize()
-    kernels = {evt.key: _device_us(evt) / 1e3 / reps
-               for evt in prof.key_averages()
-               if str(getattr(evt, "device_type", "")).endswith("CUDA")}
-    out = {}
-    for name, (_, kernel) in calls.items():
-        out[name] = sum(v for k, v in kernels.items() if kernel in k)
-        if out[name] <= 0:
-            raise AssertionError("no device time for %s: %s"
-                                 % (kernel, sorted(kernels)))
-    return out
 
 
 def launch_counters():
@@ -713,6 +689,69 @@ def multitable_phase(smi, read_counts, zero_counts, n=1 << 20,
     return by_part, records
 
 
+def answer_split(server, keys_per_bin) -> dict:
+    """One round through ``PrivateLookupServer.answer``'s steps, each
+    group's timed on the host clock: the packed decode, the staging copy
+    into the pinned buffer, the group's program (its Python, the upload
+    and the launches enqueued), the host's wait for the card, the
+    download; the rest of the round's wall time is the Python around
+    them.  On the card, CUDA events around the upload (``api.upload``,
+    wrapped for this round only: the program looks it up when it runs)
+    and after the program split the device's time into the upload and
+    the kernels.  The wait makes this round's download follow the
+    kernels alone; ``answer`` gathers after every group is enqueued, the
+    same here with one group.  Returns ms by stage."""
+    import numpy as np
+    from dpf_tpu_torch import api
+    cuda = server.device.type == "cuda"
+    upload, marks = api.upload, []
+
+    def timed_upload(staged, device):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        buf = upload(staged, device)
+        ev[1].record()
+        marks.append(ev)
+        return buf
+
+    host = dict.fromkeys(("decode", "staging", "program", "wait",
+                          "download"), 0.0)
+    dev = {"upload": 0.0, "kernels": 0.0}
+    api.upload = timed_upload if cuda else upload
+    try:
+        t_round = time.perf_counter()
+        out = np.zeros((len(server.bins), server.entry_size), np.int32)
+        for n, grp in server._groups.items():
+            t0 = time.perf_counter()
+            pk = server._decode_group(n, grp,
+                                      [keys_per_bin[bi] for bi in grp.idxs])
+            t1 = time.perf_counter()
+            staged = server._stage_group(grp, pk, server._answer_stage(n))
+            t2 = time.perf_counter()
+            shares = server._run_group_program(n, grp, staged)
+            if cuda:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+            t3 = time.perf_counter()
+            if cuda:
+                torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            out[grp.idxs] = shares.cpu().numpy()
+            t5 = time.perf_counter()
+            for k, dt in zip(host, (t1 - t0, t2 - t1, t3 - t2, t4 - t3,
+                                    t5 - t4)):
+                host[k] += 1e3 * dt
+            if cuda:
+                dev["upload"] += marks[-1][0].elapsed_time(marks[-1][1])
+                dev["kernels"] += marks[-1][1].elapsed_time(end)
+        total = 1e3 * (time.perf_counter() - t_round)
+    finally:
+        api.upload = upload
+    return dict(round=total, **host, rest=total - sum(host.values()),
+                upload_device=dev["upload"] if cuda else None,
+                kernels_device=dev["kernels"] if cuda else None)
+
+
 def batch_pir_phase(smi, read_counts, zero_counts, entries=1 << 20,
                     device=None, rounds=6, reps=3) -> tuple:
     """Phase 9: batch-PIR (``apps.batch_pir``) over an ``entries`` x 16
@@ -778,6 +817,14 @@ def batch_pir_phase(smi, read_counts, zero_counts, entries=1 << 20,
                 t0 = time.perf_counter()
                 servers[0].answer(ka)
                 answer_ms = min(answer_ms, 1e3 * (time.perf_counter() - t0))
+            # the same warm round split into its stages, the round of
+            # the least wall time of 3
+            split = min((answer_split(servers[0], ka) for _ in range(3)),
+                        key=lambda sp: sp["round"])
+            log("  %-8s prf %d: one warm round split (ms): %s"
+                % (label, prf, ", ".join(
+                    "%s %s" % (k, "not measured" if v is None else
+                               "%.3f" % v) for k, v in split.items())))
             streams = [sv.stream(max_in_flight=2, warmup=True)
                        for sv in servers]
             t0 = time.perf_counter()
@@ -796,6 +843,7 @@ def batch_pir_phase(smi, read_counts, zero_counts, entries=1 << 20,
                        bin_rows=servers[0].bin_sizes[0],
                        groups=servers[0].group_constructions(),
                        keygen_s_a_round=keygen_s, answer_ms=answer_ms,
+                       answer_split_ms=split,
                        stream_s=stream_s, rounds=rounds,
                        stream_bin_queries_per_s=len(bins) * rounds
                        / stream_s, rows_recovered=rows_ok,
@@ -842,8 +890,9 @@ def main() -> int:
     from dpf_tpu_torch.ops import (aes_level, cuda_build, matmul128,
                                    sqrt_grid, subtree)
     from dpf_tpu_torch.utils import profile_batch, sass_count
-    from dpf_tpu_torch.utils.bench import (cuda_ms, test_dpf_latency,
-                                           test_dpf_perf, test_matmul_perf)
+    from dpf_tpu_torch.utils.bench import (cuda_ms, profiled_ms,
+                                           test_dpf_latency, test_dpf_perf,
+                                           test_matmul_perf)
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -1340,108 +1389,169 @@ def main() -> int:
         ops=2 * g9 * n9 * 16,
         shape="[256, 4096] x [256, 4096, 16] (phase 9's group)")
     del a, t, want
-    # K2's per-key mode: ragged key tiles (TB - 1, TB + 1, 2 TB + 3) and
-    # small n for every stream-cipher id in both trees, then binary and
-    # radix-4 ChaCha20 at phase 9's group
+    # K2's per-key mode, one key a block: every stream-cipher id in both
+    # trees at ragged G (1, 3, 5, 255, 257), small n and E of 16, 3 and 1,
+    # at the block the wrapper picks (None) and at small explicit ones
     for prf in subtree.SUBTREE_PRFS:
-        for bsz, depth, cb in ((tb - 1, 7, 128), (tb + 1, 9, 64),
-                               (2 * tb + 3, 12, 4096), (2, 8, 2)):
+        for bsz, depth, cb, e in ((1, 7, None, 16), (3, 9, 2, 3),
+                                  (5, 12, None, 16), (255, 8, None, 1),
+                                  (257, 10, 64, 16)):
             fr, cw1, cw2 = rnd(bsz, 1, 4), rnd(bsz, 64, 4), rnd(bsz, 64, 4)
-            tbl = rnd(bsz, 1 << depth, 16)
+            tbl = rnd(bsz, 1 << depth, e)
             kw = dict(depth=depth, f_levels=0, prf_method=prf,
                       block_leaves=cb)
             errs["subtree_contract_pkt"] |= held(
-                "K2 per-key prf=%d B=%d n=2^%d" % (prf, bsz, depth),
+                "K2 per-key prf=%d G=%d n=2^%d E=%d block %s"
+                % (prf, bsz, depth, e, cb),
                 subtree.subtree_contract(fr, cw1, cw2, tbl, **kw),
                 subtree.subtree_contract_plain(fr, cw1, cw2, tbl, **kw))
             ars = radix4.arities(1 << depth)
-            kw = dict(ars=ars, f_lv=0, prf_method=prf,
-                      block_leaves=radix4._suffix_chunk(ars, cb)[1])
+            kw = dict(ars=ars, f_lv=0, prf_method=prf, block_leaves=None
+                      if cb is None else radix4._suffix_chunk(ars, cb)[1])
             errs["subtree_contract_mixed_pkt"] |= held(
-                "K2 mixed per-key prf=%d B=%d n=2^%d" % (prf, bsz, depth),
+                "K2 mixed per-key prf=%d G=%d n=2^%d E=%d block %s"
+                % (prf, bsz, depth, e, kw["block_leaves"]),
                 subtree.subtree_contract_mixed(fr, cw1, cw2, tbl, **kw),
                 subtree.subtree_contract_mixed_plain(fr, cw1, cw2, tbl,
                                                      **kw))
-    fr, cw1, cw2 = rnd(g9, 1, 4), rnd(g9, 64, 4), rnd(g9, 64, 4)
-    tbl = rnd(g9, n9, 16)
-    chacha = dpf_tpu_torch.PRF_CHACHA20
-    for name, entry, plain, kw, nodes, arity in (
-            ("subtree_contract_pkt", subtree.subtree_contract,
-             subtree.subtree_contract_plain,
-             dict(depth=12, f_levels=0, prf_method=chacha,
-                  block_leaves=4096), n9 - 1, 2),
-            ("subtree_contract_mixed_pkt", subtree.subtree_contract_mixed,
-             subtree.subtree_contract_mixed_plain,
-             dict(ars=radix4.arities(n9), f_lv=0, prf_method=chacha,
-                  block_leaves=4096), (n9 - 1) // 3, 4)):
-        t0 = time.perf_counter()
-        want = plain(fr, cw1, cw2, tbl, **kw)
-        sync()
-        plain_ms = 1e3 * (time.perf_counter() - t0)
-        errs[name] |= held("K2 %s ChaCha20 G=256 n=4096" % name,
-                           entry(fr, cw1, cw2, tbl, **kw), want)
-        # ChaCha20 takes one core block a child
-        ops = g9 * (nodes * (arity * OPS_CORE_BLOCK + arity * OPS_CHILD_ADD)
-                    + n9 * 16 * 2)
-        pkt_calls[name] = (
-            lambda entry=entry, kw=kw, fr=fr, cw1=cw1, cw2=cw2, tbl=tbl:
-            entry(fr, cw1, cw2, tbl, **kw),
-            "subtree_kernel<2, %s, true>" % ("true" if arity == 2
-                                             else "false"))
-        rows[name] = dict(
-            events_ms=cuda_ms(lambda: entry(fr, cw1, cw2, tbl, **kw), 20),
-            plain_ms=plain_ms, library_ms=None,
-            bytes=g9 * 16 + 2 * g9 * 64 * 16 + g9 * n9 * 16 * 4
-            + g9 * 16 * 4, ops=ops,
-            pipe_bound_ms=pipe_bound_ms(
-                ops, g9 * nodes * arity * OPS_CORE_BLOCK_ALU, g9 * n9 * 16),
-            shape="%s ChaCha20 G=256 n=4096 E=16, per-key tables"
-                  % ("binary" if arity == 2 else "radix-4"))
-        del want
-    del fr, cw1, cw2, tbl
-    # K4's per-key mode: every id at small and ragged key tiles (8
-    # keys a tile), then AES-128 at phase 9's group
+    # K4's per-key mode, one key an item: every id at ragged G, K above
+    # and below the 256 columns of a sub-tile, a row base, E of 16, 3, 1
     for prf in range(6):
-        for bsz, n in ((3, 1 << 11), (9, 1 << 12)):
-            k, r = sqrtn.default_split(n)
-            seeds, cw1, cw2, _ = sqrt_case(bsz, n, 1)
-            tbl = rnd(bsz, n, 16)
+        for bsz, k, r, e, row0 in ((1, 64, 64, 16, 0), (3, 512, 8, 16, 8),
+                                   (5, 300, 12, 3, 4), (255, 32, 32, 1, 0),
+                                   (257, 16, 16, 16, 0)):
+            wire = rnd(bsz, 4 * (k + 2 * r))
+            seeds = wire[:, :4 * k].unflatten(1, (k, 4))
+            cw1 = wire[:, 4 * k:4 * (k + r)].unflatten(1, (r, 4))
+            cw2 = wire[:, 4 * (k + r):].unflatten(1, (r, 4))
+            tbl = rnd(bsz, r * k, e)
+            kw = dict(prf_method=prf, row0=row0)
             errs["sqrt_grid_contract_pkt"] |= held(
-                "K4 per-key prf=%d B=%d n=2^%d" % (prf, bsz,
-                                                    n.bit_length() - 1),
-                sqrt_grid.sqrt_grid_contract(seeds, cw1, cw2, tbl,
-                                             prf_method=prf),
+                "K4 per-key prf=%d G=%d K=%d R=%d E=%d row0=%d"
+                % (prf, bsz, k, r, e, row0),
+                sqrt_grid.sqrt_grid_contract(seeds, cw1, cw2, tbl, **kw),
                 sqrt_grid.sqrt_grid_contract_plain(seeds, cw1, cw2, tbl,
-                                                   prf_method=prf))
-    seeds, cw1, cw2, _ = sqrt_case(g9, n9, 1)
-    tbl = rnd(g9, n9, 16)
-    k, r = sqrtn.default_split(n9)
-    rc = sqrtn.clamp_row_chunk(None, r, k, g9)
-    kw = dict(prf_method=dpf_tpu_torch.PRF_AES128, row_chunk=rc)
-    t0 = time.perf_counter()
-    want = sqrt_grid.sqrt_grid_contract_plain(seeds, cw1, cw2, tbl, **kw)
-    sync()
-    plain_ms = 1e3 * (time.perf_counter() - t0)
-    errs["sqrt_grid_contract_pkt"] |= held(
-        "K4 per-key AES-128 G=256 n=4096",
-        sqrt_grid.sqrt_grid_contract(seeds, cw1, cw2, tbl, **kw), want)
-    pkt_calls["sqrt_grid_contract_pkt"] = (
-        lambda kw=kw, seeds=seeds, cw1=cw1, cw2=cw2, tbl=tbl:
-        sqrt_grid.sqrt_grid_contract(seeds, cw1, cw2, tbl, **kw),
-        "sqrt_grid_kernel<3, true>")
-    rows["sqrt_grid_contract_pkt"] = dict(
-        events_ms=cuda_ms(lambda: sqrt_grid.sqrt_grid_contract(
-            seeds, cw1, cw2, tbl, **kw), 20),
-        plain_ms=plain_ms, library_ms=None,
-        bytes=g9 * k * 16 + 2 * g9 * r * 16 + g9 * n9 * 16 * 4 + g9 * 16 * 4,
-        ops=sqrt_ops(dpf_tpu_torch.PRF_AES128, g9 * n9, 16),
-        lookups=g9 * n9 * (LOOKUPS_AES_BLOCK + LOOKUPS_AES_SCHEDULE // 4),
-        shape="AES-128 sqrt-N G=256 n=4096 (K=R=%d, rc=%d) E=16, per-key "
-              "tables" % (k, sqrt_grid.sqrt_row_chunk(r, k, rc)))
-    for name, ms in kernels_ms(pkt_calls).items():
-        rows[name]["ms"] = ms
-    del seeds, cw1, cw2, tbl, want, pkt_calls
-    torch.cuda.empty_cache()
+                                                   **kw))
+
+    # the sweep: one 2^20 x 16 table cut into G bins of n rows, the same
+    # 64 MiB of per-key tables at every point; (256, 4096) is phase 9's
+    # group.  Each point's six rows are timed in one profiler session
+    # (K6 joins phase 9's point)
+    chacha = dpf_tpu_torch.PRF_CHACHA20
+    chacha_blk = dpf_tpu_torch.PRF_CHACHA20_BLK
+    pkt_sweep = []
+    for g, n in ((256, 4096), (16, 65536), (1024, 1024)):
+        depth = n.bit_length() - 1
+        tbl = rnd(g, n, 16)
+        fr, cw1, cw2 = rnd(g, 1, 4), rnd(g, 64, 4), rnd(g, 64, 4)
+        calls = dict(pkt_calls) if g == g9 and n == n9 else {}
+        point = {}
+        # K2: a binary tree has n - 1 parents of 2 children, a radix-4
+        # tree (n - 1) / 3 of 4; ChaCha20 takes a core block a child, the
+        # block-PRG ids one a parent
+        for key, name, entry, plain, kw, nodes, arity, blocks in (
+                ("binary ChaCha20", "subtree_contract_pkt",
+                 subtree.subtree_contract, subtree.subtree_contract_plain,
+                 dict(depth=depth, f_levels=0, prf_method=chacha), n - 1,
+                 2, 2),
+                ("radix-4 ChaCha20", "subtree_contract_mixed_pkt",
+                 subtree.subtree_contract_mixed,
+                 subtree.subtree_contract_mixed_plain,
+                 dict(ars=radix4.arities(n), f_lv=0, prf_method=chacha),
+                 (n - 1) // 3, 4, 4),
+                ("radix-4 ChaCha20-BLK", "subtree_contract_mixed_pkt",
+                 subtree.subtree_contract_mixed,
+                 subtree.subtree_contract_mixed_plain,
+                 dict(ars=radix4.arities(n), f_lv=0, prf_method=chacha_blk),
+                 (n - 1) // 3, 4, 1)):
+            t0 = time.perf_counter()
+            want = plain(fr, cw1, cw2, tbl, **kw)
+            sync()
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+            errs[name] |= held("K2 %s G=%d n=%d" % (key, g, n),
+                               entry(fr, cw1, cw2, tbl, **kw), want)
+            ops = g * (nodes * (blocks * OPS_CORE_BLOCK
+                                + arity * OPS_CHILD_ADD) + n * 16 * 2)
+            calls[key] = (
+                lambda entry=entry, kw=kw, fr=fr, cw1=cw1, cw2=cw2, tbl=tbl:
+                entry(fr, cw1, cw2, tbl, **kw),
+                "subtree_pkt_kernel<%d, %s>" % (kw["prf_method"], "true"
+                                                if arity == 2 else "false"))
+            point[key] = dict(
+                name=name, plain_ms=plain_ms, library_ms=None,
+                bytes=g * 16 + 2 * g * 64 * 16 + g * n * 16 * 4 + g * 16 * 4,
+                ops=ops, pipe_bound_ms=pipe_bound_ms(
+                    ops, g * nodes * blocks * OPS_CORE_BLOCK_ALU, g * n * 16),
+                block_leaves=subtree.pkt_block_leaves(
+                    g, kw.get("ars", (2,) * depth)),
+                shape="%s G=%d n=%d E=16, per-key tables" % (key, g, n))
+            del want
+        # K4, K = R = sqrt(n); seeds and codewords views of one wire buffer
+        k, r = sqrtn.default_split(n)
+        wire = rnd(g, 4 * (k + 2 * r))
+        seeds = wire[:, :4 * k].unflatten(1, (k, 4))
+        c1 = wire[:, 4 * k:4 * (k + r)].unflatten(1, (r, 4))
+        c2 = wire[:, 4 * (k + r):].unflatten(1, (r, 4))
+        for key, prf in (("AES-128", dpf_tpu_torch.PRF_AES128),
+                         ("ChaCha20", chacha), ("ChaCha20-BLK", chacha_blk)):
+            kw = dict(prf_method=prf)
+            t0 = time.perf_counter()
+            want = sqrt_grid.sqrt_grid_contract_plain(
+                seeds, c1, c2, tbl, row_chunk=sqrt_grid.pkt_row_chunk(r, k),
+                **kw)
+            sync()
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+            errs["sqrt_grid_contract_pkt"] |= held(
+                "K4 %s G=%d n=%d" % (key, g, n),
+                sqrt_grid.sqrt_grid_contract(seeds, c1, c2, tbl, **kw), want)
+            calls["sqrt-N " + key] = (
+                lambda kw=kw, seeds=seeds, c1=c1, c2=c2, tbl=tbl:
+                sqrt_grid.sqrt_grid_contract(seeds, c1, c2, tbl, **kw),
+                "sqrt_grid_pkt_kernel<%d>" % prf)
+            point["sqrt-N " + key] = dict(
+                name="sqrt_grid_contract_pkt", plain_ms=plain_ms,
+                library_ms=None,
+                bytes=g * k * 16 + 2 * g * r * 16 + g * n * 16 * 4
+                + g * 16 * 4, ops=sqrt_ops(prf, g * n, 16),
+                lookups=g * n * (LOOKUPS_AES_BLOCK + LOOKUPS_AES_SCHEDULE
+                                 // 4) if prf == 3 else None,
+                row_chunk=sqrt_grid.pkt_row_chunk(r, k),
+                shape="%s sqrt-N G=%d n=%d (K=R=%d) E=16, per-key tables"
+                      % (key, g, n, k))
+            del want
+        for key, ms in profiled_ms(calls).items():
+            if key in point:
+                r_ = point[key]
+                r_["ms"] = ms
+                r_["bound_ms"], r_["bound_by"], r_["lookup_floor_ms"] = \
+                    bound(r_)
+                # the tighter limit: the bound, K2's pipe bound or the
+                # AES lookup floor, whichever is the largest
+                r_["limit_ms"] = max(r_["bound_ms"],
+                                     r_["lookup_floor_ms"] or 0.0,
+                                     r_.get("pipe_bound_ms", 0.0))
+                r_["limit_share"] = r_["limit_ms"] / ms
+                log("  per-key %-22s G=%-5d n=%-6d ms %.4f  bound_ms %.4f "
+                    "(%s)  limit_ms %.4f  share %.3f  plain_ms %.1f  %s"
+                    % (key, g, n, ms, r_["bound_ms"], r_["bound_by"],
+                       r_["limit_ms"], r_["limit_share"], r_["plain_ms"],
+                       "block %d" % r_["block_leaves"]
+                       if "block_leaves" in r_ else
+                       "rows %d" % r_["row_chunk"]))
+                pkt_sweep.append(dict(r_, instance=key, g=g, n=n))
+            else:
+                rows[key]["ms"] = ms            # K6 at phase 9's group
+        if g == g9 and n == n9:
+            for key, name in (("binary ChaCha20", "subtree_contract_pkt"),
+                              ("radix-4 ChaCha20",
+                               "subtree_contract_mixed_pkt"),
+                              ("sqrt-N AES-128", "sqrt_grid_contract_pkt")):
+                rows[name] = {k_: v for k_, v in point[key].items()
+                              if k_ not in ("name", "limit_ms",
+                                            "limit_share")}
+        del tbl, fr, cw1, cw2, wire, seeds, c1, c2, calls
+        torch.cuda.empty_cache()
+    del pkt_calls
 
     for name, r in rows.items():
         log_row(name, r)
@@ -1817,6 +1927,7 @@ def main() -> int:
                if sass and name.startswith("aes_level") else {})})
     log(json.dumps({"launches_per_batch": per_batch}))
     log(json.dumps({"k2_full_width": k2_rows, "k2_sass": sass_k2}))
+    log(json.dumps({"pkt_sweep": pkt_sweep}))
     log(json.dumps({"k3": k3_rows}))
     log("chip_smoke: %.1f s" % (time.perf_counter() - t_start))
     log(smi)

@@ -33,9 +33,9 @@ per bin with the batched generators and recovers the rows.
 
 Divergences by design: ``mesh=`` raises (multi-GPU is ROADMAP Queue 1
 item 9); ``scheme="auto"`` raises as ``api.DPF`` does (the tuning cache
-is item 8); the group knobs come from the heuristics
-(``expand.choose_chunk``, ``sqrtn.choose_row_chunk``), with no tuning
-cache.
+is item 8); the group knobs are the per-key kernels' geometry
+(``subtree.pkt_block_leaves``, ``sqrt_grid.pkt_row_chunk``; AES and
+DUMMY ``expand.clamp_chunk``), with no tuning cache.
 """
 
 from __future__ import annotations
@@ -376,15 +376,21 @@ class PrivateLookupServer:
     # ------------------------------------------------------ the hot path
 
     def _group_knobs(self, n: int, batch: int, sch: str, rad: int) -> dict:
-        """Program knobs of one (n, G) dispatch, from the heuristics: the
-        64 MiB live-seed chunk (``expand.clamp_chunk``; K2's block for
-        the stream ciphers, capped at 4096 leaves) or, for sqrt-N, a row
-        chunk resolved against the decoded batch's split at dispatch
-        (``sqrtn.clamp_row_chunk``).  None of them changes a bit."""
-        from ..core import expand
+        """Program knobs of one (n, G) dispatch, the per-key geometry:
+        K2's block subtree for the stream ciphers
+        (``subtree.pkt_block_leaves``), the 64 MiB live-seed chunk for
+        AES and DUMMY (``expand.clamp_chunk``, rounded down to a product
+        of trailing arities in the radix-4 tree); for sqrt-N the row
+        chunk is None, resolved from the keys' rows by K4's wrapper
+        (``sqrt_grid.pkt_row_chunk``).  None of them changes a bit."""
+        from ..core import expand, radix4
+        from ..ops import subtree
         if sch == "sqrtn":
             return {"row_chunk": None}
-        return {"chunk_leaves": expand.clamp_chunk(None, n, batch)}
+        if self.prf_method not in expand.SUBTREE_PRFS:
+            return {"chunk_leaves": expand.clamp_chunk(None, n, batch)}
+        ars = radix4.arities(n) if rad == 4 else (2,) * (n.bit_length() - 1)
+        return {"chunk_leaves": subtree.pkt_block_leaves(batch, ars)}
 
     def _decode_group(self, n: int, grp: _SizeGroup, keys):
         """Packed-codec ingest of one size group's keys, with fail-fast
@@ -447,11 +453,9 @@ class PrivateLookupServer:
             pk = staged.pk
             seeds, cw1, cw2 = sqrtn.sqrt_key_views(buf, pk.n_keys,
                                                    pk.n_codewords)
-            rc = sqrtn.clamp_row_chunk(knobs["row_chunk"], pk.n_codewords,
-                                       pk.n_keys, staged.size)
             return sqrtn.eval_contract_per_key_tables(
                 seeds, cw1, cw2, grp.tables, prf_method=self.prf_method,
-                row_chunk=rc)
+                **knobs)
         cw1, cw2, last = _logn_planes(buf, staged.size)
         if grp.radix == 4:
             return radix4.expand_and_contract_per_key_tables_mixed(
@@ -519,11 +523,9 @@ class PrivateLookupServer:
             if grp.scheme == "sqrtn":
                 seeds, cw1, cw2 = (from_u32(a).to(self.device)
                                    for a in sqrtn.pack_sqrt_keys(parsed))
-                rc = sqrtn.clamp_row_chunk(knobs["row_chunk"], cw1.shape[1],
-                                           seeds.shape[1], len(keys))
                 shares = sqrtn.eval_contract_per_key_tables(
                     seeds, cw1, cw2, grp.tables, prf_method=self.prf_method,
-                    row_chunk=rc)
+                    **knobs)
             else:
                 pack = (radix4.pack_mixed_keys if grp.radix == 4
                         else expand.pack_keys)

@@ -268,7 +268,8 @@ def eval_dispatch(cw1, cw2, last, table_perm, *, depth: int,
 
 def expand_and_contract_per_key_tables(cw1, cw2, last, tables_perm, *,
                                        depth: int, prf_method: int,
-                                       chunk_leaves: int) -> torch.Tensor:
+                                       chunk_leaves: int | None = None
+                                       ) -> torch.Tensor:
     """Fused evaluation where every key has its own table (port of
     ``expand.expand_and_contract_per_key_tables``, the batch-PIR bin
     protocol: one dispatch answers a query round across all bins of one
@@ -278,21 +279,26 @@ def expand_and_contract_per_key_tables(cw1, cw2, last, tables_perm, *,
     contiguous.  Returns ``[B, E]`` int32 shares, ``out[b] = sum_j
     leaf32[b, j] * tables_perm[b, j]`` mod 2^32.  Routed as
     ``expand_and_contract``: the stream ciphers through K2's per-key
-    mode from the root (``chunk_leaves`` its block, at most 4096), AES
-    and DUMMY through ``dispatch_contract`` with K6 per group."""
+    mode from the root (``chunk_leaves`` its block subtree, a power of
+    two of at most 4096, else ValueError; None = ``subtree.
+    pkt_block_leaves``), AES and DUMMY through ``dispatch_contract`` with
+    K6 per group (``chunk_leaves`` its frontier subtree; None = the
+    64 MiB live-seed chunk, ``clamp_chunk``).  ``chunk_leaves`` changes
+    no bit of the result."""
     if tables_perm.dim() != 3 or tables_perm.shape[0] != last.shape[0]:
         raise ValueError("per-key tables %s for %d keys"
                          % (tuple(tables_perm.shape), last.shape[0]))
     n = tables_perm.shape[1]
-    c = chunk_leaves
-    if n != 1 << depth or c < 1 or n % c or c & (c - 1):
-        raise ValueError("chunk_leaves (%d) must be a power of two dividing "
-                         "the table size %d = 2^%d" % (c, n, depth))
     if prf_method in SUBTREE_PRFS:
         from ..ops.subtree import subtree_contract
         return subtree_contract(last[:, None, :], cw1, cw2, tables_perm,
                                 depth=depth, f_levels=0,
-                                prf_method=prf_method, block_leaves=c)
+                                prf_method=prf_method,
+                                block_leaves=chunk_leaves)
+    c = chunk_leaves or clamp_chunk(None, n, last.shape[0])
+    if n != 1 << depth or c < 1 or n % c or c & (c - 1):
+        raise ValueError("chunk_leaves (%d) must be a power of two dividing "
+                         "the table size %d = 2^%d" % (c, n, depth))
     return eval_dispatch(cw1, cw2, last, tables_perm, depth=depth,
                          prf_method=prf_method, chunk_leaves=c)
 

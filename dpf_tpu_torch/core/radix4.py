@@ -495,7 +495,7 @@ def eval_dispatch_mixed(cw1, cw2, last, table_perm, *, n: int,
 
 def expand_and_contract_per_key_tables_mixed(cw1, cw2, last, tables_perm,
                                              *, n: int, prf_method: int,
-                                             chunk_leaves: int | None
+                                             chunk_leaves: int | None = None
                                              ) -> torch.Tensor:
     """Radix-4 fused evaluation where every key has its own table (port
     of ``radix4.expand_and_contract_per_key_tables_mixed``, the batch-PIR
@@ -504,17 +504,21 @@ def expand_and_contract_per_key_tables_mixed(cw1, cw2, last, tables_perm,
     tables_perm: ``[B, N, E]`` int32, each permuted with
     ``mixed_reverse_indices`` and contiguous.  Returns ``[B, E]`` int32
     shares.  Routed as ``expand_and_contract_mixed``: the stream ciphers
-    through the mixed K2's per-key mode from the root, AES and DUMMY
-    through ``eval_dispatch_mixed`` with K6 per group; ``chunk_leaves``
-    (rounded down to a suffix product of the arities, None = N; at most
-    K2's block of 4096 leaves for the stream ciphers) changes no bit of
-    the result."""
+    through the mixed K2's per-key mode from the root (``chunk_leaves``
+    its block subtree, a product of trailing arities of at most 4096,
+    else ValueError; None = ``subtree.pkt_block_leaves``), AES and DUMMY
+    through ``eval_dispatch_mixed`` with K6 per group (``chunk_leaves``
+    rounded down to a suffix product of the arities, None = N).
+    ``chunk_leaves`` changes no bit of the result."""
     if tables_perm.dim() != 3 or tables_perm.shape[0] != last.shape[0]:
         raise ValueError("per-key tables %s for %d keys"
                          % (tuple(tables_perm.shape), last.shape[0]))
     if prf_method in SUBTREE_PRFS:
-        from ..ops.subtree import MAX_BLOCK_LEAVES
-        chunk_leaves = min(chunk_leaves or n, MAX_BLOCK_LEAVES)
-    return expand_and_contract_mixed(cw1, cw2, last, tables_perm, n=n,
-                                     prf_method=prf_method,
-                                     chunk_leaves=chunk_leaves)
+        from ..ops.subtree import subtree_contract_mixed
+        return subtree_contract_mixed(last[:, None, :], cw1, cw2,
+                                      tables_perm, ars=arities(n), f_lv=0,
+                                      prf_method=prf_method,
+                                      block_leaves=chunk_leaves)
+    return eval_dispatch_mixed(cw1, cw2, last, tables_perm, n=n,
+                               prf_method=prf_method,
+                               chunk_leaves=chunk_leaves)

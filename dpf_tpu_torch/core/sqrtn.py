@@ -473,8 +473,9 @@ def eval_contract_per_key_tables(seeds, cw1, cw2, tables, *,
     tables: ``[B, N, E]`` int32 in natural order (no permutation) and
     contiguous.  Returns ``[B, E]`` int32: ``out[b] = sum_x leaf32[b, x]
     * tables[b, x]`` mod 2^32.  K4's per-key mode on CUDA tensors, the
-    plain scan on CPU ones; ``row_chunk`` follows the rules of
-    ``eval_contract_batched`` and changes no bit of the result."""
+    plain scan on CPU ones; ``row_chunk`` (the rows of a per-key item)
+    must divide R and be a multiple of 4 below R, else ValueError; None
+    = ``sqrt_grid.pkt_row_chunk``.  It changes no bit of the result."""
     from ..ops.sqrt_grid import sqrt_grid_contract
     if tables.dim() != 3 or tables.shape[0] != seeds.shape[0]:
         raise ValueError("per-key tables %s for %d keys"

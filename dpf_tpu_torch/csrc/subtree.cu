@@ -47,17 +47,7 @@
 //     then the block reduces each (key, column) in shared memory and adds
 //     it atomically into the zeroed [B, E] output.  int32 addition wraps
 //     mod 2^32 and is associative, so the order of the atomics changes no
-//     bit;
-//   * a per-key-table mode (PKT, a second instance of each PRF and
-//     schedule; the shared-table instances compile to the same code as
-//     before it existed) serves batch-PIR, where key b of the batch has
-//     its own table rows at table + b N E (tables [B, N, E], each
-//     permuted like the shared one; no JAX counterpart of its own: the
-//     JAX package's per-key paths, core/expand.py:448 and
-//     core/radix4.py:628, run the same expansion with a batched XLA
-//     dot_general).  The expansion is unchanged; the contraction reads
-//     each live key's own row values, so no table value serves more than
-//     one key and the keys past the batch's end read nothing.
+//     bit.
 //
 // Bound on the H100: operations.  A parent of arity a costs a 12-round
 // core blocks (one for the block-PRG ids, whose block feeds all four
@@ -68,10 +58,32 @@
 // bytes: 8 GiB at B = 512, N = 2^20, E = 16, against 32 GiB with one key
 // per block.
 //
+// The per-key-table mode (subtree_pkt_kernel) serves batch-PIR, where key
+// b of the batch has its own table rows at table + b N E (tables
+// [B, N, E], each permuted like the shared one; no JAX counterpart of its
+// own: the JAX package's per-key paths, core/expand.py:448 and
+// core/radix4.py:628, run the same expansion and contract with a batched
+// XLA dot_general).  No table value serves more than one key, so a key
+// tile buys nothing and would divide the grid by 4:
+//
+//   * one block per (key, block subtree), all 256 threads on the one key,
+//     the blocks of a key adjacent.  Block subtrees are small enough
+//     (ops/subtree.py::pkt_block_leaves) that a batch-PIR group's grid
+//     holds several blocks on every SM; each costs one serial PRF call a
+//     level on the walk from the frontier to its root, by one thread;
+//   * the expansion is the shared kernel's for one key of 256 threads
+//     (breadth-first to W = 128 or 256 nodes, then depth-first), with a
+//     depth-first stack sized for that width;
+//   * the contraction streams the key's CB rows once, 16-byte loads on
+//     neighbouring addresses, and adds one atomic per column
+//     (pkt_contract.cuh).  At most 16 KB of leaves and 8 KB of scratch:
+//     no opt-in beyond 48 KB of shared memory.
+//
 // The cipher cores and their layouts are in stream_cipher.cuh, shared
 // with K4 and K5.
 
 #include "dpf_common.cuh"
+#include "pkt_contract.cuh"
 #include "stream_cipher.cuh"
 
 namespace {
@@ -99,6 +111,9 @@ constexpr int kMaxDynSmemBytes = 232448;
 // bit of that; an all-binary block reaches W >= 64.
 constexpr int kMaxDfs = kMaxLogBlockLeaves + 1 - kLogMinKeyThreads;
 constexpr int kMaxDfsBinary = kMaxLogBlockLeaves - kLogMinKeyThreads;
+// the same for the per-key kernel, whose key has all kThreads threads
+constexpr int kPktMaxDfs = kMaxLogBlockLeaves + 1 - kLogThreads;
+constexpr int kPktMaxDfsBinary = kMaxLogBlockLeaves - kLogThreads;
 
 // The arity schedule of one launch, built on the host, passed by value.
 // Eval level j (0 = the root's) has arity 1 << lg[j] and reads codeword
@@ -178,14 +193,13 @@ __device__ __forceinline__ void expand_node(const uint32_t s[4], int a,
   }
 }
 
-// PKT: every key has its own [N, E] table (see above).
 // BIN: every level below the block subtrees' roots is binary (the whole
 // binary tree, and radix-4 trees of one binary level above the block), so
 // arities are the constant 2 there and the depth-first stack holds one
 // sibling per level.  Otherwise the children loops keep a run-time trip
 // count: unrolled with a guard they hold kid in registers, 48 instead of
 // 32 for the block-PRG ids, and fewer blocks fit on an SM.
-template <int PRF, bool BIN, bool PKT>
+template <int PRF, bool BIN>
 __global__ void __launch_bounds__(kThreads)
     subtree_kernel(const uint32_t* __restrict__ frontier,
                    const uint32_t* __restrict__ cw1,
@@ -318,9 +332,8 @@ __global__ void __launch_bounds__(kThreads)
   // contract the tile's leaves with table rows row0 .. row0 + CB - 1:
   // thread tid takes column e0 + tid % ew and the row quads tid / ew,
   // tid / ew + lanes, ...  Keys past the batch's end multiply whatever
-  // their leaves hold and are not added (with per-key tables they read
-  // no row).  The lane sums go to the nodes' buffer, free since the
-  // barrier above
+  // their leaves hold and are not added.  The lane sums go to the nodes'
+  // buffer, free since the barrier above
   const long long row0 =
       ((long long)f << sc.log_c) + (s_idx << sc.log_cb);
   const long long ld = e_total;
@@ -338,42 +351,18 @@ __global__ void __launch_bounds__(kThreads)
       const long long o1 = cb > 1 ? ld : 0, o2 = cb > 2 ? 2 * ld : o1,
                       o3 = cb > 2 ? 3 * ld : o1;
       const int q0 = tid / ew;
-      if constexpr (PKT) {
-        // key k0 + k's rows start N E words after key k0 + k - 1's
-        const long long key_ld = ((long long)f_cnt << sc.log_c) * ld;
-        const int32_t* row = table + key0 * key_ld + (row0 + 4 * q0) * ld + e;
-        for (int qd = q0; 4 * qd < cb; qd += lanes, row += 4 * lanes * ld) {
-          const uint4* lq =
-              reinterpret_cast<const uint4*>(leaves) + qd * kTileKeys;
+      const int32_t* row = table + (row0 + 4 * q0) * ld + e;
+      for (int qd = q0; 4 * qd < cb; qd += lanes, row += 4 * lanes * ld) {
+        const uint32_t t0 = row[0], t1 = row[o1], t2 = row[o2], t3 = row[o3];
+        const uint4* lq =
+            reinterpret_cast<const uint4*>(leaves) + qd * kTileKeys;
 #pragma unroll
-          for (int k = 0; k < kTileKeys; ++k) {
-            if (k < nk) {
-              const int32_t* rk = row + k * key_ld;
-              const uint32_t t0 = rk[0], t1 = rk[o1], t2 = rk[o2],
-                             t3 = rk[o3];
-              const uint4 l = lq[k];
-              acc[k] += l.x * t0;
-              acc[k] += l.y * t1;
-              acc[k] += l.z * t2;
-              acc[k] += l.w * t3;
-            }
-          }
-        }
-      } else {
-        const int32_t* row = table + (row0 + 4 * q0) * ld + e;
-        for (int qd = q0; 4 * qd < cb; qd += lanes, row += 4 * lanes * ld) {
-          const uint32_t t0 = row[0], t1 = row[o1], t2 = row[o2],
-                         t3 = row[o3];
-          const uint4* lq =
-              reinterpret_cast<const uint4*>(leaves) + qd * kTileKeys;
-#pragma unroll
-          for (int k = 0; k < kTileKeys; ++k) {
-            const uint4 l = lq[k];
-            acc[k] += l.x * t0;
-            acc[k] += l.y * t1;
-            acc[k] += l.z * t2;
-            acc[k] += l.w * t3;
-          }
+        for (int k = 0; k < kTileKeys; ++k) {
+          const uint4 l = lq[k];
+          acc[k] += l.x * t0;
+          acc[k] += l.y * t1;
+          acc[k] += l.z * t2;
+          acc[k] += l.w * t3;
         }
       }
     }
@@ -391,6 +380,140 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
   }
+}
+
+// The per-key-table mode (see above): block blockIdx.x expands block
+// subtree blockIdx.x % (F << log_s) of key blockIdx.x / (F << log_s) with
+// all kThreads threads (log_kt = kLogThreads) and contracts its leaves
+// with the key's own rows.  The expansion is subtree_kernel's for one
+// live key, copied rather than shared so that the shared-table instances
+// keep their code instruction for instruction; vec: pkt_contract's
+// vector form.
+template <int PRF, bool BIN>
+__global__ void __launch_bounds__(kThreads)
+    subtree_pkt_kernel(const uint32_t* __restrict__ frontier,
+                       const uint32_t* __restrict__ cw1,
+                       const uint32_t* __restrict__ cw2,
+                       const uint32_t* __restrict__ table,
+                       uint32_t* __restrict__ out, int f_cnt, int e_total,
+                       bool vec, const Sched sc) {
+  constexpr int kA = BIN ? 2 : 4;                 // widest arity in the block
+  // dynamic: the key's CB leaves, then two buffers of kThreads
+  // breadth-first nodes (the contraction's lane sums after the expansion)
+  extern __shared__ uint4 dpf_smem[];
+  const int cb = 1 << sc.log_cb;
+  uint32_t* const leaves = reinterpret_cast<uint32_t*>(dpf_smem);
+  uint32_t* const scratch = leaves + cb;
+  auto nodes = reinterpret_cast<uint32_t (*)[kThreads * 4]>(scratch);
+
+  const int tid = threadIdx.x;
+  const long long per_key = (long long)f_cnt << sc.log_s;  // blocks a key
+  const long long key = blockIdx.x / per_key;
+  const long long sub = blockIdx.x % per_key;
+  const int f = (int)(sub >> sc.log_s);
+  const long long s_idx = sub & ((1LL << sc.log_s) - 1);
+  const uint32_t* const kc1 = cw1 + key * kMaxSlots * 4;
+  const uint32_t* const kc2 = cw2 + key * kMaxSlots * 4;
+
+  // walk from the frontier node to this block's subtree root, the digit
+  // of level j the next lg[j] bits of s_idx, most significant first
+  if (tid == 0) {
+    const uint32_t* fr = frontier + (key * f_cnt + f) * 4;
+    uint32_t cur[4] = {fr[0], fr[1], fr[2], fr[3]};
+    int shift = sc.log_s;
+    for (int j = sc.f_lv; j < sc.s_lv; ++j) {
+      shift -= sc.lg[j];
+      const uint32_t br =
+          (uint32_t)(s_idx >> shift) & ((1u << sc.lg[j]) - 1u);
+      uint32_t v[4];
+      prf_child<PRF>(cur, br, v);
+      const uint32_t* cw = (cur[0] & 1u) ? kc2 : kc1;
+      dpf::add128(cur, v, cw + 4 * (sc.off[j] + (int)br));
+    }
+#pragma unroll
+    for (int l = 0; l < 4; ++l) nodes[0][l] = cur[l];
+  }
+  __syncthreads();
+
+  // breadth-first in shared memory down to W <= kThreads nodes; child b
+  // of node t lands at a t + b
+  int buf = 0;
+  int w = 1;
+  for (int j = sc.s_lv; j < sc.bfs_end; ++j) {
+    const int a = BIN ? 2 : 1 << sc.lg[j];
+    if (tid < w) {
+      const uint32_t* src = nodes[buf] + 4 * tid;
+      const uint32_t s[4] = {src[0], src[1], src[2], src[3]};
+      uint32_t kid[kA][4];
+      expand_node<PRF, kA>(s, a, sc.off[j], kc1, kc2, kid);
+      uint32_t* dst = nodes[buf ^ 1] + 4 * a * tid;
+      for (int b = 0; b < a; ++b) {
+#pragma unroll
+        for (int l = 0; l < 4; ++l) dst[4 * b + l] = kid[b][l];
+      }
+    }
+    w *= a;
+    buf ^= 1;
+    __syncthreads();
+  }
+
+  // depth-first per thread over the m levels left: leaf q of node tid
+  // lands at tid * per + q, q's digits (last level least significant)
+  // naming the branch taken at each level
+  const int m = sc.levels - sc.bfs_end;
+  const int per = 1 << (sc.log_cb - sc.log_w);
+  if (tid < w) {
+    const uint32_t* src = nodes[buf] + 4 * tid;
+    uint32_t node[4] = {src[0], src[1], src[2], src[3]};
+    uint32_t sib[BIN ? kPktMaxDfsBinary : kPktMaxDfs][kA - 1][4];
+    int d_start = 0;
+    for (int q = 0; q < per; ++q) {
+      if (q > 0) {
+        // the deepest level whose digit is not 0 turns right: resume from
+        // its stored sibling
+        int d0, dig;
+        if constexpr (BIN) {
+          d0 = m - __ffs(q);
+          dig = 1;
+        } else {
+          d0 = m - 1;
+          int rest = q;
+          dig = rest & ((1 << sc.lg[sc.bfs_end + d0]) - 1);
+          while (dig == 0) {
+            rest >>= sc.lg[sc.bfs_end + d0];
+            --d0;
+            dig = rest & ((1 << sc.lg[sc.bfs_end + d0]) - 1);
+          }
+        }
+#pragma unroll
+        for (int l = 0; l < 4; ++l) node[l] = sib[d0][dig - 1][l];
+        d_start = d0 + 1;
+      }
+      for (int d = d_start; d < m; ++d) {
+        const int j = sc.bfs_end + d;
+        const int a = BIN ? 2 : 1 << sc.lg[j];
+        uint32_t kid[kA][4];
+        expand_node<PRF, kA>(node, a, sc.off[j], kc1, kc2, kid);
+        for (int b = 1; b < a; ++b) {
+#pragma unroll
+          for (int l = 0; l < 4; ++l) sib[d][b - 1][l] = kid[b][l];
+        }
+#pragma unroll
+        for (int l = 0; l < 4; ++l) node[l] = kid[0][l];
+      }
+      leaves[tid * per + q] = node[0];
+    }
+  }
+  __syncthreads();
+
+  // the key's rows row0 .. row0 + CB - 1, in the leaves' order; the lane
+  // sums go to the nodes' buffer, free since the barrier above
+  const long long row0 =
+      ((long long)f << sc.log_c) + (s_idx << sc.log_cb);
+  const long long n = (long long)f_cnt << sc.log_c;
+  dpf::pkt_contract<kThreads>(leaves, 1, cb, 0, 0,
+                              table + (key * n + row0) * e_total, e_total,
+                              vec, scratch, out + key * e_total);
 }
 
 // Check a schedule and fill its split: the block subtrees are the last
@@ -430,22 +553,36 @@ bool split_schedule(Sched& sc, int f_cnt, int f_lv, int log_cb, int log_kt,
   sc.bfs_end = j;
   bin = true;
   for (j = sc.s_lv; j < sc.levels; ++j) bin = bin && sc.lg[j] == 1;
-  return sc.levels - sc.bfs_end <= (bin ? kMaxDfsBinary : kMaxDfs);
+  // the kernels' depth-first stacks: kMaxDfs(Binary) at 64 threads a
+  // key, kPktMaxDfs(Binary) at 256
+  return sc.levels - sc.bfs_end <=
+         kMaxLogBlockLeaves - log_kt + (bin ? 0 : 1);
 }
 
 // Shared memory above 48 KB must be allowed per kernel, once per process.
-template <int P, bool BIN, bool PKT>
+template <int P, bool BIN>
 cudaError_t launch_kernel(dim3 grid, size_t smem, cudaStream_t st,
                           const void* frontier, const void* cw1,
                           const void* cw2, const void* table, void* out,
                           int batch, int f_cnt, int e_total, const Sched& sc) {
   static const cudaError_t err = cudaFuncSetAttribute(
-      subtree_kernel<P, BIN, PKT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      subtree_kernel<P, BIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kMaxDynSmemBytes);
   if (err != cudaSuccess) return err;
-  subtree_kernel<P, BIN, PKT><<<grid, kThreads, smem, st>>>(
+  subtree_kernel<P, BIN><<<grid, kThreads, smem, st>>>(
       (const uint32_t*)frontier, (const uint32_t*)cw1, (const uint32_t*)cw2,
       (const int32_t*)table, (uint32_t*)out, batch, f_cnt, e_total, sc);
+  return cudaGetLastError();
+}
+
+template <int P, bool BIN>
+cudaError_t launch_pkt(dim3 grid, size_t smem, cudaStream_t st,
+                       const void* frontier, const void* cw1,
+                       const void* cw2, const void* table, void* out,
+                       int f_cnt, int e_total, bool vec, const Sched& sc) {
+  subtree_pkt_kernel<P, BIN><<<grid, kThreads, smem, st>>>(
+      (const uint32_t*)frontier, (const uint32_t*)cw1, (const uint32_t*)cw2,
+      (const uint32_t*)table, (uint32_t*)out, f_cnt, e_total, vec, sc);
   return cudaGetLastError();
 }
 
@@ -459,7 +596,7 @@ cudaError_t launch_kernel(dim3 grid, size_t smem, cudaStream_t st,
 // f_lv arities), table [N, E] rows in digit-reversed order, out [B, E]
 // zeroed by the caller, block subtrees of 2^log_cb leaves (a product of
 // trailing arities).  per_key: table is [B, N, E], one permuted table a
-// key.  Returns the launch's cudaError_t.
+// key, served by the per-key kernel.  Returns the launch's cudaError_t.
 extern "C" int subtree_contract_launch(
     const void* frontier, const void* cw1, const void* cw2, const void* table,
     void* out, int batch, int f_cnt, int levels, const int* lg,
@@ -472,11 +609,37 @@ extern "C" int subtree_contract_launch(
     sc.lg[j] = lg[j];
     sc.off[j] = off[j];
   }
-  const int log_kt = batch == 1 ? kLogThreads : kLogMinKeyThreads;
+  const int log_kt =
+      per_key || batch == 1 ? kLogThreads : kLogMinKeyThreads;
   bool bin = false;
   if (batch <= 0 || e_total <= 0 ||
       !split_schedule(sc, f_cnt, f_lv, log_cb, log_kt, bin) || sc.log_s > 30)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (per_key) {
+    const long long blocks = ((long long)batch * f_cnt) << sc.log_s;
+    const size_t smem = 4 * ((size_t)1 << log_cb) + 4 * kScratchWords;
+    const int q = e_total / 4;
+    const bool vec = e_total % 4 == 0 && q <= kThreads && (q & (q - 1)) == 0 &&
+                     (reinterpret_cast<uintptr_t>(table) & 15) == 0;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)blocks);
+#define DPF_LAUNCH(P)                                                     \
+  return (int)(bin ? launch_pkt<P, true>(grid, smem, st, frontier, cw1,   \
+                                         cw2, table, out, f_cnt, e_total, \
+                                         vec, sc)                         \
+                   : launch_pkt<P, false>(grid, smem, st, frontier, cw1,  \
+                                          cw2, table, out, f_cnt,         \
+                                          e_total, vec, sc))
+    switch (prf) {
+      case 1: DPF_LAUNCH(1);
+      case 2: DPF_LAUNCH(2);
+      case 4: DPF_LAUNCH(4);
+      case 5: DPF_LAUNCH(5);
+      default: return (int)cudaErrorInvalidValue;
+    }
+#undef DPF_LAUNCH
+  }
   const long long tiles = (batch + kTileKeys - 1) / kTileKeys;
   const long long blocks = (tiles * f_cnt) << sc.log_s;
   const size_t smem = 4 * ((size_t)kTileKeys * (log_cb < 2 ? 4 : 1 << log_cb)
@@ -484,21 +647,13 @@ extern "C" int subtree_contract_launch(
   if (blocks > 0x7fffffffLL || smem > (size_t)kMaxDynSmemBytes)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks);
-  cudaStream_t st = (cudaStream_t)stream;
-#define DPF_LAUNCH_PKT(P, PKT)                                              \
-  return (int)(bin ? launch_kernel<P, true, PKT>(grid, smem, st, frontier,  \
-                                                 cw1, cw2, table, out,      \
-                                                 batch, f_cnt, e_total, sc) \
-                   : launch_kernel<P, false, PKT>(grid, smem, st, frontier, \
-                                                  cw1, cw2, table, out,     \
-                                                  batch, f_cnt, e_total,    \
-                                                  sc))
-#define DPF_LAUNCH(P)          \
-  if (per_key) {               \
-    DPF_LAUNCH_PKT(P, true);   \
-  } else {                     \
-    DPF_LAUNCH_PKT(P, false);  \
-  }
+#define DPF_LAUNCH(P)                                                       \
+  return (int)(bin ? launch_kernel<P, true>(grid, smem, st, frontier, cw1,  \
+                                            cw2, table, out, batch, f_cnt,  \
+                                            e_total, sc)                    \
+                   : launch_kernel<P, false>(grid, smem, st, frontier, cw1, \
+                                             cw2, table, out, batch, f_cnt, \
+                                             e_total, sc))
   switch (prf) {
     case 1: DPF_LAUNCH(1);
     case 2: DPF_LAUNCH(2);
@@ -507,7 +662,6 @@ extern "C" int subtree_contract_launch(
     default: return (int)cudaErrorInvalidValue;
   }
 #undef DPF_LAUNCH
-#undef DPF_LAUNCH_PKT
 }
 
 extern "C" const char* subtree_contract_error_string(int code) {

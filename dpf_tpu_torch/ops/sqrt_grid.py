@@ -27,8 +27,10 @@ Per-key tables: both functions also take a ``[B, R*K, E]`` stack, one
 natural-order table a key (batch-PIR's bins; the JAX package's
 ``sqrtn.eval_contract_per_key_tables`` runs the same grid and
 contracts with a batched ``dot_general``): ``out[b] = sum_x leaf32[b,
-x] * tables[b, x]``.  K4 runs its per-key instances; their launches
-count in ``launches_pkt``.
+x] * tables[b, x]``.  K4 runs its per-key kernel over items of one key
+and ``pkt_row_chunk`` rows unless the caller names the row chunk (taken
+as given, or refused by the row-chunk rules); its launches count in
+``launches_pkt``.
 
 The Mosaic-only variant knobs of the TPU launcher (``grid_order``,
 ``dim_semantics``, ``limbs``, ``cw_add``) are not ported (ROADMAP Queue
@@ -48,6 +50,9 @@ from .matmul128 import dot_i32_per_key_plain, dot_i32_plain
 # the TPU kernel's cell budget per row tile (PALLAS_SQRT_MAX_CELLS); here
 # it sets the rows of K4's grid step, not a memory bound
 MAX_CELLS = 2048
+# K4's sub-tile: 4 rows x 256 columns, one quad of rows for each of a
+# block's 256 threads (csrc/sqrt_grid.cu kTileCells)
+PKT_TILE_CELLS = 1024
 
 
 def sqrt_grid_unsupported(prf_method: int, r: int,
@@ -80,6 +85,20 @@ def sqrt_row_chunk(r: int, k: int, row_chunk: int | None = None) -> int:
     while rc * k > MAX_CELLS and rc > sqrtn.ROW_CHUNK_FLOOR and rc % 8 == 0:
         rc //= 2
     return rc
+
+
+def pkt_row_chunk(r: int, k: int) -> int:
+    """Rows per item of K4's per-key mode over an ``[R, K]`` grid: the
+    smallest legal row chunk (a divisor of R, a multiple of 4 unless it
+    is R; ``sqrtn._resolve_row_chunk``) whose item fills a sub-tile of
+    ``PKT_TILE_CELLS`` cells, so that every thread of a block has a quad
+    of rows; R when none does.  The kernel's persistent blocks walk the
+    items, so the smallest full items give the most of them, the best
+    fill of the card and the least idle tail, whatever the number of
+    keys.  No bit of the result depends on it."""
+    legal = [rc for rc in range(1, r + 1)
+             if r % rc == 0 and (rc == r or rc % sqrtn.ROW_CHUNK_FLOOR == 0)]
+    return min(rc for rc in legal if rc == r or rc * k >= PKT_TILE_CELLS)
 
 
 def _check(seeds, cw1, cw2, table, prf_method, row0) -> tuple:
@@ -150,8 +169,13 @@ def sqrt_grid_contract(seeds, cw1, cw2, table, *, prf_method: int,
                        row0: int = 0) -> torch.Tensor:
     """Fused sqrt-N grid expand + contract; K4 on CUDA tensors, plain on
     CPU ones.  ``table``: one ``[R*K, E]`` table or ``[B, R*K, E]``, one
-    a key.  Returns [B, E] int32."""
+    a key (rows a per-key item: ``row_chunk`` under the row-chunk rules,
+    ``pkt_row_chunk`` when None).  Returns [B, E] int32."""
     bsz, k, r, e = _check(seeds, cw1, cw2, table, prf_method, row0)
+    per_key = table.dim() == 3
+    if per_key:
+        row_chunk = (pkt_row_chunk(r, k) if row_chunk is None else
+                     sqrtn._resolve_row_chunk(r, k, bsz, row_chunk))
     if seeds.device.type == "cpu":
         return sqrt_grid_contract_plain(seeds, cw1, cw2, table,
                                         prf_method=prf_method,
@@ -159,16 +183,15 @@ def sqrt_grid_contract(seeds, cw1, cw2, table, *, prf_method: int,
     if seeds.device.type != "cuda":
         raise ValueError("sqrt_grid_contract: unsupported device %s"
                          % seeds.device)
-    rc = sqrt_row_chunk(r, k, row_chunk)
+    rc = row_chunk if per_key else sqrt_row_chunk(r, k, row_chunk)
     out = torch.zeros((bsz, e), dtype=torch.int32, device=seeds.device)
     with torch.cuda.device(seeds.device):
         cuda_build.launch(
             "sqrt_grid", "sqrt_grid_launch", seeds.data_ptr(),
             seeds.stride(0), cw1.data_ptr(), cw2.data_ptr(), cw1.stride(0),
             table.data_ptr(), out.data_ptr(), bsz, k, r, rc, e, int(row0),
-            prf_method, int(table.dim() == 3),
-            torch.cuda.current_stream().cuda_stream)
-    if table.dim() == 3:
+            prf_method, int(per_key), torch.cuda.current_stream().cuda_stream)
+    if per_key:
         sqrt_grid_contract.launches_pkt += 1
     else:
         sqrt_grid_contract.launches += 1

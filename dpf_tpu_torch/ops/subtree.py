@@ -31,7 +31,9 @@ and the bit-reversed table ``[N, E]`` -> ``[B, E]`` int32 shares:
   package's per-key paths ``expand.expand_and_contract_per_key_tables``
   and ``radix4.expand_and_contract_per_key_tables_mixed`` expand the
   same way and contract with a batched ``dot_general``).  K2 runs its
-  per-key instances; their launches count in ``launches_pkt``.
+  per-key kernel, one key a block, over block subtrees of
+  ``pkt_block_leaves`` leaves unless the caller names them (a size the
+  kernel cannot take raises); its launches count in ``launches_pkt``.
 
 * ``chacha_level_step`` / ``chacha_level_step_plain`` -- one ChaCha20-12
   GGM level, the port of ``pallas_level.chacha_level_step_pallas``:
@@ -58,6 +60,12 @@ from .aes_level import check_level_operands
 from .matmul128 import dot_i32_per_key_plain, dot_i32_plain
 
 MAX_BLOCK_LEAVES = 4096   # leaves per key that a K2 block keeps
+# K2's per-key grid: at least three blocks for each of the H100's 132 SMs
+# (a block's top breadth-first levels keep most of its warps idle, so an
+# SM needs several), each block subtree at least one leaf for each of its
+# 256 threads
+PKT_TARGET_BLOCKS = 3 * 132
+PKT_MIN_BLOCK_LEAVES = 256
 
 
 def subtree_chunk_leaves(n: int) -> int:
@@ -67,6 +75,35 @@ def subtree_chunk_leaves(n: int) -> int:
     while c * 2 <= min(n, MAX_BLOCK_LEAVES):
         c *= 2
     return c
+
+
+def pkt_block_leaves(g: int, ars, f_cnt: int = 1) -> int:
+    """Leaves per block subtree of K2's per-key mode, for ``g`` keys with
+    ``f_cnt`` frontier nodes each over levels of arities ``ars`` below
+    the frontier (the binary tree: ``(2,) * levels``): the largest
+    product of trailing arities, at most 4096 and at least min(256, all
+    the leaves below a node), whose grid of ``g * f_cnt * prod(ars) /
+    CB`` blocks reaches ``PKT_TARGET_BLOCKS``; the smallest such product
+    when none does.  Each block also walks one PRF call a level from
+    the frontier to its root, and the binary instances hold six blocks
+    an SM, so smaller blocks than the grid needs add walks and a partial
+    second wave (on an H100 at G = 256 bins of 4096 rows, binary
+    ChaCha20: 512 blocks of 2048 leaves beat 1024 of 1024 by 7%, and 256
+    of 4096 lose to both; ``utils/pkt_times.py --geometry``).  No bit of
+    the result depends on it."""
+    cands, c = [], 1
+    for a in reversed(tuple(ars)):
+        c *= a
+        if c <= MAX_BLOCK_LEAVES:
+            cands.append(c)
+    if not cands:                 # no levels: one leaf a frontier node
+        return 1
+    floor = min(PKT_MIN_BLOCK_LEAVES, cands[-1])
+    cands = [c for c in cands if c >= floor]
+    total = int(np.prod(tuple(ars), dtype=np.int64))
+    fill = [c for c in cands
+            if g * f_cnt * (total // c) >= PKT_TARGET_BLOCKS]
+    return max(fill) if fill else min(cands)
 
 
 def _log2(x: int, what: str) -> int:
@@ -125,11 +162,23 @@ def _binary_schedule(depth: int) -> list:
 def _binary_split(frontier, cw1, cw2, table_perm, depth, f_levels,
                   prf_method, block_leaves):
     """Checks of the binary schedule -> (B, E, s_lv, CB): block subtrees
-    of CB leaves hang from eval level s_lv."""
+    of CB leaves hang from eval level s_lv.  A shared table clamps
+    ``block_leaves`` to the leaves below a frontier node and to 4096;
+    per-key tables take it as given (``pkt_block_leaves`` when None) and
+    raise on a size the kernel cannot take."""
     bsz, f_cnt, n, e = _shapes(frontier, cw1, cw2, table_perm, depth,
                                f_levels, prf_method)
     c = n // f_cnt
-    cb = min(block_leaves or subtree_chunk_leaves(c), c, MAX_BLOCK_LEAVES)
+    if table_perm.dim() == 3:
+        cb = block_leaves or pkt_block_leaves(bsz, (2,) * (depth - f_levels),
+                                              f_cnt)
+        if cb > min(c, MAX_BLOCK_LEAVES):
+            raise ValueError("block_leaves (%d) must be at most the %d "
+                             "leaves below a frontier node and %d"
+                             % (cb, c, MAX_BLOCK_LEAVES))
+    else:
+        cb = min(block_leaves or subtree_chunk_leaves(c), c,
+                 MAX_BLOCK_LEAVES)
     _log2(cb, "block_leaves")
     return bsz, e, f_levels + _log2(c // cb, "leaves per frontier node / "
                                     "block_leaves"), cb
@@ -232,7 +281,9 @@ subtree_contract.launches_pkt = 0
 def _mixed_split(frontier, cw1, cw2, table_perm, ars, f_lv, prf_method,
                  block_leaves):
     """Checks of the radix-4 schedule -> (B, E, s_lv, CB): block subtrees
-    of CB leaves hang from eval level s_lv."""
+    of CB leaves hang from eval level s_lv.  ``block_leaves`` None is
+    4096 leaves rounded down to a product of trailing arities, or
+    ``pkt_block_leaves`` for per-key tables."""
     bsz, f_cnt, n, e = _operands(frontier, cw1, cw2, table_perm, prf_method)
     ars = tuple(ars)
     if any(a not in (2, 4) for a in ars) or not 0 <= f_lv < len(ars):
@@ -244,7 +295,10 @@ def _mixed_split(frontier, cw1, cw2, table_perm, ars, f_lv, prf_method,
     if sum(ars) > 64:
         raise ValueError("arities %r need more than 64 codeword slots"
                          % (ars,))
-    target = MAX_BLOCK_LEAVES if block_leaves is None else block_leaves
+    target = block_leaves
+    if target is None:
+        target = (pkt_block_leaves(bsz, ars[f_lv:], f_cnt)
+                  if table_perm.dim() == 3 else MAX_BLOCK_LEAVES)
     j, cb = _suffix_chunk(ars[f_lv:], target)
     if (block_leaves is not None and cb != block_leaves) or \
             cb > MAX_BLOCK_LEAVES:

@@ -9,9 +9,12 @@ by one ``gen_batch`` call, one warm evaluation, then timed repetitions
 ending in a device synchronise; the contraction's backends
 (``ops/matmul128.IMPLS``) each held bit-equal to the plain version
 before they are timed.  ``cuda_ms`` times launches on the card by CUDA
-events.  ``libraries_in_turns`` and ``held_ms`` serve the per-kernel
-scripts (``k2_times``, ``k3_times``) that time this tree's build of a
-kernel beside other builds of it, for example a parent commit's.
+events, ``profiled_ms`` by the device time the profiler records (for
+kernels of tens of microseconds, where events around the calls time the
+host's enqueue).  ``libraries_in_turns`` and ``held_ms`` serve the
+per-kernel scripts (``k2_times``, ``k3_times``, ``pkt_times``) that
+time this tree's build of a kernel beside other builds of it, for
+example a parent commit's.
 
 Run as a module, it measures the AES servers' dpfs/s at N = 2^20 and
 65536 in each of the given checkouts (one process per checkout and
@@ -72,6 +75,40 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def profiled_ms(calls: dict, reps: int = 20, tries: int = 3) -> dict:
+    """{name: device ms a call} of each ``calls[name] = (fn, kernel)``:
+    the device time of the kernels whose name holds ``kernel``, all
+    timed in one ``torch.profiler`` session after one warm call (the
+    wrappers' host work and their outputs' zero fill left out).  Late in
+    a long process a session on the card has recorded no or only some
+    kernels; such a session is run again, up to ``tries`` sessions, then
+    this raises."""
+    from .profile_batch import _device_us
+
+    def run():
+        for fn, _ in calls.values():
+            fn()
+    run()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+        kernels = {evt.key: _device_us(evt) / 1e3 / reps
+                   for evt in prof.key_averages()
+                   if str(getattr(evt, "device_type", "")).endswith("CUDA")}
+        out = {name: sum(v for k, v in kernels.items() if kernel in k)
+               for name, (_, kernel) in calls.items()}
+        if all(v > 0 for v in out.values()):
+            return out
+    raise AssertionError("no device time for %s in %d sessions: %s"
+                         % ([kernel for name, (_, kernel) in calls.items()
+                             if out[name] <= 0], tries, sorted(kernels)))
 
 
 def load_entry(so, source: str, entry: str):

@@ -23,18 +23,23 @@ its leaf-by-column products.  Each count is split by pipe: the INT32
 pipe (``ALU_OPS``), half the issue rate, and the FMA pipe (every
 ``IMAD`` form), the other half.
 
-K2's per-key-table instances (``subtree_kernel<PRF, BIN, true>``)
-count under ``"prf P binary|radix-4 per-key"``.
+K2's per-key kernel (``subtree_pkt_kernel<PRF, BIN>``, or a build's
+``subtree_kernel<PRF, BIN, true>`` from when the per-key mode was a
+flag of the shared kernel) counts under ``"prf P binary|radix-4
+per-key"``; its contraction's leaf word meets a 16-byte quad of
+columns, four products.
 
 Static counts: both sides of a branch inside a body are counted, and
 the loop bookkeeping around a node or a product is left out, so each
 result is a few instructions off.
 
 ``same_code(other)`` holds the shared-table instances of K2 and K4 in
-this tree's build against another build of the same source from before
-their per-key mode existed (a parent commit's): the per-key flag is a
-template parameter, so each shared instance must keep every
-instruction.  Needs the card's toolkit:
+this tree's build against another build of the same source (a parent
+commit's): each must keep every instruction.  The other build's
+instances may carry a last ``bool`` per-key flag (the builds in which
+the per-key mode was a template flag of the shared kernels): its
+``false`` instances are the shared ones, its ``true`` instances are
+left out.  Needs the card's toolkit:
 
     python -m dpf_tpu_torch.utils.sass_count [subtree library]
     python -m dpf_tpu_torch.utils.sass_count --same-as LIBRARY [...]
@@ -151,11 +156,13 @@ def _with_shares(mix: dict) -> dict:
     return {**mix, "alu_share": mix["alu"] / n, "fma_share": mix["fma"] / n}
 
 
-def subtree_per_leaf(instrs, child_loop: bool, arity: int) -> dict:
+def subtree_per_leaf(instrs, child_loop: bool, arity: int,
+                     columns: int = 1) -> dict:
     """Expansion instructions per node and per leaf, contraction
     instructions per leaf-by-column product, each with its pipe split,
     of one K2 instance.  ``child_loop``: the instance expands a node's
-    children in a loop of one core block each (radix-4 Salsa/ChaCha)."""
+    children in a loop of one core block each (radix-4 Salsa/ChaCha);
+    ``columns``: the columns a loaded leaf word meets."""
     found = loops(instrs)
 
     def body(lp):
@@ -172,7 +179,7 @@ def subtree_per_leaf(instrs, child_loop: bool, arity: int) -> dict:
     if not con or not cipher:
         raise ValueError("no contraction or no cipher loop in the listing")
     con = max(con, key=lambda lp: sum(map(_leaf_words, body(lp))))
-    products = sum(map(_leaf_words, body(con)))
+    products = columns * sum(map(_leaf_words, body(con)))
     inner = [lp for lp in cipher
              if not any(o != lp and lp[0] <= o[0] and o[1] <= lp[1]
                         for o in cipher)]
@@ -198,14 +205,16 @@ def k2_counts(lib: Path | None = None) -> dict:
         lib = cuda_build.library_path("subtree")
     out = {}
     for name, instrs in sass_functions(Path(lib)).items():
-        m = re.search(r"subtree_kernelILi(\d)ELb([01])E(?:Lb([01])E)?E",
-                      name)
+        m = re.search(r"subtree(_pkt)?_kernelILi(\d)ELb([01])E"
+                      r"(?:Lb([01])E)?E", name)
         if m:
-            prf, binary = int(m.group(1)), m.group(2) == "1"
+            prf, binary = int(m.group(2)), m.group(3) == "1"
+            pkt = m.group(1) is not None
             key = "prf %d %s%s" % (prf, "binary" if binary else "radix-4",
-                                   " per-key" if m.group(3) == "1" else "")
+                                   " per-key" if pkt or m.group(4) == "1"
+                                   else "")
             out[key] = subtree_per_leaf(instrs, not binary and prf in (1, 2),
-                                        2 if binary else 4)
+                                        2 if binary else 4, 4 if pkt else 1)
     return out
 
 
@@ -218,22 +227,32 @@ _ANON_NS = re.compile(r"\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+")
 
 
 def same_code(other: Path, source: str | None = None) -> dict:
-    """For each K2 or K4 kernel instance of ``other`` (a build of
-    ``subtree.cu`` or ``sqrt_grid.cu`` without the per-key flag), this
-    tree's instance with the flag false: ``{other's function name:
+    """For each shared-table K2 or K4 kernel instance of ``other`` (a
+    build of ``subtree.cu`` or ``sqrt_grid.cu``), this tree's instance
+    of the same template arguments: ``{other's function name:
     {"instructions": n, "same": bool}}``, ``same`` when every
-    instruction's text is equal.  ``source`` defaults to the stem of
-    ``other``'s file name."""
+    instruction's text is equal.  A last per-key flag in ``other``'s
+    arguments is dropped when false and its instance left out when true
+    (see above).  ``source`` defaults to the stem of ``other``'s file
+    name."""
     source = source or Path(other).name.split("-")[0]
     cuda_build.build((source,))
     mine = {_ANON_NS.sub("", name): instrs for name, instrs in
             sass_functions(cuda_build.library_path(source)).items()}
     out = {}
     for name, instrs in sass_functions(Path(other)).items():
-        if not _TEMPLATE_ARGS.search(name):
+        m = _TEMPLATE_ARGS.search(name)
+        if not m:
             continue
-        twin = mine.get(_TEMPLATE_ARGS.sub(r"\1Lb0EE", _ANON_NS.sub("", name),
-                                           count=1))
+        bare = _ANON_NS.sub("", name)
+        args = m.group(1)
+        flagless = bare.replace(args + "E", args[:-4] + "E", 1)
+        twin = mine.get(bare)
+        if twin is None and args.endswith(("Lb0E", "Lb1E")) and \
+                flagless in mine:
+            if args.endswith("Lb1E"):
+                continue                 # a per-key instance of the flag
+            twin = mine[flagless]
         out[name] = {"instructions": len(instrs),
                      "same": twin is not None
                      and [t for _, t in twin] == [t for _, t in instrs]}
@@ -260,8 +279,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--same-as"]:
         res = {str(lib): same_code(Path(lib)) for lib in sys.argv[2:]}
         print(json.dumps(res))
-        sys.exit(0 if all(v["same"] for r in res.values()
-                          for v in r.values()) else 1)
+        sys.exit(0 if all(r and all(v["same"] for v in r.values())
+                          for r in res.values()) else 1)
     if len(sys.argv) > 1:
         print(json.dumps(k2_counts(Path(sys.argv[1]))))
     else:

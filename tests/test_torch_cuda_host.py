@@ -576,15 +576,18 @@ def test_sqrt_grid_kernel_on_host_rejects(host_libs, method, rc, row0):
 @pytest.mark.parametrize("method", subtree.SUBTREE_PRFS)
 @pytest.mark.parametrize("radix,bsz,depth,f_lv,cb,e", [
     (2, 1, 7, 0, 128, 16),       # one key, 256 threads
-    (2, TB - 1, 8, 1, 64, 17),   # a ragged tile, frontier of 2
-    (2, 2 * TB + 3, 7, 0, 2, 5),  # three tiles, a quad past CB
-    (4, TB + 1, 9, 1, 16, 3),    # radix 4, odd depth, two tiles
+    (2, TB - 1, 8, 1, 64, 17),   # three keys, frontier of 2
+    (2, 2 * TB + 3, 7, 0, 2, 5),  # eleven keys, a block of 2 leaves
+    (4, TB + 1, 9, 1, 16, 3),    # radix 4, odd depth, five keys
     (4, 2, 8, 0, 256, 1),        # radix 4, even depth, one column
+    (2, 3, 9, 0, 512, 260),      # two sweeps of columns
+    (2, 2, 10, 0, 256, 16),      # the block pkt_block_leaves picks, a walk
+    (4, 2, 10, 0, 256, 8),       # the same in the radix-4 tree
 ])
 def test_subtree_per_key_kernel_on_host(host_libs, method, radix, bsz,
                                         depth, f_lv, cb, e):
-    """K2's per-key mode: key b against table b of [B, N, E], ragged key
-    tiles reading no table past the last key's."""
+    """K2's per-key kernel: key b against table b of [B, N, E], one key a
+    block, reading no table past the last key's."""
     from dpf_tpu_torch.core import radix4
     rng = np.random.default_rng(depth * 10 + method + 2000)
     n = 1 << depth
@@ -616,13 +619,17 @@ def test_subtree_per_key_kernel_on_host(host_libs, method, radix, bsz,
 
 @pytest.mark.parametrize("method", range(6))
 @pytest.mark.parametrize("bsz,k,r,rc,e,row0", [
-    (3, 32, 16, 16, 5, 0),       # one key tile of 8, ragged
-    (9, 16, 8, 4, 3, 8),         # two key tiles, row chunks of 4
-    (1, 64, 32, 8, 16, 0),       # one key
+    (3, 32, 16, 16, 5, 0),       # one item a key
+    (9, 16, 8, 4, 3, 8),         # two items a key, rows of 4
+    (1, 64, 32, 8, 16, 0),       # one key, four items
+    (1, 512, 8, 4, 16, 8),       # K past a sub-tile's 256 columns
+    (2, 300, 12, 4, 3, 4),       # a ragged last column tile
+    (2, 32, 32, 32, 260, 0),     # two sweeps of columns
 ])
 def test_sqrt_grid_per_key_kernel_on_host(host_libs, method, bsz, k, r, rc,
                                           e, row0):
-    """K4's per-key mode: key b against table b of [B, R K, E]."""
+    """K4's per-key kernel: key b against table b of [B, R K, E], items
+    walked by a persistent grid of the shim's two blocks."""
     rng = np.random.default_rng(k * 7 + r + method + 3000)
     wire = _rnd(rng, bsz, 4 * (k + 2 * r))
     seeds = wire[:, :4 * k].unflatten(1, (k, 4))

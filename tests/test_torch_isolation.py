@@ -35,7 +35,8 @@ def test_import_loads_no_jax_and_no_dpf_tpu():
             "dpf_tpu_torch.obs.metrics; "
             "import dpf_tpu_torch.apps, dpf_tpu_torch.apps.batch_pir, "
             "dpf_tpu_torch.apps.sweep, dpf_tpu_torch.apps.codesign, "
-            "dpf_tpu_torch.apps.plots, dpf_tpu_torch.serve.bench_pir; "
+            "dpf_tpu_torch.apps.plots, dpf_tpu_torch.serve.bench_pir, "
+            "dpf_tpu_torch.utils.pkt_times; "
             "print('\\n'.join(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,

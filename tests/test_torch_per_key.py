@@ -105,8 +105,7 @@ def _both(construction, n, g, prf, seed, e=4, chunk=None):
 
 
 # each PRF id once a construction, at n in {128, 256, 512} (depths 7 and
-# 9 are odd: the radix-4 tree takes a binary level) and G in 1..5, G = 3
-# and 5 filling no whole key tile of K2 (4 keys) or K4 (8 keys)
+# 9 are odd: the radix-4 tree takes a binary level) and G in 1..5
 CASES = [(0, 128, 3), (1, 256, 5), (2, 512, 1), (3, 128, 5), (4, 512, 3),
          (5, 256, 2)]
 
@@ -185,8 +184,7 @@ def _keys(rng, bsz, f_cnt):
 def test_subtree_per_key_plain_is_each_keys_shared_answer(prf, bsz, depth,
                                                           f_levels, cb):
     """K2's plain per-key mode: key b's share is its share against
-    table b alone, for ragged key tiles (3, 5, 11 keys) and a block of 2
-    leaves."""
+    table b alone, for 3, 5 and 11 keys and a block of 2 leaves."""
     rng = np.random.default_rng(prf * 100 + bsz)
     n = 1 << depth
     fr, cw1, cw2 = _keys(rng, bsz, 1 << f_levels)
@@ -222,7 +220,7 @@ def test_subtree_mixed_per_key_plain_is_each_keys_shared_answer(
                                              (9, 16, 4, 4, 8)])
 def test_sqrt_grid_per_key_plain_is_each_keys_shared_answer(prf, bsz, k, r,
                                                             rc, row0):
-    """K4's plain per-key mode, over ragged key tiles of K4 (8 keys)."""
+    """K4's plain per-key mode, for 1, 3 and 9 keys."""
     rng = np.random.default_rng(prf * 100 + bsz + k)
     seeds = torch.from_numpy(_i32(rng, bsz, k, 4))
     cw1 = torch.from_numpy(_i32(rng, bsz, r, 4))

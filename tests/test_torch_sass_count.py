@@ -170,43 +170,53 @@ def test_k1_counts_names_each_store_form(monkeypatch):
 
 
 def test_k2_counts_names_the_per_key_instances(monkeypatch):
-    """The per-key flag is a third template argument: its instances
-    count apart from the shared-table ones."""
+    """The per-key kernel, or the per-key flag of a build that had one as
+    a third template argument: its instances count apart from the
+    shared-table ones, a leaf word of the per-key kernel meeting four
+    columns."""
     names = ["_ZN2k214subtree_kernelILi2ELb1ELb0EEEvPKj",
              "_ZN2k214subtree_kernelILi2ELb1ELb1EEEvPKj",
-             "_ZN2k214subtree_kernelILi5ELb0ELb1EEEvPKj"]
+             "_ZN2k214subtree_kernelILi5ELb0ELb1EEEvPKj",
+             "_ZN2k218subtree_pkt_kernelILi4ELb1EEEvPKj"]
     text = "".join(_k2_listing(n, False) for n in names)
     monkeypatch.setattr(sass_count, "sass_functions",
                         lambda lib: sass_count.parse_sass(text))
-    assert sorted(sass_count.k2_counts("lib.so")) == [
-        "prf 2 binary", "prf 2 binary per-key", "prf 5 radix-4 per-key"]
+    got = sass_count.k2_counts("lib.so")
+    assert sorted(got) == [
+        "prf 2 binary", "prf 2 binary per-key", "prf 4 binary per-key",
+        "prf 5 radix-4 per-key"]
+    assert got["prf 4 binary per-key"]["products_per_trip"] == 4 * 8
 
 
 def test_same_code_pairs_each_instance_with_its_shared_twin(monkeypatch):
-    """A build without the per-key flag against this tree's: each of its
-    K2 and K4 instances is held against the instance whose flag is
-    false, instruction for instruction, whatever digest of its source
-    names the anonymous namespace."""
+    """Another build against this tree's: each of its shared-table K2 and
+    K4 instances is held against this tree's instance of the same
+    arguments, instruction for instruction, whatever digest of its
+    source names the anonymous namespace.  A build whose shared kernels
+    carried the per-key flag pairs its false instances and leaves its
+    true ones out; a build without the flag pairs as it is."""
     instrs = sass_count.parse_sass(LISTING)[
         "_ZN2k16aes_level_kernelILi2EEEvPK5uint4"]
     old_ns = "_ZN43_GLOBAL__N__2051430a_10_subtree_cu_0123abcd"
     new_ns = "_ZN43_GLOBAL__N__5e1f0a2b_10_subtree_cu_f8e2f0de"
-    other = {old_ns + "14subtree_kernelILi2ELb1EEEvPKj": instrs,
-             "_ZN2k216sqrt_grid_kernelILi3EEEvPKj": instrs,
+    other = {old_ns + "14subtree_kernelILi2ELb1ELb0EEEvPKj": instrs,
+             old_ns + "14subtree_kernelILi2ELb1ELb1EEEvPKj": instrs[:3],
+             "_ZN2k216sqrt_grid_kernelILi3ELb0EEEvPKj": instrs,
+             "_ZN2k216sqrt_grid_kernelILi3ELb1EEEvPKj": instrs[:2],
              "_ZN2k216sqrt_grid_kernelILi5EEEvPKj": instrs,
              "other": instrs}
-    mine = {new_ns + "14subtree_kernelILi2ELb1ELb0EEEvPKj": instrs,
-            new_ns + "14subtree_kernelILi2ELb1ELb1EEEvPKj": instrs[:3],
-            "_ZN2k216sqrt_grid_kernelILi3ELb0EEEvPKj": instrs,
-            "_ZN2k216sqrt_grid_kernelILi5ELb0EEEvPKj": instrs[1:]}
+    mine = {new_ns + "14subtree_kernelILi2ELb1EEEvPKj": instrs,
+            new_ns + "18subtree_pkt_kernelILi2ELb1EEEvPKj": instrs[:3],
+            "_ZN2k216sqrt_grid_kernelILi3EEEvPKj": instrs,
+            "_ZN2k216sqrt_grid_kernelILi5EEEvPKj": instrs[1:]}
     monkeypatch.setattr(sass_count.cuda_build, "build", lambda names: {})
     monkeypatch.setattr(sass_count, "sass_functions",
                         lambda lib: other if str(lib) == "old.so" else mine)
     got = sass_count.same_code("old.so", "subtree")
     assert got == {
-        old_ns + "14subtree_kernelILi2ELb1EEEvPKj":
+        old_ns + "14subtree_kernelILi2ELb1ELb0EEEvPKj":
             {"instructions": len(instrs), "same": True},
-        "_ZN2k216sqrt_grid_kernelILi3EEEvPKj":
+        "_ZN2k216sqrt_grid_kernelILi3ELb0EEEvPKj":
             {"instructions": len(instrs), "same": True},
         "_ZN2k216sqrt_grid_kernelILi5EEEvPKj":
             {"instructions": len(instrs), "same": False}}
