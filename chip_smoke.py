@@ -159,6 +159,35 @@ Phases (any failure raises and the script exits non-zero):
    then ``bench_pir.pir_point`` at 2^20 and ``pir_bench``'s default
    points, their records printed.  K1, K6 and the per-key modes of K2
    and K4 must have been launched, and no shared-table K2, K3 or K4.
+10. the workload models, the bitsliced AES and the PRF zoo
+   (``models_zoo_phase``): (1) ``models.rec`` and ``models.lm`` trained
+   with ``device=None`` at the datasets' and models' defaults (2,000
+   items, 400 users x 6 samples, 16 dimensions, 64 hidden, 3 epochs;
+   vocabulary 1,000, sequence 32, 300 / 60 sequences, 32 dimensions, 64
+   hidden, 2 epochs), train seconds, steps/s and
+   ``torch.cuda.max_memory_allocated`` printed; ``evaluate_with_pir``
+   with no plan and with a ``BatchPIROptimize`` plan
+   (``PIRConfig(bin_fraction=0.02, queries_to_hot=q)``) at q = 0 and 8,
+   raising unless the rec AUC is > 0.55, AUC(q=8) > AUC(q=0) and the
+   LM's masked perplexity >= 0.9 x the unmasked one; a two-point
+   ``sweep.run_sweep(model_eval=...)``; a checkpoint round trip; one
+   set of weights on the card and the CPU, logits and one Adam step
+   within 1e-4 with cuDNN's TF32 off (the difference with it on
+   printed beside); no kernel launched; (2) ``aes128_multi_bitsliced``
+   on 512 x 1024 seeds at n_pts 2 and 4 with each S-box circuit,
+   bit-equal to K1 (zero codewords) and the gather AES, timed beside
+   them; (3) K7 for each of the 15 candidates at n = 1, 33, 1000 and
+   2^20 bit-equal to the plain cores, then ``benchmark_zoo`` at 2^20
+   calls and 5 repetitions, its counts set to 0 before and read after
+   (K7 and nothing else launched): children/s (``dpf_tpu``'s metric,
+   the wrapper's host work included), the kernel's device time under
+   ``torch.profiler`` and the bound (bytes over 3.35 TB/s or the
+   instructions ``ops/prf_zoo.ops_per_call`` counts from the function
+   as the card executes it, LOP3, IADD3 and LEA.HI fused, over the
+   issue rate)
+   per candidate; the count must not exceed the instructions of K7's
+   own loop (``utils/sass_count.k7_counts``), nor the bound the
+   kernel's time.
 
 The last lines are the card's name and power limit, one
 ``{"kernels": [...]}`` line, and ``{"ok": true, "device": {...}}``.
@@ -230,7 +259,8 @@ def log(*a):
 def launch_counters():
     """kernel name -> the wrapper that counts its launches, and the
     read / zero helpers over them."""
-    from dpf_tpu_torch.ops import aes_level, matmul128, sqrt_grid, subtree
+    from dpf_tpu_torch.ops import (aes_level, matmul128, prf_zoo, sqrt_grid,
+                                   subtree)
     counters = {
         "aes_level_step": aes_level.aes_level_step,
         "aes_level_step_a4": aes_level.aes_level_step,
@@ -242,7 +272,8 @@ def launch_counters():
         "contract_i32_per_key": matmul128.dot_i32_per_key,
         "subtree_contract_pkt": subtree.subtree_contract,
         "subtree_contract_mixed_pkt": subtree.subtree_contract_mixed,
-        "sqrt_grid_contract_pkt": sqrt_grid.sqrt_grid_contract}
+        "sqrt_grid_contract_pkt": sqrt_grid.sqrt_grid_contract,
+        "prf_zoo": prf_zoo.zoo_eval}
 
     def attr(name):
         # K1 at arity 4 and the per-key modes count on their wrapper's
@@ -874,6 +905,366 @@ def batch_pir_phase(smi, read_counts, zero_counts, entries=1 << 20,
                     "pir_bench": bench}
 
 
+def max_abs_err(got, want) -> int:
+    """The largest difference of two integer tensors of one shape (0 when
+    they are equal)."""
+    if torch.equal(got, want):
+        return 0
+    return int((got.long() - want.long()).abs().max().item())
+
+
+def _device_ms(fn, reps: int, device) -> float:
+    """Mean ms of ``fn`` a call: CUDA events on the card, the host clock
+    (after a synchronised warm call) on the CPU."""
+    from dpf_tpu_torch.utils.bench import cuda_ms
+    if torch.device(device).type == "cuda":
+        return cuda_ms(fn, reps)
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def models_zoo_phase(smi, read_counts, zero_counts, device=None,
+                     zoo_n=1 << 20, zoo_reps=5, aes_keys=512,
+                     aes_width=1 << 10, rec_kw=None, lm_kw=None) -> tuple:
+    """Phase 10: the workload models, the bitsliced AES and the PRF zoo
+    on ``device`` (None = the card).  Rehearse on the CPU with
+    ``device="cpu"`` and small sizes (``zoo_n``, ``aes_width``, and the
+    datasets' ``rec_kw`` / ``lm_kw``).  Returns ({part: launch counts},
+    the K7 row of the kernels line, K7's largest difference from the
+    plain cores over its checks, the phase's records)."""
+    import copy
+    import tempfile
+
+    from dpf_tpu_torch.api import resolve_device
+    from dpf_tpu_torch.apps import sweep
+    from dpf_tpu_torch.apps.batch_pir import (BatchPIROptimize,
+                                              CollocateConfig, HotColdConfig,
+                                              PIRConfig)
+    from dpf_tpu_torch.core import aes_bitsliced, prf, prf_zoo
+    from dpf_tpu_torch.models import checkpoint, datasets, lm, rec
+    from dpf_tpu_torch.ops import aes_level
+    from dpf_tpu_torch.ops import prf_zoo as ops_zoo
+    from dpf_tpu_torch.utils.bench import profiled_ms
+
+    dev = resolve_device(device)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    t10 = time.perf_counter()
+    parts, records = {}, {}
+
+    # ---------------------------------------- 10.1 the models, full width
+    zero_counts()
+    ds = datasets.make_rec_dataset(**(rec_kw or {}))
+    lds = datasets.make_lm_dataset(**(lm_kw or {}))
+    log("phase 10.1 models on %s: rec %d items, %d examples (%d train), "
+        "16 dims, 64 hidden, 3 epochs of batch 64; LSTM LM vocabulary %d, "
+        "sequence %d, %d / %d sequences, 32 dims, 64 hidden, 2 epochs of "
+        "batch 32" % (dev, ds.n_items, ds.hist.shape[0], len(ds.train_idx),
+                      lds.vocab_size, lds.seq_len, len(lds.train_tokens),
+                      len(lds.val_tokens)))
+    trained = {}
+    for label, train, steps in (
+            ("rec", lambda: rec.train_rec_model(ds, device=device),
+             3 * (len(ds.train_idx) // 64)),
+            ("lm", lambda: lm.train_lm(lds, device=device),
+             2 * len(range(0, len(lds.train_tokens) - 31, 32)))):
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev) if cuda else None
+        t0 = time.perf_counter()
+        trained[label] = train()
+        sync()
+        train_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+        records[label + "_train"] = dict(seconds=train_s, steps=steps,
+                                         steps_per_s=steps / train_s,
+                                         max_memory_allocated=peak,
+                                         allocated_before=base)
+        log("  %-3s train: %.3f s, %d steps, %.1f steps/s, "
+            "max_memory_allocated %s bytes (%s allocated before) on %s"
+            % (label, train_s, steps, steps / train_s, peak, base, smi))
+    model, lmodel = trained["rec"], trained["lm"]
+
+    def plan(d, queries):
+        return BatchPIROptimize(
+            d.access_patterns("train"), d.access_patterns("val"),
+            HotColdConfig(1.0), CollocateConfig(0),
+            PIRConfig(bin_fraction=0.02, queries_to_hot=queries))
+
+    evals = {}
+    for label, d, fn, key in (("rec", ds, rec.evaluate_with_pir, "roc_auc"),
+                              ("lm", lds, lm.evaluate_with_pir,
+                               "perplexity")):
+        m = trained[label]
+        for q in (None, 0, 8):
+            t0 = time.perf_counter()
+            r = fn(m, d, None if q is None else plan(d, q))
+            r["seconds"] = time.perf_counter() - t0
+            evals["%s %s" % (label, "no plan" if q is None else "q=%d" % q)] \
+                = r
+            log("  %-3s %-8s %s %.6f (n_eval %d, %.2f s)"
+                % (label, "no plan" if q is None else "q=%d" % q, key,
+                   r[key], r["n_eval"], r["seconds"]))
+    records["evaluate_with_pir"] = evals
+    if not evals["rec no plan"]["roc_auc"] > 0.55:
+        raise AssertionError("phase 10.1: rec AUC %.4f <= 0.55"
+                             % evals["rec no plan"]["roc_auc"])
+    if not evals["rec q=8"]["roc_auc"] > evals["rec q=0"]["roc_auc"]:
+        raise AssertionError("phase 10.1: AUC(q=8) %.4f <= AUC(q=0) %.4f"
+                             % (evals["rec q=8"]["roc_auc"],
+                                evals["rec q=0"]["roc_auc"]))
+    if not evals["lm q=0"]["perplexity"] >= \
+            0.9 * evals["lm no plan"]["perplexity"]:
+        raise AssertionError("phase 10.1: masked perplexity %.3f < 0.9 x "
+                             "unmasked %.3f" % (evals["lm q=0"]["perplexity"],
+                                                evals["lm no plan"]
+                                                ["perplexity"]))
+    grid = {"cache_size_fraction": [1.0], "num_collocate": [0],
+            "bin_fraction": [0.02], "queries_to_hot": [0, 8],
+            "queries_to_cold": [0]}
+    res = sweep.run_sweep(ds.access_patterns("train"),
+                          ds.access_patterns("val"), grid=grid,
+                          model_eval=lambda opt: rec.evaluate_with_pir(
+                              model, ds, opt))
+    if len(res) != 2 or not all(r["accuracy_stats"] and
+                                r["accuracy_stats"]["n_eval"] ==
+                                len(ds.val_idx) for r in res):
+        raise AssertionError("phase 10.1: the sweep's accuracy_stats are "
+                             "not filled: %s" % res)
+    records["sweep"] = [dict(config=r["config"],
+                             mean_recovered=r["mean_recovered"],
+                             accuracy_stats=r["accuracy_stats"])
+                        for r in res]
+    log("  sweep (two points, model_eval = rec AUC): %s"
+        % ", ".join("q=%d recovered %.4f AUC %.6f"
+                    % (r["config"]["queries_to_hot"], r["mean_recovered"],
+                       r["accuracy_stats"]["roc_auc"]) for r in res))
+    # a checkpoint round trip on the device
+    from dpf_tpu_torch.ops.cuda_build import BUILD_DIR
+    BUILD_DIR.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        path = os.path.join(tmp, "lm.pt")
+        back = checkpoint.train_or_restore(
+            path, lambda: lm.init_lm(lds, seed=1, device=device),
+            lambda: lmodel)
+        again = checkpoint.train_or_restore(
+            path, lambda: lm.init_lm(lds, seed=1, device=device),
+            lambda: None)
+        toks = torch.from_numpy(lds.val_tokens[:4]).long().to(dev)
+        with torch.no_grad():
+            if not (back is lmodel and torch.equal(again(toks),
+                                                    lmodel(toks))):
+                raise AssertionError("phase 10.1: the checkpoint round "
+                                     "trip changed the model")
+    log("  checkpoint: saved, restored into a fresh model on %s, logits "
+        "equal" % dev)
+    # the card against the CPU: one set of weights on both devices
+    diffs = {}
+    for label in ("rec", "lm"):
+        if label == "rec":
+            host = rec.init_rec_model(ds, seed=5, device="cpu")
+            b = ds.train_idx[:64]
+            args = [torch.from_numpy(a[b]).long() for a in
+                    (ds.hist, ds.hist_len, ds.target)]
+            target = torch.from_numpy(ds.label[b])
+
+            def loss(m, a, t):
+                return rec.rec_loss(m, *a, t)
+        else:
+            host = lm.init_lm(lds, seed=5, device="cpu")
+            args = [torch.from_numpy(lds.train_tokens[:32]).long()]
+            target = None
+
+            def loss(m, a, t):
+                return lm.lm_loss(m, a[0])
+        for tf32 in (False, True):
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=tf32):
+                ms = []
+                for d in ("cpu", dev):
+                    m = copy.deepcopy(host).to(d)
+                    a = [x.to(d) for x in args]
+                    t = None if target is None else target.to(d)
+                    with torch.no_grad():
+                        logits = m(*a)
+                    opt = torch.optim.Adam(
+                        [p for p in m.parameters() if p.requires_grad],
+                        lr=1e-2)
+                    loss(m, a, t).backward()
+                    opt.step()
+                    ms.append((logits.float().cpu(),
+                               {k: v.cpu() for k, v in
+                                m.state_dict().items()}))
+            dl = float((ms[0][0] - ms[1][0]).abs().max())
+            by_param = {k: float((ms[0][1][k] - ms[1][1][k]).abs().max())
+                        for k in ms[0][1]}
+            dp = max(by_param.values())
+            diffs["%s tf32=%s" % (label, tf32)] = dict(
+                logits=dl, adam_step=dp, adam_step_by_param=by_param)
+            if not tf32 and (dl > 1e-4 or dp > 1e-4):
+                raise AssertionError("phase 10.1 %s: %s against the CPU: "
+                                     "logits %.3g, one Adam step %.3g > "
+                                     "1e-4" % (label, dev, dl, dp))
+        log("  %-3s Adam step differences by parameter (TF32 off): %s"
+            % (label, diffs["%s tf32=False" % label]["adam_step_by_param"]))
+        log("  %-3s %s against the CPU, one set of weights: max |logits| "
+            "diff %.3g, after one Adam step %.3g (cuDNN TF32 off; with it "
+            "on %.3g / %.3g)" % (label, dev,
+                                 diffs["%s tf32=False" % label]["logits"],
+                                 diffs["%s tf32=False" % label]
+                                 ["adam_step"],
+                                 diffs["%s tf32=True" % label]["logits"],
+                                 diffs["%s tf32=True" % label]
+                                 ["adam_step"]))
+    records["device_vs_cpu"] = diffs
+    parts["10.1 models"] = read_counts()
+
+    # ------------------------------------------ 10.2 the bitsliced AES
+    zero_counts()
+    g = torch.Generator(device=dev).manual_seed(20261017)
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (aes_keys, aes_width, 4),
+                          dtype=torch.int64, device=dev,
+                          generator=g).to(torch.int32)
+    nodes = aes_keys * aes_width
+    log("phase 10.2 bitsliced AES on %s: %d seeds (%d x %d)"
+        % (dev, nodes, aes_keys, aes_width))
+    aes_rows = []
+    for n_pts in (2, 4):
+        zero_cw = torch.zeros((aes_keys, n_pts, 4), dtype=torch.int32,
+                              device=dev)
+        k1_out = aes_level.aes_level_step(seeds, zero_cw, zero_cw,
+                                          arity=n_pts)
+        k1_kids = k1_out.reshape(aes_keys, aes_width, n_pts, 4)
+        gather = prf.aes128_multi(seeds, range(n_pts))
+        k1_ms = _device_ms(lambda: aes_level.aes_level_step(
+            seeds, zero_cw, zero_cw, arity=n_pts), 10, dev)
+        gather_ms = _device_ms(lambda: prf.aes128_multi(seeds, range(n_pts)),
+                               3, dev)
+        for sbox in ("bp", "tower", "chain"):
+            outs = aes_bitsliced.aes128_multi_bitsliced(seeds, n_pts, sbox)
+            sync()
+            for b in range(n_pts):
+                if not (torch.equal(outs[b], gather[b])
+                        and torch.equal(outs[b], k1_kids[:, :, b])):
+                    raise AssertionError(
+                        "phase 10.2: bitsliced AES (%s, n_pts %d) differs "
+                        "from K1 or the gather AES at child %d"
+                        % (sbox, n_pts, b))
+            ms = _device_ms(lambda: aes_bitsliced.aes128_multi_bitsliced(
+                seeds, n_pts, sbox), 3, dev)
+            aes_rows.append(dict(n_pts=n_pts, sbox=sbox, nodes=nodes,
+                                 bitsliced_ms=ms, k1_ms=k1_ms,
+                                 gather_ms=gather_ms))
+            log("  n_pts %d %-5s bit-equal to K1 and the gather AES; "
+                "bitsliced %.3f ms, K1 %.4f ms, gather %.3f ms a call of "
+                "%d nodes on %s" % (n_pts, sbox, ms, k1_ms, gather_ms,
+                                    nodes, smi))
+    records["bitsliced_aes"] = aes_rows
+
+    # --------------------------------------------------- 10.3 the zoo
+    log("phase 10.3 PRF zoo: K7 against the plain cores at n = 1, 33, "
+        "1000, %d" % zoo_n)
+    zoo_err = 0
+    for name in ops_zoo.CANDIDATES:
+        pos = 0 if name in prf_zoo.CHILDREN_PER_CALL else 1
+        for n in (1, 33, 1000, zoo_n):
+            s = torch.randint(-2 ** 31, 2 ** 31, (n, 4), dtype=torch.int64,
+                              device=dev, generator=g).to(torch.int32)
+            got = ops_zoo.zoo_eval(name, s, pos)
+            want = ops_zoo.zoo_plain(name, s, pos)
+            sync()
+            err = max_abs_err(got, want)
+            zoo_err = max(zoo_err, err)
+            if err:
+                raise AssertionError("phase 10.3: K7 %s differs from its "
+                                     "plain core at n=%d (max_abs_err %d)"
+                                     % (name, n, err))
+    log("  K7: all %d candidates bit-equal to their plain cores at the four "
+        "sizes (max_abs_err %d)" % (len(ops_zoo.CANDIDATES), zoo_err))
+    # the instructions each instance's loop executes for one call
+    sass = {}
+    if cuda:
+        from dpf_tpu_torch.utils import sass_count
+        try:
+            sass = sass_count.k7_counts()
+        except (OSError, subprocess.CalledProcessError, ValueError) as exc:
+            log("  K7 SASS: not counted (%s)" % exc)
+    zero_counts()
+    cps = prf_zoo.benchmark_zoo(n_calls=zoo_n, reps=zoo_reps,
+                                device=device)
+    parts["10.3 zoo"] = read_counts()
+    zoo_rows = {}
+    s = torch.randint(-2 ** 31, 2 ** 31, (zoo_n, 4), dtype=torch.int64,
+                      device=dev, generator=g).to(torch.int32)
+
+    def zoo_call(name):
+        pos = 0 if name in prf_zoo.CHILDREN_PER_CALL else 1
+        return (lambda: ops_zoo.zoo_eval(name, s, pos),
+                "prf_zoo_kernel<%d>" % ops_zoo.CANDIDATES.index(name))
+    # the kernels' device time, all 15 in one profiler session (the
+    # benchmark's events also hold the wrapper's host work between
+    # launches, which a 0.02 ms kernel does not hide)
+    if cuda:
+        dev_ms = profiled_ms({n: zoo_call(n) for n in ops_zoo.CANDIDATES})
+    else:
+        dev_ms = {n: _device_ms(zoo_call(n)[0], 1, dev)
+                  for n in ops_zoo.CANDIDATES}
+    for name in ops_zoo.CANDIDATES:
+        kids = prf_zoo.CHILDREN_PER_CALL.get(name, 1)
+        pos = 0 if kids > 1 else 1
+        ops = ops_zoo.ops_per_call(name)
+        in_sass = sass.get(ops_zoo.CANDIDATES.index(name))
+        if in_sass and ops > in_sass["instructions"]:
+            raise AssertionError(
+                "phase 10.3: %s's count, %d instructions a call, exceeds "
+                "the %d of K7's own loop: the bound overstates the work"
+                % (name, ops, in_sass["instructions"]))
+        work = dict(bytes=zoo_n * 16 * (1 + kids), ops=zoo_n * ops)
+        by_bytes = work["bytes"] / PEAK_BYTES_PER_S
+        by_ops = work["ops"] / PEAK_INSTR_PER_S
+        ms = dev_ms[name]
+        r = dict(children_per_s=cps[name], ms=ms,
+                 benchmark_ms=1e3 * zoo_n * kids / cps[name],
+                 bound_ms=1e3 * max(by_bytes, by_ops),
+                 bound_by="bytes" if by_bytes >= by_ops else "operations",
+                 ops_per_call=ops, children_per_call=kids,
+                 sass_per_call=in_sass,
+                 plain_ms=_device_ms(lambda: ops_zoo.zoo_plain(name, s, pos),
+                                     1, dev), **work)
+        if cuda and r["bound_ms"] > ms:
+            raise AssertionError(
+                "phase 10.3: %s took %.4f ms, under its bound of %.4f ms: "
+                "the bound overstates the work" % (name, ms, r["bound_ms"]))
+        r["share_of_bound"] = r["bound_ms"] / ms
+        zoo_rows[name] = r
+        log("  %-15s %14.1f children/s (benchmark, %.4f ms a call)  "
+            "kernel ms %.4f  bound_ms %.4f (%s, %d instructions a call; "
+            "K7's loop %s)  %.3f of the bound  plain_ms %.2f on %s"
+            % (name, r["children_per_s"], r["benchmark_ms"], ms,
+               r["bound_ms"], r["bound_by"], ops,
+               json.dumps(in_sass) if in_sass else "not counted",
+               r["share_of_bound"], r["plain_ms"], smi))
+    records["zoo"] = zoo_rows
+    # the kernels line's row: ChaCha12-BLK (the block-PRG the DPF ships as
+    # PRF id 5) at zoo_n, the other candidates beside it
+    row = dict(zoo_rows["chacha12_blk"],
+               shape="chacha12_blk, [%d, 4] seeds -> [4, %d, 4]"
+               % (zoo_n, zoo_n), library_ms=None, lookup_floor_ms=None,
+               candidates={k: {f: v[f] for f in (
+                   "ms", "benchmark_ms", "bound_ms", "bound_by", "plain_ms",
+                   "children_per_s", "ops_per_call", "sass_per_call")}
+                   for k, v in zoo_rows.items()})
+    log("phase 10: %.1f s" % (time.perf_counter() - t10))
+    return parts, row, zoo_err, records
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -948,8 +1339,7 @@ def main() -> int:
         if got.shape != want.shape:
             raise AssertionError("%s: shape %s != %s" % (
                 name, tuple(got.shape), tuple(want.shape)))
-        err = 0 if torch.equal(got, want) else int(
-            (got.long() - want.long()).abs().max().item())
+        err = max_abs_err(got, want)
         if err != 0:
             raise AssertionError("%s: kernel differs from its plain version "
                                  "(max_abs_err %d)" % (name, err))
@@ -1882,6 +2272,21 @@ def main() -> int:
                              % shared)
     by_path["phase 9"] = counts
 
+    # ------------------------- 10. models, the bitsliced AES, the PRF zoo
+    parts, rows["prf_zoo"], errs["prf_zoo"], _ = models_zoo_phase(
+        smi, read_counts, zero_counts)
+    for part, counts in parts.items():
+        log("phase %s launches: %s" % (part, counts))
+    dpf_kernels = {k: v for k, v in parts["10.1 models"].items() if v}
+    if dpf_kernels:
+        raise AssertionError("phase 10.1 launched %s" % dpf_kernels)
+    zoo = parts["10.3 zoo"]
+    if zoo["prf_zoo"] <= 0 or any(v for k, v in zoo.items()
+                                  if k != "prf_zoo"):
+        raise AssertionError("phase 10.3 launches %s: K7 and nothing else "
+                             "expected" % zoo)
+    by_path.update(parts)
+
     meta = {
         "aes_level_step": ("dpf_tpu_torch/csrc/aes_level.cu",
                            "dpf_tpu/ops/aes_planes.py:408"),
@@ -1905,6 +2310,8 @@ def main() -> int:
                                        "dpf_tpu/ops/pallas_level.py:442"),
         "sqrt_grid_contract_pkt": ("dpf_tpu_torch/csrc/sqrt_grid.cu",
                                    "dpf_tpu/ops/pallas_sqrt.py:312"),
+        "prf_zoo": ("dpf_tpu_torch/csrc/prf_zoo.cu",
+                    "dpf_tpu/core/prf_zoo.py:132"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

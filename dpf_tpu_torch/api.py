@@ -214,6 +214,8 @@ class DPF(object):
         radix, sch = 2, "logn"
         self.row_chunk = None
         self._config = config
+        # the plain AES's formulation on the CPU (``_plain_aes_impl``)
+        self.aes_impl = "auto" if config is None else config.aes_impl
         if config is not None:
             if prf is None:
                 prf = config.prf_method
@@ -422,6 +424,12 @@ class DPF(object):
         """``stage_packed`` in this server's layout (host work only)."""
         return stage_packed(pk, size, stage, self.scheme == "sqrtn")
 
+    def _plain_aes_impl(self) -> str | None:
+        """The config's ``aes_impl`` on a CPU server; None on the card,
+        where the AES levels run K1 and point walks take the gather
+        form whatever the config says."""
+        return self.aes_impl if self.device.type == "cpu" else None
+
     def _dispatch_packed(self, pk) -> torch.Tensor:
         """Dispatch one packed batch (``keygen.PackedKeys``,
         ``sqrtn.PackedSqrtKeys`` or a ``StagedKeys`` from
@@ -446,10 +454,12 @@ class DPF(object):
             return expand.eval_dispatch(
                 cw1, cw2, last, self.table_device, depth=depth,
                 prf_method=self.prf_method, chunk_leaves=k["chunk_leaves"],
-                group=k["dispatch_group"], deadline=self.dispatch_deadline)
+                group=k["dispatch_group"], deadline=self.dispatch_deadline,
+                aes_impl=self._plain_aes_impl())
         return expand.expand_and_contract(
             cw1, cw2, last, self.table_device, depth=depth,
-            prf_method=self.prf_method, chunk_leaves=k["chunk_leaves"])
+            prf_method=self.prf_method, chunk_leaves=k["chunk_leaves"],
+            aes_impl=self._plain_aes_impl())
 
     def _dispatch_packed_r4(self, staged: "StagedKeys") -> torch.Tensor:
         """Radix-4 device dispatch, asynchronous like
@@ -461,10 +471,12 @@ class DPF(object):
                 cw1, cw2, last, self.table_device,
                 n=self.table_num_entries, prf_method=self.prf_method,
                 chunk_leaves=k["chunk_leaves"], group=k["dispatch_group"],
-                deadline=self.dispatch_deadline)
+                deadline=self.dispatch_deadline,
+                aes_impl=self._plain_aes_impl())
         return radix4.expand_and_contract_mixed(
             cw1, cw2, last, self.table_device, n=self.table_num_entries,
-            prf_method=self.prf_method, chunk_leaves=k["chunk_leaves"])
+            prf_method=self.prf_method, chunk_leaves=k["chunk_leaves"],
+            aes_impl=self._plain_aes_impl())
 
     def _dispatch_packed_sqrt(self, staged: "StagedKeys") -> torch.Tensor:
         """Sqrt-N device dispatch: the staged rows go to the device, are
@@ -552,10 +564,12 @@ class DPF(object):
         pk = self._decode(keys)
         cw1, cw2, last = self._device_keys(pk)
         if self.radix == 4:
-            return radix4.expand_leaves_mixed(cw1, cw2, last, n=pk.n,
-                                              prf_method=self.prf_method)
+            return radix4.expand_leaves_mixed(
+                cw1, cw2, last, n=pk.n, prf_method=self.prf_method,
+                aes_impl=self._plain_aes_impl())
         return expand.expand_leaves(cw1, cw2, last, depth=pk.depth,
-                                    prf_method=self.prf_method)
+                                    prf_method=self.prf_method,
+                                    aes_impl=self._plain_aes_impl())
 
     def eval_points(self, keys, indices) -> torch.Tensor:
         """Sparse evaluation: each key at the given indices only.
@@ -572,11 +586,12 @@ class DPF(object):
             raise ValueError("indices must be 1D and < n=%d" % pk.n)
         cw1, cw2, last = self._device_keys(pk)
         if self.radix == 4:
-            return radix4.eval_points_mixed(cw1, cw2, last,
-                                            torch.from_numpy(idx), n=pk.n,
-                                            prf_method=self.prf_method)
+            return radix4.eval_points_mixed(
+                cw1, cw2, last, torch.from_numpy(idx), n=pk.n,
+                prf_method=self.prf_method, aes_impl=self._plain_aes_impl())
         return expand.eval_points(cw1, cw2, last, torch.from_numpy(idx),
-                                  depth=pk.depth, prf_method=self.prf_method)
+                                  depth=pk.depth, prf_method=self.prf_method,
+                                  aes_impl=self._plain_aes_impl())
 
     # ------------------------------------------------------------ eval_cpu
 

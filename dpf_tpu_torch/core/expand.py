@@ -97,13 +97,15 @@ def choose_group(f: int, c: int) -> int:
 
 def _level_step_multi(seeds: torch.Tensor, cw1_lvl: torch.Tensor,
                       cw2_lvl: torch.Tensor, prf_method: int,
-                      arity: int = 2) -> torch.Tensor:
+                      arity: int = 2,
+                      aes_impl: str | None = None) -> torch.Tensor:
     """One GGM level of fan-out ``arity`` with this level's codewords
     passed directly (plain PyTorch; port of ``expand._level_step_pair``
     and ``radix4._level_step_mixed``).  seeds [B, w, 4]; cw*_lvl
-    [B, arity, 4] -> [B, arity*w, 4], child b of node j at arity*j + b."""
+    [B, arity, 4] -> [B, arity*w, 4], child b of node j at arity*j + b.
+    ``aes_impl``: the AES formulation (``prf.prf_multi``)."""
     sel = (seeds[..., 0] & 1).bool()[..., None]            # [B, w, 1]
-    prf_out = prf_multi(prf_method, seeds, arity)
+    prf_out = prf_multi(prf_method, seeds, arity, aes_impl)
     children = []
     for b in range(arity):
         cw = torch.where(sel, cw2_lvl[:, None, b, :], cw1_lvl[:, None, b, :])
@@ -113,16 +115,18 @@ def _level_step_multi(seeds: torch.Tensor, cw1_lvl: torch.Tensor,
 
 
 def route_level(seeds, cw1_lvl, cw2_lvl, prf_method: int, arity: int = 2,
-                low32: bool = False) -> torch.Tensor:
+                low32: bool = False,
+                aes_impl: str | None = None) -> torch.Tensor:
     """One GGM level on the port's route, this level's codewords
     ``[B, arity, 4]`` given: AES through K1 at the level's arity, binary
     ChaCha20 through K5, the rest through the plain step.  ``low32``:
     only the children's limb 0, ``[B, a*w]`` contiguous (K1 stores only
-    it; the other routes copy it out)."""
+    it; the other routes copy it out).  ``aes_impl``: the formulation of
+    K1's plain version on CPU tensors."""
     if prf_method == PRF_AES128:
         from ..ops.aes_level import aes_level_step
         return aes_level_step(seeds, cw1_lvl, cw2_lvl, arity=arity,
-                              low32=low32)
+                              low32=low32, aes_impl=aes_impl)
     if prf_method == PRF_CHACHA20 and arity == 2:
         from ..ops.subtree import chacha_level_step
         out = chacha_level_step(seeds, cw1_lvl, cw2_lvl)
@@ -132,11 +136,12 @@ def route_level(seeds, cw1_lvl, cw2_lvl, prf_method: int, arity: int = 2,
 
 
 def level_step(seeds, cw1, cw2, i: int, prf_method: int,
-               low32: bool = False) -> torch.Tensor:
+               low32: bool = False,
+               aes_impl: str | None = None) -> torch.Tensor:
     """Binary level ``i`` (codeword slots 2i, 2i+1 of the full
     ``[B, 64, 4]`` arrays) through ``route_level``."""
     return route_level(seeds, cw1[:, 2 * i:2 * i + 2], cw2[:, 2 * i:2 * i + 2],
-                       prf_method, 2, low32)
+                       prf_method, 2, low32, aes_impl)
 
 
 def pack_keys(flat_keys) -> tuple:
@@ -156,13 +161,15 @@ def permute_table(table_i32: np.ndarray) -> np.ndarray:
 
 
 def expand_and_contract(cw1, cw2, last, table_perm, *, depth: int,
-                        prf_method: int, chunk_leaves: int) -> torch.Tensor:
+                        prf_method: int, chunk_leaves: int,
+                        aes_impl: str | None = None) -> torch.Tensor:
     """Batched fused DPF evaluation against one shared table.
 
     cw1, cw2: [B, 64, 4] int32 codeword limbs; last: [B, 4] start seeds;
     table_perm: [N, E] int32 bit-reverse-permuted table, all on one
     device.  ``chunk_leaves``: leaves per phase-2 subtree (AES, DUMMY) or
     per K2 block (the stream ciphers); it changes no bit of the result.
+    ``aes_impl``: the formulation of K1's plain version on CPU tensors.
     Returns [B, E] int32 server shares.
     """
     n = table_perm.shape[0]
@@ -176,7 +183,8 @@ def expand_and_contract(cw1, cw2, last, table_perm, *, depth: int,
                                 depth=depth, f_levels=0,
                                 prf_method=prf_method, block_leaves=c)
     return eval_dispatch(cw1, cw2, last, table_perm, depth=depth,
-                         prf_method=prf_method, chunk_leaves=c)
+                         prf_method=prf_method, chunk_leaves=c,
+                         aes_impl=aes_impl)
 
 
 class DeadlineExceeded(RuntimeError):
@@ -242,7 +250,8 @@ def dispatch_contract(last, table_perm, level, n_levels: int, f_lv: int,
 def eval_dispatch(cw1, cw2, last, table_perm, *, depth: int,
                   prf_method: int, chunk_leaves: int,
                   group: int | None = None,
-                  deadline: float | None = None) -> torch.Tensor:
+                  deadline: float | None = None,
+                  aes_impl: str | None = None) -> torch.Tensor:
     """Per-level evaluation of the binary tree (port of
     ``expand.eval_dispatch``): the same shares as
     ``expand_and_contract``, one launch a level.  ``table_perm`` may be
@@ -252,7 +261,8 @@ def eval_dispatch(cw1, cw2, last, table_perm, *, depth: int,
     dividing N); ``group``: frontier subtrees expanded together (None =
     ``choose_group``; a value that does not divide the frontier is
     lowered to one that does); ``deadline``: a ``time.monotonic()``
-    value checked before every launch."""
+    value checked before every launch; ``aes_impl``: the formulation of
+    K1's plain version on CPU tensors."""
     n = table_perm.shape[-2]
     c = chunk_leaves
     if n != 1 << depth or c < 1 or n % c or c & (c - 1):
@@ -260,7 +270,8 @@ def eval_dispatch(cw1, cw2, last, table_perm, *, depth: int,
                          "the table size %d = 2^%d" % (c, n, depth))
 
     def level(s, j, low32):
-        return level_step(s, cw1, cw2, depth - 1 - j, prf_method, low32)
+        return level_step(s, cw1, cw2, depth - 1 - j, prf_method, low32,
+                          aes_impl)
 
     return dispatch_contract(last, table_perm, level, depth,
                              (n // c).bit_length() - 1, c, group, deadline)
@@ -303,28 +314,30 @@ def expand_and_contract_per_key_tables(cw1, cw2, last, tables_perm, *,
                          prf_method=prf_method, chunk_leaves=c)
 
 
-def expand_leaves(cw1, cw2, last, *, depth: int,
-                  prf_method: int) -> torch.Tensor:
+def expand_leaves(cw1, cw2, last, *, depth: int, prf_method: int,
+                  aes_impl: str | None = None) -> torch.Tensor:
     """Full expansion to [B, N] low-32 leaf shares in natural index
     order (the one-hot path).  Memory O(B * N)."""
     seeds = last[:, None, :]
     for lv in range(depth):
-        seeds = level_step(seeds, cw1, cw2, depth - 1 - lv, prf_method)
+        seeds = level_step(seeds, cw1, cw2, depth - 1 - lv, prf_method,
+                           aes_impl=aes_impl)
     perm = torch.from_numpy(u128.bit_reverse_indices(1 << depth).copy())
     return seeds[..., 0][:, perm.to(seeds.device)]
 
 
-def eval_points(cw1, cw2, last, indices, *, depth: int,
-                prf_method: int) -> torch.Tensor:
+def eval_points(cw1, cw2, last, indices, *, depth: int, prf_method: int,
+                aes_impl: str | None = None) -> torch.Tensor:
     """Root-to-leaf walks: [B] keys x [Q] indices -> [B, Q] int32 low-32
-    shares (the naive strategy, O(Q log N) PRF calls per key)."""
+    shares (the naive strategy, O(Q log N) PRF calls per key; plain
+    PyTorch on every device, ``aes_impl`` its AES formulation)."""
     idx = torch.as_tensor(indices, dtype=torch.int64, device=last.device)
     seeds = last[:, None, :].expand(-1, idx.shape[0], -1).contiguous()
     rem = idx
     for lv in range(depth):
         i = depth - 1 - lv
         b = rem & 1                                       # [Q]
-        p0, p1 = prf_pair(prf_method, seeds)
+        p0, p1 = prf_pair(prf_method, seeds, aes_impl)
         val = torch.where((b == 0)[None, :, None], p0, p1)
         sel = (seeds[..., 0] & 1).bool()[..., None]       # [B, Q, 1]
         slot = 2 * i + b

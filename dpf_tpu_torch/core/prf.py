@@ -22,6 +22,7 @@ from . import u128
 from .prf_ref import (PRF_AES128, PRF_CHACHA20, PRF_CHACHA20_BLK,
                       PRF_DUMMY, PRF_SALSA20, PRF_SALSA20_BLK, SBOX)
 from .u32 import i32, rotl, shr
+from ..utils.config import check_aes_impl
 
 _SIGMA = (0x65787061, 0x6E642033, 0x322D6279, 0x7465206B)
 
@@ -67,8 +68,8 @@ def _salsa_qr(x, a, b, c, d):
     x[a] = x[a] ^ rotl(x[d] + x[c], 18)
 
 
-def _salsa20_12_words(seeds: torch.Tensor, ctr):
-    """Full 16-word Salsa20/12 block: key in words 1..4 (MSW first),
+def _salsa_state(seeds: torch.Tensor, ctr) -> list:
+    """Salsa20's 16-word input block: key in words 1..4 (MSW first),
     64-bit counter in words 8..9 (high word first)."""
     zero = torch.zeros_like(seeds[..., 0])
     if isinstance(ctr, torch.Tensor):
@@ -82,8 +83,14 @@ def _salsa20_12_words(seeds: torch.Tensor, ctr):
                               seeds[..., 0])
     x[8] = _pos_word(zero, ctr, 1)
     x[9] = _pos_word(zero, ctr, 0)
-    init = list(x)
-    for _ in range(6):  # 6 double rounds = 12 rounds
+    return x
+
+
+def _salsa_core(init: list, rounds: int) -> list:
+    """Salsa20/<rounds> (``rounds`` even) of a 16-word block, plus the
+    input block."""
+    x = list(init)
+    for _ in range(rounds // 2):
         _salsa_qr(x, 0, 4, 8, 12)
         _salsa_qr(x, 5, 9, 13, 1)
         _salsa_qr(x, 10, 14, 2, 6)
@@ -93,6 +100,11 @@ def _salsa20_12_words(seeds: torch.Tensor, ctr):
         _salsa_qr(x, 10, 11, 8, 9)
         _salsa_qr(x, 15, 12, 13, 14)
     return [x[i] + init[i] for i in range(16)]
+
+
+def _salsa20_12_words(seeds: torch.Tensor, ctr):
+    """Full 16-word Salsa20/12 block (6 double rounds)."""
+    return _salsa_core(_salsa_state(seeds, ctr), 12)
 
 
 def prf_salsa20_12_v(seeds: torch.Tensor, pos) -> torch.Tensor:
@@ -112,8 +124,8 @@ def _chacha_qr(x, a, b, c, d):
     x[b] = rotl(x[b] ^ x[c], 7)
 
 
-def _chacha20_12_words(seeds: torch.Tensor, ctr):
-    """Full 16-word ChaCha20/12 block: key in words 4..7 (MSW first),
+def _chacha_state(seeds: torch.Tensor, ctr) -> list:
+    """ChaCha's 16-word input block: key in words 4..7 (MSW first),
     64-bit counter in words 12..13 (high word first)."""
     zero = torch.zeros_like(seeds[..., 0])
     if isinstance(ctr, torch.Tensor):
@@ -123,8 +135,14 @@ def _chacha20_12_words(seeds: torch.Tensor, ctr):
                               seeds[..., 0])
     x[12] = _pos_word(zero, ctr, 1)
     x[13] = _pos_word(zero, ctr, 0)
-    init = list(x)
-    for _ in range(6):  # 12 rounds
+    return x
+
+
+def _chacha_core(init: list, rounds: int) -> list:
+    """ChaCha<rounds> (``rounds`` even) of a 16-word block, plus the
+    input block."""
+    x = list(init)
+    for _ in range(rounds // 2):
         _chacha_qr(x, 0, 4, 8, 12)
         _chacha_qr(x, 1, 5, 9, 13)
         _chacha_qr(x, 2, 6, 10, 14)
@@ -134,6 +152,11 @@ def _chacha20_12_words(seeds: torch.Tensor, ctr):
         _chacha_qr(x, 2, 7, 8, 13)
         _chacha_qr(x, 3, 4, 9, 14)
     return [x[i] + init[i] for i in range(16)]
+
+
+def _chacha20_12_words(seeds: torch.Tensor, ctr):
+    """Full 16-word ChaCha20/12 block (6 double rounds)."""
+    return _chacha_core(_chacha_state(seeds, ctr), 12)
 
 
 def prf_chacha20_12_v(seeds: torch.Tensor, pos) -> torch.Tensor:
@@ -287,21 +310,34 @@ def prf_v(method: int, seeds: torch.Tensor, pos) -> torch.Tensor:
     return PRF_V[method](seeds, pos)
 
 
-def prf_multi(method: int, seeds: torch.Tensor, arity: int) -> tuple:
+def prf_multi(method: int, seeds: torch.Tensor, arity: int,
+              aes_impl: str | None = None) -> tuple:
     """All ``arity`` children PRF(seed, 0..arity-1): one shared key
     schedule for AES, one core block for the block-PRG ids (child ``b``
     = block words [4b..4b+3]), one ``prf_v`` call per position
-    otherwise."""
+    otherwise.
+
+    ``aes_impl`` picks the plain AES's formulation (``dpf_tpu``'s
+    knob): ``"gather"`` (``aes128_multi``, gathers from the S-box) or
+    ``"bitsliced"[":bp"|":tower"|":chain"]`` (``aes_bitsliced``, boolean
+    circuits on bit planes); None and ``"auto"`` are ``"gather"``.  The
+    bits are the same."""
     if method in _BLK_WORDS:
         if arity > 4:
             raise ValueError("a block-PRG core block yields 4 children")
         out = _BLK_WORDS[method](seeds, 0)
         return tuple(_blk_group(out, 4 * b) for b in range(arity))
     if method == PRF_AES128:
+        check_aes_impl(aes_impl)
+        if aes_impl is not None and aes_impl.startswith("bitsliced"):
+            from .aes_bitsliced import aes128_multi_bitsliced
+            sbox = aes_impl.split(":", 1)[1] if ":" in aes_impl else None
+            return aes128_multi_bitsliced(seeds, arity, sbox)
         return aes128_multi(seeds, range(arity))
     return tuple(prf_v(method, seeds, b) for b in range(arity))
 
 
-def prf_pair(method: int, seeds: torch.Tensor) -> tuple:
+def prf_pair(method: int, seeds: torch.Tensor,
+             aes_impl: str | None = None) -> tuple:
     """Both children PRF(seed, 0), PRF(seed, 1)."""
-    return prf_multi(method, seeds, 2)
+    return prf_multi(method, seeds, 2, aes_impl)

@@ -388,25 +388,28 @@ def _suffix_chunk(ars, target: int) -> tuple:
 # ---------------------------------------------------------------------------
 
 def level_step_mixed(seeds, cw1, cw2, ars, offs, j: int, prf_method: int,
-                     low32: bool = False) -> torch.Tensor:
+                     low32: bool = False,
+                     aes_impl: str | None = None) -> torch.Tensor:
     """Eval level ``j`` (codeword slots ``offs[j]`` on of the full
     ``[B, 64, 4]`` arrays) through ``expand.route_level`` at the level's
     arity: seeds [B, w, 4] -> [B, ars[j]*w, 4], or with ``low32`` only
     the children's limb 0, [B, ars[j]*w] contiguous."""
     a = ars[j]
     return route_level(seeds, cw1[:, offs[j]:offs[j] + a],
-                       cw2[:, offs[j]:offs[j] + a], prf_method, a, low32)
+                       cw2[:, offs[j]:offs[j] + a], prf_method, a, low32,
+                       aes_impl)
 
 
-def expand_leaves_mixed(cw1, cw2, last, *, n: int,
-                        prf_method: int) -> torch.Tensor:
+def expand_leaves_mixed(cw1, cw2, last, *, n: int, prf_method: int,
+                        aes_impl: str | None = None) -> torch.Tensor:
     """Full expansion to [B, N] low-32 leaf shares in natural index order
     (the one-hot path).  Memory O(B * N)."""
     ars = arities(n)
     offs = cw_offsets(ars)
     seeds = last[:, None, :]
     for j in range(len(ars)):
-        seeds = level_step_mixed(seeds, cw1, cw2, ars, offs, j, prf_method)
+        seeds = level_step_mixed(seeds, cw1, cw2, ars, offs, j, prf_method,
+                                 aes_impl=aes_impl)
     lo = seeds[..., 0]                                 # [B, N] BFS order
     # natural[perm[p]] = bfs[p]
     perm = mixed_reverse_indices(ars)
@@ -415,10 +418,11 @@ def expand_leaves_mixed(cw1, cw2, last, *, n: int,
     return lo[:, torch.from_numpy(inv).to(lo.device)]
 
 
-def eval_points_mixed(cw1, cw2, last, indices, *, n: int,
-                      prf_method: int) -> torch.Tensor:
+def eval_points_mixed(cw1, cw2, last, indices, *, n: int, prf_method: int,
+                      aes_impl: str | None = None) -> torch.Tensor:
     """Root-to-leaf walks: [B] keys x [Q] indices -> [B, Q] int32 low-32
-    shares, natural order (O(Q log4 N) PRF calls per key)."""
+    shares, natural order (O(Q log4 N) PRF calls per key; plain PyTorch
+    on every device, ``aes_impl`` its AES formulation)."""
     ars = arities(n)
     offs = cw_offsets(ars)
     idx = torch.as_tensor(indices, dtype=torch.int64, device=last.device)
@@ -427,7 +431,7 @@ def eval_points_mixed(cw1, cw2, last, indices, *, n: int,
     rem = idx
     for j, a in enumerate(ars):
         b = rem % a                                    # [Q]
-        outs = torch.stack(prf_multi(prf_method, seeds, a))  # [a, B, Q, 4]
+        outs = torch.stack(prf_multi(prf_method, seeds, a, aes_impl))
         val = outs.gather(0, b[None, None, :, None].expand(1, bsz, q, 4))[0]
         sel = (seeds[..., 0] & 1).bool()[..., None]    # [B, Q, 1]
         slot = offs[j] + b
@@ -438,8 +442,8 @@ def eval_points_mixed(cw1, cw2, last, indices, *, n: int,
 
 
 def expand_and_contract_mixed(cw1, cw2, last, table_perm, *, n: int,
-                              prf_method: int,
-                              chunk_leaves: int | None) -> torch.Tensor:
+                              prf_method: int, chunk_leaves: int | None,
+                              aes_impl: str | None = None) -> torch.Tensor:
     """Batched fused mixed-radix evaluation against one shared table.
 
     cw1, cw2: [B, 64, 4] int32 codeword limbs; last: [B, 4] start seeds;
@@ -447,7 +451,8 @@ def expand_and_contract_mixed(cw1, cw2, last, table_perm, *, n: int,
     (or [B, N, E], one such table a key).  ``chunk_leaves`` (rounded
     down to a suffix product of the arities, None = N): leaves per
     frontier subtree (AES, DUMMY) or per K2 block (the stream ciphers);
-    it changes no bit of the result.  Returns [B, E] int32 server
+    it changes no bit of the result.  ``aes_impl``: the formulation of
+    K1's plain version on CPU tensors.  Returns [B, E] int32 server
     shares.
     """
     if table_perm.shape[-2] != n:
@@ -461,13 +466,15 @@ def expand_and_contract_mixed(cw1, cw2, last, table_perm, *, n: int,
                                       ars=ars, f_lv=0, prf_method=prf_method,
                                       block_leaves=c)
     return eval_dispatch_mixed(cw1, cw2, last, table_perm, n=n,
-                               prf_method=prf_method, chunk_leaves=c)
+                               prf_method=prf_method, chunk_leaves=c,
+                               aes_impl=aes_impl)
 
 
 def eval_dispatch_mixed(cw1, cw2, last, table_perm, *, n: int,
                         prf_method: int, chunk_leaves: int | None,
                         group: int | None = None,
-                        deadline: float | None = None) -> torch.Tensor:
+                        deadline: float | None = None,
+                        aes_impl: str | None = None) -> torch.Tensor:
     """Per-level evaluation of the radix-4 tree (port of
     ``radix4.eval_dispatch_mixed``): the same shares as
     ``expand_and_contract_mixed``, one launch a level.  AES levels go to
@@ -477,7 +484,9 @@ def eval_dispatch_mixed(cw1, cw2, last, table_perm, *, n: int,
     group of ``group`` frontier subtrees (None = auto) goes to K3 (to K6
     when ``table_perm`` is ``[B, N, E]``, one table a key).
     ``chunk_leaves`` is rounded down to a product of trailing arities
-    (None = N); ``deadline`` is checked before every launch."""
+    (None = N); ``deadline`` is checked before every launch;
+    ``aes_impl``: the formulation of K1's plain version on CPU
+    tensors."""
     if table_perm.shape[-2] != n:
         raise ValueError("table of %d rows for n=%d"
                          % (table_perm.shape[-2], n))
@@ -487,7 +496,7 @@ def eval_dispatch_mixed(cw1, cw2, last, table_perm, *, n: int,
 
     def level(s, j, low32):
         return level_step_mixed(s, cw1, cw2, ars, offs, j, prf_method,
-                                low32)
+                                low32, aes_impl)
 
     return dispatch_contract(last, table_perm, level, len(ars), f_lv, c,
                              group, deadline)

@@ -16,6 +16,11 @@ construction -- and returns the port's tensors on the device:
 ``scheme`` names the construction (``"logn"`` or ``"sqrtn"``); None
 detects it from the wire words and refuses a batch that would parse as
 both.  Both packages then compute on identical state.
+
+``rec_state_from_numpy(params)`` and ``lm_state_from_numpy(params)`` do
+the same for the workload models: ``dpf_tpu``'s flax params, as a nested
+dict of numpy arrays, become the ``state_dict`` of the port's
+``models.rec.RecModel`` / ``models.lm.LSTMLanguageModel``.
 """
 
 from __future__ import annotations
@@ -117,3 +122,62 @@ def state_from_numpy(table: np.ndarray, keys: np.ndarray, device=None,
     return DeviceState(perm, from_u32(pk.cw1).to(dev),
                        from_u32(pk.cw2).to(dev), from_u32(pk.last).to(dev),
                        radix)
+
+
+# ---------------------------------------------------------------------------
+# Workload model weights: dpf_tpu's flax params as nested numpy dicts
+# ---------------------------------------------------------------------------
+
+def _params_root(params) -> dict:
+    """The ``params`` collection of a flax variables dict (or the
+    collection itself)."""
+    return params["params"] if "params" in params else params
+
+
+def _tensor(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _linear(dense) -> dict:
+    """flax ``Dense`` {kernel [in, out], bias} -> ``nn.Linear``'s
+    {weight [out, in], bias}."""
+    return {"weight": _tensor(dense["kernel"]).T.contiguous(),
+            "bias": _tensor(dense["bias"])}
+
+
+def rec_state_from_numpy(params) -> dict:
+    """``dpf_tpu.models.rec.RecModel``'s params (``jax.tree_util.tree_map(
+    np.asarray, params)``) -> the ``state_dict`` of the port's
+    ``models.rec.RecModel``."""
+    p = _params_root(params)
+    state = {"item_embedding.weight": _tensor(p["item_embedding"]
+                                              ["embedding"])}
+    for i in range(3):
+        for k, v in _linear(p["Dense_%d" % i]).items():
+            state["dense_%d.%s" % (i, k)] = v
+    return state
+
+
+def lm_state_from_numpy(params) -> dict:
+    """``dpf_tpu.models.lm.LSTMLanguageModel``'s params -> the
+    ``state_dict`` of the port's ``models.lm.LSTMLanguageModel``.
+
+    flax's ``LSTMCell`` has one ``Dense`` a gate on the input (``ii``,
+    ``if``, ``ig``, ``io``, no bias) and one on the hidden state (``hi``,
+    ``hf``, ``hg``, ``ho``, with bias); torch stacks the gates (i, f, g,
+    o) in ``weight_ih_l0`` / ``weight_hh_l0`` and keeps two biases, of
+    which ``bias_ih_l0`` is then zero."""
+    p = _params_root(params)
+    cell = p["LSTMCell_0"]
+    w_ih = torch.cat([_tensor(cell["i" + g]["kernel"]) for g in "ifgo"],
+                     dim=1).T.contiguous()
+    w_hh = torch.cat([_tensor(cell["h" + g]["kernel"]) for g in "ifgo"],
+                     dim=1).T.contiguous()
+    b_hh = torch.cat([_tensor(cell["h" + g]["bias"]) for g in "ifgo"])
+    dense = _linear(p["Dense_0"])
+    return {"token_embedding.weight": _tensor(p["token_embedding"]
+                                              ["embedding"]),
+            "lstm.weight_ih_l0": w_ih, "lstm.weight_hh_l0": w_hh,
+            "lstm.bias_ih_l0": torch.zeros_like(b_hh),
+            "lstm.bias_hh_l0": b_hh,
+            "dense.weight": dense["weight"], "dense.bias": dense["bias"]}

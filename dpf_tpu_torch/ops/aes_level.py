@@ -35,10 +35,13 @@ from . import cuda_build
 
 def aes_level_step_plain(seeds: torch.Tensor, cw1_lvl: torch.Tensor,
                          cw2_lvl: torch.Tensor, arity: int = 2,
-                         low32: bool = False) -> torch.Tensor:
+                         low32: bool = False,
+                         aes_impl: str | None = None) -> torch.Tensor:
     """[B, w, 4] seeds, [B, a, 4] codewords -> [B, a*w, 4] children, or
-    with ``low32`` their limb 0, [B, a*w] contiguous."""
-    out = _level_step_multi(seeds, cw1_lvl, cw2_lvl, PRF_AES128, arity)
+    with ``low32`` their limb 0, [B, a*w] contiguous.  ``aes_impl``: the
+    AES formulation (``prf.prf_multi``)."""
+    out = _level_step_multi(seeds, cw1_lvl, cw2_lvl, PRF_AES128, arity,
+                            aes_impl)
     return out[..., 0].contiguous() if low32 else out
 
 
@@ -70,12 +73,16 @@ def check_level_operands(seeds, cw1_lvl, cw2_lvl, arity,
 
 def aes_level_step(seeds: torch.Tensor, cw1_lvl: torch.Tensor,
                    cw2_lvl: torch.Tensor, arity: int = 2,
-                   low32: bool = False) -> torch.Tensor:
+                   low32: bool = False,
+                   aes_impl: str | None = None) -> torch.Tensor:
     """One AES-128 GGM level; K1 on CUDA tensors, plain on CPU ones.
-    ``low32``: return only limb 0 of each child, [B, a*w]."""
+    ``low32``: return only limb 0 of each child, [B, a*w].  ``aes_impl``
+    picks the plain version's formulation; K1 has one (T-tables) and
+    ignores it, with the same output bits."""
     check_level_operands(seeds, cw1_lvl, cw2_lvl, arity)
     if seeds.device.type == "cpu":
-        return aes_level_step_plain(seeds, cw1_lvl, cw2_lvl, arity, low32)
+        return aes_level_step_plain(seeds, cw1_lvl, cw2_lvl, arity, low32,
+                                    aes_impl)
     if seeds.device.type != "cuda":
         raise ValueError("aes_level_step: unsupported device %s"
                          % seeds.device)

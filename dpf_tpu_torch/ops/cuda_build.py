@@ -55,6 +55,9 @@ SOURCES = {
     "chacha_level": ({"chacha_level_launch": [_P, _P, _P, _LL, _P, _LL, _LL,
                                               _P]},
                      "chacha_level_error_string"),
+    "prf_zoo": ({"prf_zoo_launch": [_I, _P, _P, _LL, ctypes.c_ulonglong,
+                                    _P]},
+                "prf_zoo_error_string"),
 }
 
 

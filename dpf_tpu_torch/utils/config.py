@@ -15,6 +15,15 @@ in groups of ``dispatch_group`` subtrees).  The JAX package's ``"xla"``
 and ``"pallas"`` are the TPU's two compilers of one function; on the
 card both, and the auto state (None or ``"auto"``), take the fused
 kernels.  The sqrt-N grid has one route, K4, whatever the knob says.
+
+``aes_impl`` (``"auto"``, ``"gather"`` or ``"bitsliced"`` with an
+optional ``":bp"``, ``":tower"`` or ``":chain"`` S-box circuit) picks the
+formulation of the plain AES-128 that a CPU server runs: its dispatches,
+one-hot expansions and point walks pass it to ``core/prf.prf_multi``
+(``"auto"`` is ``"gather"``).  A server on the card ignores it: the AES
+levels run K1 (T-tables) and point walks the gather form, with the same
+output bits, so the knob never moves a path from a kernel to plain
+code.  The sqrt-N grid's plain AES is the gather form.
 """
 
 from __future__ import annotations
@@ -22,6 +31,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 KERNEL_IMPLS = ("xla", "pallas", "dispatch", "auto", None)
+AES_IMPLS = ("auto", "gather", "bitsliced", "bitsliced:bp",
+             "bitsliced:tower", "bitsliced:chain")
 
 
 def check_construction(scheme: str, radix: int,
@@ -37,6 +48,13 @@ def check_construction(scheme: str, radix: int,
         raise ValueError("radix must be 2 or 4")
     if scheme == "sqrtn" and radix == 4:
         raise ValueError("scheme='sqrtn' has no radix; use radix=2")
+
+
+def check_aes_impl(aes_impl) -> None:
+    """``aes_impl`` must be None or one of ``AES_IMPLS``."""
+    if aes_impl is not None and aes_impl not in AES_IMPLS:
+        raise ValueError("aes_impl must be one of %s (got %r)"
+                         % (AES_IMPLS, aes_impl))
 
 
 def is_auto(value) -> bool:
@@ -60,8 +78,12 @@ class EvalConfig:
     #                       | None/"auto" (the fused kernels)
     dispatch_group: int | None = None  # dispatch mode: frontier subtrees
     #                       expanded per pass (None = auto)
+    aes_impl: str = "auto"  # "auto"|"gather"|"bitsliced"[":bp"|":tower"
+    #                       |":chain"]: a CPU server's plain AES (ignored
+    #                       on the card)
 
     def __post_init__(self):
         if self.kernel_impl not in KERNEL_IMPLS:
             raise ValueError("kernel_impl must be one of %s (got %r)"
                              % (KERNEL_IMPLS, self.kernel_impl))
+        check_aes_impl(self.aes_impl)

@@ -1,4 +1,5 @@
-"""Instructions per node of K1 and per leaf of K2, counted from SASS.
+"""Instructions per node of K1, per leaf of K2 and per call of K7,
+counted from SASS.
 
 Runs ``cuobjdump -sass`` (CUDA toolkit) on a built library.
 
@@ -32,6 +33,10 @@ columns, four products.
 Static counts: both sides of a branch inside a body are counted, and
 the loop bookkeeping around a node or a product is left out, so each
 result is a few instructions off.
+
+K7 (``prf_zoo``): each ``prf_zoo_kernel<C>`` instance's grid-stride
+loop, one seed a trip.  Its cores are unrolled, so the loop is the whole
+call (its loads and stores included): what the card executes for it.
 
 ``same_code(other)`` holds the shared-table instances of K2 and K4 in
 this tree's build against another build of the same source (a parent
@@ -275,6 +280,25 @@ def k1_counts() -> dict:
     return out
 
 
+def k7_counts() -> dict:
+    """Instructions of each K7 instance's grid-stride loop, one seed a
+    trip (the whole call, its loads and stores included), with their
+    pipe split, by candidate id, from the built library."""
+    cuda_build.build(("prf_zoo",))
+    out = {}
+    for name, instrs in sass_functions(
+            cuda_build.library_path("prf_zoo")).items():
+        m = re.search(r"prf_zoo_kernelILi(\d+)E", name)
+        if m:
+            found = loops(instrs)
+            if not found:
+                raise ValueError("no loop in %s" % name)
+            lo, hi = max(found, key=lambda lp: lp[1] - lp[0])
+            out[int(m.group(1))] = pipe_mix(
+                [t for a, t in instrs if lo <= a <= hi])
+    return out
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--same-as"]:
         res = {str(lib): same_code(Path(lib)) for lib in sys.argv[2:]}
@@ -284,4 +308,5 @@ if __name__ == "__main__":
     if len(sys.argv) > 1:
         print(json.dumps(k2_counts(Path(sys.argv[1]))))
     else:
-        print(json.dumps({"K1": k1_counts(), "K2": k2_counts()}))
+        print(json.dumps({"K1": k1_counts(), "K2": k2_counts(),
+                          "K7": k7_counts()}))

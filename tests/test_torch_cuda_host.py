@@ -31,8 +31,8 @@ import numpy as np
 import pytest
 import torch
 
-from dpf_tpu_torch.ops import (aes_level, cuda_build, matmul128, sqrt_grid,
-                               subtree)
+from dpf_tpu_torch.ops import (aes_level, cuda_build, matmul128, prf_zoo,
+                               sqrt_grid, subtree)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -695,3 +695,29 @@ def test_chacha_level_kernel_on_host(host_libs, bsz, w):
         seeds.data_ptr(), c1.data_ptr(), c2.data_ptr(), c1.stride(0),
         out.data_ptr(), bsz, w, None) == 0
     assert torch.equal(out, subtree.chacha_level_step_plain(seeds, c1, c2))
+
+
+@pytest.mark.parametrize("name", prf_zoo.CANDIDATES)
+def test_prf_zoo_kernel_on_host(host_libs, name):
+    """K7: each of the 15 instances equals the candidate's plain core at
+    ragged n, below one block, past one block and past the 2-SM grid's
+    stride (n = 4500 > 32 blocks x 128 threads), at a position above
+    2^32 too."""
+    cand = prf_zoo.CANDIDATES.index(name)
+    kids = 4 if name in ("chacha12_blk", "salsa20_12_blk") else 1
+    for n, pos in ((1, 1), (33, 0), (257, 1), (4500, (1 << 33) + 5)):
+        seeds = _rnd(np.random.default_rng(n + cand), n, 4)
+        out = torch.empty((kids, n, 4) if kids > 1 else (n, 4),
+                          dtype=torch.int32)
+        assert host_libs["prf_zoo"].prf_zoo_launch(
+            cand, seeds.data_ptr(), out.data_ptr(), n, pos, None) == 0
+        assert torch.equal(out, prf_zoo.zoo_plain(name, seeds, pos)), (n,
+                                                                       pos)
+
+
+def test_prf_zoo_kernel_on_host_rejects_bad_candidate(host_libs):
+    seeds = torch.zeros((4, 4), dtype=torch.int32)
+    out = torch.empty((4, 4), dtype=torch.int32)
+    for cand in (-1, len(prf_zoo.CANDIDATES)):
+        assert host_libs["prf_zoo"].prf_zoo_launch(
+            cand, seeds.data_ptr(), out.data_ptr(), 4, 1, None) != 0

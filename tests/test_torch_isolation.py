@@ -1,4 +1,5 @@
-"""``dpf_tpu_torch`` imports neither JAX nor the JAX package.
+"""``dpf_tpu_torch`` imports neither JAX (nor flax, optax or orbax) nor the
+JAX package.
 
 ``dpf_tpu_torch`` itself starts with ``dpf_tpu``, so module names are
 matched exactly or by the ``dpf_tpu.`` / ``jax.`` prefix.
@@ -11,7 +12,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "dpf_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dpf_tpu")
 
 
 def _forbidden(name: str) -> bool:
@@ -37,6 +38,15 @@ def test_import_loads_no_jax_and_no_dpf_tpu():
             "dpf_tpu_torch.apps.sweep, dpf_tpu_torch.apps.codesign, "
             "dpf_tpu_torch.apps.plots, dpf_tpu_torch.serve.bench_pir, "
             "dpf_tpu_torch.utils.pkt_times; "
+            "import dpf_tpu_torch.models, dpf_tpu_torch.models.datasets, "
+            "dpf_tpu_torch.models.loaders, dpf_tpu_torch.models.rec, "
+            "dpf_tpu_torch.models.lm, dpf_tpu_torch.models.checkpoint, "
+            "dpf_tpu_torch.models.init, dpf_tpu_torch.core.prf_zoo, "
+            "dpf_tpu_torch.core.prf_zoo_hash, "
+            "dpf_tpu_torch.core.aes_bitsliced, "
+            "dpf_tpu_torch.core.aes_sbox_bp, "
+            "dpf_tpu_torch.core.aes_sbox_circuit, "
+            "dpf_tpu_torch.ops.prf_zoo; "
             "print('\\n'.join(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
@@ -66,7 +76,19 @@ def test_sources_import_no_jax_and_no_dpf_tpu():
                  "dpf_tpu_torch/apps/sweep.py",
                  "dpf_tpu_torch/apps/codesign.py",
                  "dpf_tpu_torch/apps/plots.py",
-                 "dpf_tpu_torch/serve/bench_pir.py"):
+                 "dpf_tpu_torch/serve/bench_pir.py",
+                 "dpf_tpu_torch/models/datasets.py",
+                 "dpf_tpu_torch/models/loaders.py",
+                 "dpf_tpu_torch/models/rec.py",
+                 "dpf_tpu_torch/models/lm.py",
+                 "dpf_tpu_torch/models/checkpoint.py",
+                 "dpf_tpu_torch/models/init.py",
+                 "dpf_tpu_torch/core/prf_zoo.py",
+                 "dpf_tpu_torch/core/prf_zoo_hash.py",
+                 "dpf_tpu_torch/core/aes_bitsliced.py",
+                 "dpf_tpu_torch/core/aes_sbox_bp.py",
+                 "dpf_tpu_torch/core/aes_sbox_circuit.py",
+                 "dpf_tpu_torch/ops/prf_zoo.py"):
         assert part in walked, part
     bad = []
     for path in files:

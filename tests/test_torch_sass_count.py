@@ -220,3 +220,20 @@ def test_same_code_pairs_each_instance_with_its_shared_twin(monkeypatch):
             {"instructions": len(instrs), "same": True},
         "_ZN2k216sqrt_grid_kernelILi5EEEvPKj":
             {"instructions": len(instrs), "same": False}}
+
+
+def test_k7_counts_the_grid_stride_loop(monkeypatch):
+    """K7: each candidate's instance by its id, the whole grid-stride
+    loop (one seed a trip) with its pipe split."""
+    funcs = sass_count.parse_sass(LISTING)
+    instrs = funcs["_ZN2k16aes_level_kernelILi2EEEvPK5uint4"]
+    names = ["_ZN12_GLOBAL__N_114prf_zoo_kernelILi11EEEvPK5uint4PS1_xy",
+             "_ZN12_GLOBAL__N_114prf_zoo_kernelILi3EEEvPK5uint4PS1_xy",
+             "other"]
+    monkeypatch.setattr(sass_count.cuda_build, "build", lambda names: {})
+    monkeypatch.setattr(sass_count, "sass_functions",
+                        lambda lib: {n: instrs for n in names})
+    got = sass_count.k7_counts()
+    assert sorted(got) == [3, 11]
+    # 0x40-0xd0: ten instructions, PRMT LOP3 IADD3 on the INT32 pipe
+    assert got[11] == {"instructions": 10, "alu": 3, "fma": 0}
