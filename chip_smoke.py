@@ -188,6 +188,28 @@ Phases (any failure raises and the script exits non-zero):
    per candidate; the count must not exceed the instructions of K7's
    own loop (``utils/sass_count.k7_counts``), nor the bound the
    kernel's time.
+11. tuning and the trace (``tuning_phase``; the script points the
+   port's tuning cache, ``DPF_TPU_TORCH_TUNE_CACHE``, at a fresh
+   temporary file before it imports the port, so phases 1-10 resolve
+   every knob from the heuristics), each part's counts set to 0 just
+   before it and read just after: (1) ``tune.search.tune_eval`` at
+   N = 2^20, E = 16, B = 512 for binary AES-128 (K1 + K3), radix-4
+   ChaCha20-BLK (mixed K2's block; its dispatch route runs plain level
+   steps, so its search is the block alone) and sqrt-N AES-128 (K4's
+   grid step), every timed candidate equal to ``eval_cpu``'s shares
+   first (few distinct keys for the radix-4 and sqrt-N oracles, ~2 s a
+   key on the host), a second ``tune_eval`` answering from the cache;
+   (2) ``kernel_search_ggm`` for binary ChaCha20 (2 generations x 4);
+   (3) ``keygen_search`` for the binary generator (host work); (4)
+   ``tune_serving`` at 65536 cap 512, ``warmup(tune=True)`` taking its
+   ladder, and ``tune_router`` at ``dpf_tpu``'s load-bench point
+   (4096 x 16, cap 128); (5) ``obs.bench_trace`` at its defaults, its
+   gates raised on; (6) fresh all-auto servers of each tuned shape
+   resolving ``tuned`` (``searched`` for binary ChaCha20) from the
+   cache, with tuning-cache hits, two of them recovering every row of
+   a fresh 512-key batch.  Each tuned shape prints the heuristic's and
+   the winner's ms, candidates tried and rejected and gate escapes
+   beside the card's name and power limit.
 
 The last lines are the card's name and power limit, one
 ``{"kernels": [...]}`` line, and ``{"ok": true, "device": {...}}``.
@@ -200,8 +222,10 @@ from __future__ import annotations
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -1265,12 +1289,224 @@ def models_zoo_phase(smi, read_counts, zero_counts, device=None,
     return parts, row, zoo_err, records
 
 
+def tuning_phase(smi, read_counts, zero_counts, n=1 << 20, batch=512,
+                 device=None, serve_n=1 << 16, load_n=4096,
+                 trace_kw=None, distinct=None, reps=3) -> tuple:
+    """Phase 11, tuning and trace, at full width (a 2^20 x 16 int32
+    table, 512 distinct keys a batch): ``tune_eval`` for binary AES-128
+    (K1 + K3), radix-4 ChaCha20-BLK (mixed K2) and sqrt-N AES-128 (K4);
+    ``kernel_search_ggm`` for binary ChaCha20 (2 generations x 4);
+    ``keygen_search`` for the binary generator; ``tune_serving`` at
+    ``serve_n`` cap 512 and ``tune_router`` at ``dpf_tpu``'s load-bench
+    point (``load_n`` x 16, cap 128); ``bench_trace`` at its defaults;
+    then a fresh all-auto ``DPF`` of each tuned shape resolves
+    ``tuned`` or ``searched`` from the cache and two servers recover a
+    fresh 512-key batch exactly.  Every timed candidate is gated against
+    ``eval_cpu`` first.  Returns ({part: launch counts}, the phase's
+    records)."""
+    import numpy as np
+
+    from dpf_tpu_torch import DPF, EvalConfig
+    from dpf_tpu_torch.obs import bench_trace
+    from dpf_tpu_torch.tune import search, serve_tune
+    from dpf_tpu_torch.tune.kernel_search import (kernel_search_ggm,
+                                                  keygen_search)
+    from dpf_tpu_torch.utils.profiling import CACHE_COUNTERS
+
+    t11 = time.perf_counter()
+    parts, records = {}, {}
+    distinct = distinct or {"logn.r2": 8, "logn.r4": 2, "sqrtn": 2}
+
+    def report(name, rec):
+        m = rec["measured"]
+        heur = m.get("heuristic_s") or m.get("seed_s")
+        log("  %s: heuristic %.4f ms, winner %.4f ms (%s), %d tried, %d "
+            "rejected, %d gate escapes, distinct keys %s; %s"
+            % (name, 1e3 * heur, 1e3 * m["best_s"],
+               rec.get("variant_tag") or json.dumps(rec["knobs"]),
+               m["candidates_tried"], m["rejected"], m["gate_escapes"],
+               m.get("distinct", "-"), smi))
+        if m["rejected"] or m["gate_escapes"]:
+            raise AssertionError("phase 11 %s: %d rejected, %d gate "
+                                 "escapes" % (name, m["rejected"],
+                                              m["gate_escapes"]))
+        records[name] = {k: m.get(k) for k in (
+            "best_s", "heuristic_s", "seed_s", "candidates_tried",
+            "rejected", "gate_escapes", "distinct", "keys_per_s",
+            "baseline_keys_per_s")}
+        records[name]["knobs"] = rec["knobs"]
+
+    # 11.1 staged descent, three constructions
+    zero_counts()
+    log("phase 11.1 tune_eval: N=%d E=16 B=%d, reps %d" % (n, batch, reps))
+    shapes = (("binary AES-128", 3, "logn", 2, None),
+              # the dispatch route of the block-PRG ids runs plain level
+              # steps on the card (no kernel of theirs has a level mode):
+              # minutes at 2^20, so this one searches K2's block only
+              ("radix-4 ChaCha20-BLK", 5, "logn", 4,
+               ("chunk_leaves", "dot_impl")),
+              ("sqrt-N AES-128", 3, "sqrtn", 2, None))
+    for name, prf, scheme, radix, stages in shapes:
+        kw = dict(prf_method=prf, scheme=scheme, radix=radix, reps=reps,
+                  device=device, stages=stages,
+                  distinct=distinct["sqrtn" if scheme == "sqrtn"
+                                    else "logn.r%d" % radix])
+        rec = search.tune_eval(n, batch, **kw)
+        if not rec["searched"]:
+            raise AssertionError("phase 11.1 %s: a fresh cache answered"
+                                 % name)
+        report(name, rec)
+        again = search.tune_eval(n, batch, **kw)
+        if again["searched"] or again["knobs"] != rec["knobs"]:
+            raise AssertionError("phase 11.1 %s: the second tune_eval "
+                                 "searched again" % name)
+    parts["11.1 tune_eval"] = read_counts()
+
+    # 11.2 the GGM family's variant search, binary ChaCha20
+    zero_counts()
+    log("phase 11.2 kernel_search_ggm: binary ChaCha20, N=%d B=%d, 2 "
+        "generations x 4" % (n, batch))
+    rec = kernel_search_ggm(n, batch, prf_method=2, reps=reps,
+                            generations=2, population=4,
+                            distinct=distinct["logn.r2"], device=device)
+    report("ggm ChaCha20", rec)
+    parts["11.2 kernel_search_ggm"] = read_counts()
+
+    # 11.3 the keygen family (host work; no kernel)
+    log("phase 11.3 keygen_search: binary AES-128, N=%d B=%d"
+        % (n, batch))
+    t0 = time.perf_counter()
+    rec = keygen_search(n, batch, prf_method=3, reps=1,
+                        generations=2, population=4, device=device)
+    report("keygen binary AES-128", rec)
+    log("  keys/s %d (baseline %d), %.1f s"
+        % (rec["measured"]["keys_per_s"],
+           rec["measured"]["baseline_keys_per_s"],
+           time.perf_counter() - t0))
+
+    # 11.4 serving and router knobs
+    zero_counts()
+    log("phase 11.4 tune_serving: AES-128 N=%d cap 512; tune_router: "
+        "DUMMY N=%d E=16 cap 128" % (serve_n, load_n))
+    srv = DPF(prf=3, device=device)
+    srv.eval_init(np.random.default_rng(serve_n ^ 0x5e12).integers(
+        0, 2 ** 31, (serve_n, 16), dtype=np.int32, endpoint=False))
+    rec = serve_tune.tune_serving(srv, cap=512)
+    m = rec["measured"]
+    log("  serving: %s, %d qps, %d tried, %d rejected; %s"
+        % (rec["knobs"], m["qps"], m["candidates_tried"], m["rejected"],
+           smi))
+    engine = srv.serving_engine(buckets=(512,))
+    engine.warmup(tune=True)
+    if list(engine.buckets.sizes) != rec["knobs"]["buckets"]:
+        raise AssertionError("phase 11.4: warmup(tune=True) kept %s"
+                             % (engine.buckets.sizes,))
+    table = np.random.default_rng(11 ^ 0x10ad).integers(
+        0, 2 ** 31, (load_n, 16), dtype=np.int32, endpoint=False)
+    rrec = serve_tune.tune_router(table, prf_method=0, cap=128,
+                                  device=device)
+    mr = rrec["measured"]
+    log("  router: %s, %d qps, %d tried, %d rejected"
+        % (rrec["knobs"], mr["qps"], mr["candidates_tried"],
+           mr["rejected"]))
+    if m["rejected"] or mr["rejected"]:
+        raise AssertionError("phase 11.4: rejected candidates")
+    records["serve"] = {"knobs": rec["knobs"], "qps": m["qps"]}
+    records["router"] = {"knobs": rrec["knobs"], "qps": mr["qps"]}
+    parts["11.4 serving"] = read_counts()
+
+    # 11.5 the observability bench at its defaults
+    zero_counts()
+    log("phase 11.5 bench_trace: N=%d E=16 cap 128 seed 11" % load_n)
+    tr = bench_trace.trace_bench(device=device, quiet=True,
+                                 **(trace_kw or {}))
+    dig = tr["profile"]["joint_digest"]
+    ov = tr["overhead"]
+    dl = ov["paired_deltas_pct"]
+    log("  checked %s; overhead %.3f%% (bound 2%%; median of %d paired "
+        "segment deltas, quartiles %.3f / %.3f %%; summed makespans off "
+        "%.4f s, on %.4f s: %+.3f%%), qps off %d on %d; device digest %s "
+        "ms over %s (top %s); host %s ms; attributed faults %d; families "
+        "%s; spans recorded in %s; %s"
+        % (tr["checked"], ov["overhead_pct"], ov["pairs"],
+           dl[len(dl) // 4], dl[(3 * len(dl)) // 4], ov["makespan_off_s"],
+           ov["makespan_on_s"], ov["makespan_ratio_pct"],
+           ov["qps_tracing_off"], ov["qps_tracing_on"],
+           (dig["device"] or {}).get("device_ms"),
+           (dig["device"] or {}).get("tracks"),
+           (dig["device"] or {}).get("top_ops", [])[:3],
+           (dig["host"] or {}).get("host_ms"),
+           tr["chaos_flight"]["attributed_faults"],
+           tr["openmetrics"]["families_required"],
+           "C" if ov["native_spans"] else "Python", smi))
+    if not tr["checked"]:
+        raise AssertionError("phase 11.5: bench_trace's gates failed")
+    records["bench_trace"] = {k: ov[k] for k in (
+        "overhead_pct", "makespan_ratio_pct", "makespan_off_s",
+        "makespan_on_s", "qps_tracing_off", "qps_tracing_on", "pairs",
+        "native_spans")}
+    records["bench_trace"]["device_ms"] = (dig["device"] or {}).get(
+        "device_ms")
+    parts["11.5 bench_trace"] = read_counts()
+
+    # 11.6 the tuned resolution, end to end
+    zero_counts()
+    hits = CACHE_COUNTERS.tuning_hits
+    auto = dict(kernel_impl=None, dot_impl=None, chunk_leaves=None)
+    for name, prf, radix, scheme, want in (
+            ("binary AES-128", 3, 2, "logn", "tuned"),
+            ("radix-4 ChaCha20-BLK", 5, 4, "logn", "tuned"),
+            ("sqrt-N AES-128", 3, 2, "sqrtn", "tuned"),
+            ("binary ChaCha20", 2, 2, "logn", "searched")):
+        tbl = np.random.default_rng(n ^ (batch << 1)).integers(
+            0, 2 ** 31, (n, 16), dtype=np.int32, endpoint=False)
+        pair = []
+        for _ in range(2):
+            d = DPF(config=EvalConfig(prf_method=prf, radix=radix,
+                                      scheme=scheme, **auto), device=device)
+            d.eval_init(tbl)
+            pair.append(d)
+        kn = pair[0].resolved_eval_knobs(batch)
+        if kn["kernel_resolved_from"] not in ("tuned", "searched") or \
+                kn["kernel_resolved_from"] != want:
+            raise AssertionError("phase 11.6 %s resolved %r, not %s"
+                                 % (name, kn, want))
+        idx = np.random.default_rng(prf + radix).choice(n, batch,
+                                                        replace=False)
+        ka, kb = pair[0].gen_batch(idx, n)
+        rows = (pair[0].eval_gpu(ka) - pair[1].eval_gpu(kb)).cpu().numpy()
+        if not np.array_equal(rows, tbl[idx]):
+            raise AssertionError("phase 11.6 %s: rows not recovered" % name)
+        log("  %s resolves %s: %s; %d rows recovered"
+            % (name, kn["kernel_resolved_from"],
+               {k: v for k, v in kn.items() if k != "kernel_variant"},
+               batch))
+    if CACHE_COUNTERS.tuning_hits <= hits:
+        raise AssertionError("phase 11.6: no tuning-cache hit")
+    parts["11.6 tuned resolution"] = read_counts()
+    log("  cache counters %s" % CACHE_COUNTERS.as_dict())
+    log("phase 11: %.1f s" % (time.perf_counter() - t11))
+    return parts, records
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    # a fresh tuning cache: phases 1-10 resolve from the heuristics, and
+    # a cache left on this machine cannot move their numbers
+    tune_dir = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    os.environ["DPF_TPU_TORCH_TUNE_CACHE"] = os.path.join(tune_dir,
+                                                          "tuning.json")
+    try:
+        return _main(t_start)
+    finally:
+        shutil.rmtree(tune_dir, ignore_errors=True)
+
+
+def _main(t_start) -> int:
     import numpy as np
 
     import dpf_tpu_torch
@@ -2286,6 +2522,30 @@ def main() -> int:
         raise AssertionError("phase 10.3 launches %s: K7 and nothing else "
                              "expected" % zoo)
     by_path.update(parts)
+
+    # ---------------------------------------- 11. tuning and the trace
+    # phases 1-10 ran on the fresh cache: every lookup missed, so every
+    # knob they did not pin resolved from the heuristics
+    from dpf_tpu_torch.utils.profiling import CACHE_COUNTERS
+    log("phases 1-10 tuning cache: %s" % CACHE_COUNTERS.as_dict())
+    if CACHE_COUNTERS.tuning_hits or CACHE_COUNTERS.tuning_stores:
+        raise AssertionError("phases 1-10 read or wrote tuned knobs: %s"
+                             % CACHE_COUNTERS.as_dict())
+    parts, tuning = tuning_phase(smi, read_counts, zero_counts)
+    for part, counts in parts.items():
+        log("phase %s launches: %s" % (part, counts))
+    tuned = parts["11.1 tune_eval"]
+    for k in ("aes_level_step", "contract_i32", "subtree_contract_mixed",
+              "sqrt_grid_contract"):
+        if tuned[k] <= 0:
+            raise AssertionError("kernel %s was never launched in phase "
+                                 "11.1" % k)
+    for k in ("subtree_contract", "chacha_level_step"):
+        if parts["11.2 kernel_search_ggm"][k] <= 0:
+            raise AssertionError("kernel %s was never launched in phase "
+                                 "11.2" % k)
+    by_path.update(parts)
+    log(json.dumps({"phase11": tuning}, default=str))
 
     meta = {
         "aes_level_step": ("dpf_tpu_torch/csrc/aes_level.cu",

@@ -28,6 +28,15 @@ device layout: pageable for ``eval_gpu``, a pinned slot for the engine)
 and ``_dispatch_packed`` (upload, kernels; no host sync).
 ``EvalConfig(kernel_impl="dispatch")`` runs the GGM trees one level a
 launch with ``dispatch_deadline`` checked between launches.
+
+Knobs left at their auto state resolve per dispatch batch size in
+``resolved_eval_knobs``: explicit config > a searched kernel variant
+(``tune/kernel_search.py``) > the tuning cache (``tune/cache.py``) >
+the heuristics, keyed by the server's device fingerprint and memoized
+per batch size until the next ``eval_init``.  ``scheme="auto"`` resolves
+at first use from the cache's scheme winner, else the binary tree
+(``tune/search.heuristic_scheme``), so a cold cache never changes the
+wire format.  ``gen_batch`` takes the searched keygen knobs.
 """
 
 from __future__ import annotations
@@ -44,7 +53,7 @@ from .core.prf_ref import (PRF_AES128, PRF_CHACHA20, PRF_CHACHA20_BLK,
                            PRF_DUMMY, PRF_NAMES, PRF_SALSA20,
                            PRF_SALSA20_BLK)
 from .core.u32 import from_u32
-from .utils.config import check_construction
+from .utils.config import check_construction, is_auto, is_auto_kernel
 
 
 def resolve_device(device=None) -> torch.device:
@@ -70,9 +79,16 @@ def _to_numpy(x, dtype=None) -> np.ndarray:
 
 def _check_construction(scheme: str, radix: int) -> None:
     check_construction(scheme, radix)
-    if scheme == "auto":
-        raise NotImplementedError("scheme='auto' needs the tuning cache, "
-                                  "not ported yet (ROADMAP Queue 1 item 8)")
+    if scheme == "auto" and radix == 4:
+        raise ValueError(
+            "scheme='auto' resolves the whole construction (scheme AND "
+            "radix) from the tuning cache; leave radix at 2")
+
+
+#: a tuning record's kernel_impl -> the port's route (records written by
+#: ``dpf_tpu`` spell the fused route "xla" or "pallas")
+_ROUTE = {"xla": "fused", "pallas": "fused", "fused": "fused",
+          "dispatch": "dispatch"}
 
 
 def gen_batched_binary(alphas, n: int, seeds, prf_method: int, knobs=None):
@@ -206,11 +222,15 @@ class DPF(object):
     DEFAULT_PRF = PRF_AES128
 
     def __init__(self, prf=None, strict=True, config=None, scheme=None,
-                 device=None):
-        """config: optional ``utils.config.EvalConfig`` (``prf_method``,
-        ``batch_size``, ``radix``, ``scheme``, ``row_chunk``).  scheme:
-        ``"logn"`` or ``"sqrtn"``, overrides the config's.  device:
-        where the server evaluates (None = CUDA)."""
+                 device=None, entry_size=None):
+        """config: optional ``utils.config.EvalConfig``.  scheme:
+        ``"logn"``, ``"sqrtn"`` or ``"auto"`` (resolved at the first
+        ``gen`` or ``eval_init``: the tuning cache's scheme winner for
+        this shape, else the binary tree; ``scheme_resolved_from`` says
+        which), overrides the config's.  device: where the server
+        evaluates (None = CUDA).  entry_size: the table width a
+        keygen-only ``scheme="auto"`` instance resolves with (a server
+        uses its table's)."""
         radix, sch = 2, "logn"
         self.row_chunk = None
         self._config = config
@@ -225,9 +245,17 @@ class DPF(object):
         if scheme is not None:
             sch = scheme
         _check_construction(sch, radix)
+        if entry_size is not None and sch != "auto":
+            raise ValueError(
+                "entry_size only parameterizes scheme='auto' resolution "
+                "(the table's own width governs everything else)")
+        self._auto_entry_size = entry_size
+        self.scheme_resolved_from = None  # "cache"/"heuristic" once auto
         self.scheme = sch
         self.radix = radix
         self.device = resolve_device(device)
+        self._tuned_cache = {}        # batch -> tuning-cache knob dict
+        self._keygen_knobs_cache = {}  # (n, pow2 batch) -> knobs or None
         self.prf_method = self.DEFAULT_PRF if prf is None else prf
         if self.prf_method not in PRF_NAMES:
             raise ValueError("unknown PRF id %r" % (self.prf_method,))
@@ -261,6 +289,28 @@ class DPF(object):
             n = u128.next_pow2(n)
         return n
 
+    def _ensure_scheme(self, n: int, entry_size: int | None = None):
+        """Resolve ``scheme="auto"`` for domain ``n``: the tuning cache's
+        scheme winner for this shape on this device (``tune.cache.
+        lookup_scheme``), else ``tune.search.heuristic_scheme``.  Sticky:
+        the first use pins the construction."""
+        if self.scheme != "auto":
+            return
+        from .tune.cache import lookup_scheme
+        rec = lookup_scheme(
+            n=n, entry_size=(entry_size or self._auto_entry_size
+                             or self.ENTRY_SIZE),
+            batch=self.BATCH_SIZE, prf_method=self.prf_method,
+            device=self.device)
+        if rec and rec.get("scheme") in ("logn", "sqrtn"):
+            self.scheme_resolved_from = "cache"
+        else:
+            from .tune.search import heuristic_scheme
+            rec = heuristic_scheme(n)
+            self.scheme_resolved_from = "heuristic"
+        self.scheme = rec["scheme"]
+        self.radix = int(rec.get("radix") or 2)
+
     def gen(self, k, n, seed: bytes | None = None):
         """Generate the two servers' keys for secret index k in [0, n).
 
@@ -278,6 +328,7 @@ class DPF(object):
         n = self._check_gen_domain(int(k), int(n))
         if seed is None:
             seed = os.urandom(128)
+        self._ensure_scheme(n)
         if self.scheme == "sqrtn":
             make = sqrtn.generate_sqrt_keys
         elif self.radix == 4:
@@ -301,22 +352,29 @@ class DPF(object):
         ``os.urandom`` seed a key).  Returns two ``[B, words]`` int32 CPU
         tensors; row i equals ``gen(indices[i], n, seed=seeds[i])``.
         Each call is counted in the ``dpf_keygen_*`` metric series
-        (``obs.metrics.observe_keygen``)."""
+        (``obs.metrics.observe_keygen``).  The searched keygen knobs
+        for this shape (``_resolved_keygen_knobs``) reach the vectorized
+        generators; they change no byte."""
         indices = _to_numpy(indices).astype(np.int64).reshape(-1)
         n = self._check_gen_domain(
             int(indices.max()) if indices.size else 0, int(n))
+        self._ensure_scheme(n)
+        knobs = self._resolved_keygen_knobs(n, indices.size)
         t0 = time.perf_counter()
         if self.scheme == "sqrtn":
             construction = "sqrtn.r2"
             wa, wb = sqrtn.gen_sqrt_batched(indices, n, seeds,
-                                            prf_method=self.prf_method)
+                                            prf_method=self.prf_method,
+                                            knobs=knobs)
         elif self.radix == 4:
             construction = "logn.r4"
             wa, wb = radix4.gen_batched_r4(indices, n, seeds,
-                                           prf_method=self.prf_method)
+                                           prf_method=self.prf_method,
+                                           knobs=knobs)
         else:
             construction = "logn.r2"
-            wa, wb = gen_batched_binary(indices, n, seeds, self.prf_method)
+            wa, wb = gen_batched_binary(indices, n, seeds, self.prf_method,
+                                        knobs=knobs)
         try:  # observability must never break keygen
             from .obs.metrics import observe_keygen
             observe_keygen(construction, indices.size,
@@ -325,6 +383,24 @@ class DPF(object):
             from .utils.profiling import note_swallowed
             note_swallowed("api.keygen_metrics", e)
         return wa, wb
+
+    def _resolved_keygen_knobs(self, n: int, batch: int) -> dict | None:
+        """Searched batched-keygen knobs for this (scheme, radix, n,
+        batch), or None (the baseline): the ``kvariant`` keygen entry
+        (``lookup_keygen_variant``), memoized per (n, pow2 batch) and
+        taken only from a keygen-family variant."""
+        key = (n, u128.next_pow2(max(1, batch)))
+        memo = self._keygen_knobs_cache
+        if key not in memo:
+            from .tune.cache import lookup_keygen_variant
+            rec = lookup_keygen_variant(
+                n=n, batch=key[1], prf_method=self.prf_method,
+                scheme=self.scheme, radix=self.radix,
+                device=self.device) or {}
+            fam = (rec.get("kernel_variant") or {}).get("family")
+            kk = rec.get("keygen_knobs")
+            memo[key] = dict(kk) if (kk and fam == "keygen") else None
+        return memo[key]
 
     # ----------------------------------------------------------- eval_init
 
@@ -356,9 +432,11 @@ class DPF(object):
             raise ValueError(
                 "Table entry dimension (%d) must be <= %d "
                 "(pass strict=False to lift)" % (e, self.ENTRY_SIZE))
+        self._ensure_scheme(n, e)
         self.table = np.ascontiguousarray(tbl)
         self.table_num_entries = n
         self.table_effective_entry_size = e
+        self._tuned_cache = {}  # the shape changed: resolve again
         if self.scheme == "sqrtn":
             permuted = self.table
         elif self.radix == 4:
@@ -455,11 +533,12 @@ class DPF(object):
                 cw1, cw2, last, self.table_device, depth=depth,
                 prf_method=self.prf_method, chunk_leaves=k["chunk_leaves"],
                 group=k["dispatch_group"], deadline=self.dispatch_deadline,
-                aes_impl=self._plain_aes_impl())
+                aes_impl=self._plain_aes_impl(), dot_impl=k["dot_impl"])
         return expand.expand_and_contract(
             cw1, cw2, last, self.table_device, depth=depth,
             prf_method=self.prf_method, chunk_leaves=k["chunk_leaves"],
-            aes_impl=self._plain_aes_impl())
+            aes_impl=self._plain_aes_impl(), f_levels=k.get("f_levels"),
+            dot_impl=k["dot_impl"])
 
     def _dispatch_packed_r4(self, staged: "StagedKeys") -> torch.Tensor:
         """Radix-4 device dispatch, asynchronous like
@@ -472,85 +551,243 @@ class DPF(object):
                 n=self.table_num_entries, prf_method=self.prf_method,
                 chunk_leaves=k["chunk_leaves"], group=k["dispatch_group"],
                 deadline=self.dispatch_deadline,
-                aes_impl=self._plain_aes_impl())
+                aes_impl=self._plain_aes_impl(), dot_impl=k["dot_impl"])
         return radix4.expand_and_contract_mixed(
             cw1, cw2, last, self.table_device, n=self.table_num_entries,
             prf_method=self.prf_method, chunk_leaves=k["chunk_leaves"],
-            aes_impl=self._plain_aes_impl())
+            aes_impl=self._plain_aes_impl(), dot_impl=k["dot_impl"])
 
     def _dispatch_packed_sqrt(self, staged: "StagedKeys") -> torch.Tensor:
         """Sqrt-N device dispatch: the staged rows go to the device, are
         padded there, and K4 reads seeds and codewords at the key
-        stride.  An explicit ``row_chunk`` passes straight through (an
-        invalid pin raises), else the scan's heuristic chunk is clamped
-        to the batch's split and the kernel's cell cap."""
+        stride.  A tuned or searched K4 grid step runs as given
+        (``grid_rows``); an explicit ``row_chunk`` passes straight
+        through (an invalid pin raises); else the scan's heuristic chunk
+        is clamped to the batch's split and the kernel's cell cap."""
         pk = staged.pk
         seeds, cw1, cw2 = sqrtn.sqrt_key_views(
             upload(staged, self.device), pk.n_keys, pk.n_codewords,
             pad_to=staged.size)
-        rc = self.row_chunk
-        if rc is None:
+        k = self.resolved_eval_knobs(staged.size)
+        rc, grid_rows = self.row_chunk, k.get("grid_rows")
+        if grid_rows is not None and \
+                pk.n_keys != sqrtn.default_split(pk.n)[0]:
+            grid_rows = None      # tuned for the default split only
+        if grid_rows is None and rc is None:
             rc = sqrtn.clamp_row_chunk(None, pk.n_codewords, pk.n_keys,
                                        staged.size)
         return sqrtn.eval_contract_batched(
             seeds, cw1, cw2, self.table_device, prf_method=self.prf_method,
-            row_chunk=rc)
+            row_chunk=rc, grid_rows=grid_rows)
+
+    def _lookup_tuned(self, batch: int) -> dict:
+        """The tuning cache's knobs for this shape and batch size on this
+        server's device (``lookup_eval_knobs``, nearest batch), with the
+        searched kernel variant of the same shape under ``_searched``;
+        {} when every knob the construction reads is pinned."""
+        cfg = self._config
+        if cfg is not None:
+            fields = ((cfg.row_chunk,) if self.scheme == "sqrtn" else
+                      (cfg.chunk_leaves, cfg.dot_impl, cfg.dispatch_group))
+            if not (any(is_auto(v) for v in fields)
+                    or is_auto_kernel(cfg.kernel_impl)):
+                return {}
+        from .tune.cache import lookup_eval_knobs, lookup_kernel_variant
+        shape = dict(n=self.table_num_entries,
+                     entry_size=self.table_effective_entry_size,
+                     batch=batch, prf_method=self.prf_method,
+                     scheme=self.scheme, radix=self.radix,
+                     device=self.device)
+        tuned = dict(lookup_eval_knobs(**shape) or {})
+        searched = lookup_kernel_variant(**shape)
+        if searched:
+            tuned["_searched"] = searched
+        return tuned
 
     def resolved_eval_knobs(self, batch: int) -> dict:
-        """Program knobs for one dispatch batch size: the heuristic branch
-        of ``dpf_tpu``'s resolution (the tuning cache is not ported
-        yet).  ``kernel_impl`` is the config's (``"xla"`` by default);
-        ``"xla"``, ``"pallas"`` and the auto state take the fused
-        kernels (``kernel_impl: "fused"``): the stream ciphers the subtree
-        kernel's block of at most 4096 leaves, AES and DUMMY the 64 MiB
-        live-seed chunk (``expand.choose_chunk``).  ``"dispatch"`` takes
-        the per-level mode with the live-seed chunk for every PRF and
-        its ``dispatch_group`` (``kernel_resolved_from: "config"``).  For radix 4 the chunk is rounded down to a
+        """Program knobs for one dispatch batch size (port of
+        ``dpf_tpu``'s resolution, with the card's routes).
+
+        Per knob: an explicit ``EvalConfig`` field wins; a knob at its
+        auto state takes a searched kernel variant's value (a
+        ``kvariant`` entry of ``tune/kernel_search.py`` of this
+        construction's family), else the tuning cache's (``tune/
+        cache.py``: this device's fingerprint x (N, E, B, prf, scheme,
+        radix), nearest-batch fallback), else the heuristic.  The lookup
+        is memoized per batch size in ``_tuned_cache`` (cleared by
+        ``eval_init``), which is also where a tuner pins the knobs it
+        measures.  ``kernel_resolved_from``
+        (``config``, ``searched``, ``tuned`` or ``heuristic``) is the
+        provenance of the route.
+
+        Routes: ``kernel_impl: "fused"`` (the default) takes for the
+        stream ciphers K2 once, ``chunk_leaves`` its block subtree
+        (``subtree_chunk_leaves``: at most 4096 leaves), and for AES and
+        DUMMY one launch a level (K1 or the plain step) and K3 a group,
+        ``chunk_leaves`` the 64 MiB live-seed chunk
+        (``expand.choose_chunk``); ``"dispatch"`` the per-level mode
+        with the live-seed chunk for every PRF and its
+        ``dispatch_group``.  For radix 4 the chunk is rounded down to a
         product of trailing arities (``radix4._suffix_chunk``) and the
-        kernels are the radix-4 ones: K2 ``subtree_contract_mixed``, K1
-        at arity 4.  ``kernel`` names the kernel that expands the
-        levels."""
+        kernels are the radix-4 ones.  An explicit or tuned chunk the
+        route cannot take as asked is clamped and surfaced
+        (``chunk_leaves_effective``, counted at
+        ``api.chunk_leaves_clamped``); a K2 block that is not a power of
+        two raises ``ValueError``.  ``dot_impl`` is the per-level routes'
+        contraction; ``f_levels`` (a searched variant's, binary tree)
+        the frontier the route starts from.  ``kernel`` names the
+        kernel that expands the levels."""
         n = self.table_num_entries
         if n is None:
             raise RuntimeError("Must call `eval_init` before resolving")
+        tuned = self._tuned_cache.get(batch)
+        if tuned is None:
+            tuned = self._tuned_cache[batch] = self._lookup_tuned(batch)
         if self.scheme == "sqrtn":
-            return self._resolved_sqrt_knobs(n, batch)
+            return self._resolved_sqrt_knobs(n, batch, tuned)
+        return self._resolved_logn_knobs(n, batch, tuned)
+
+    def _resolved_logn_knobs(self, n: int, batch: int, tuned: dict) -> dict:
+        """The GGM trees' branch of ``resolved_eval_knobs``."""
+        from .ops import matmul128
+        from .ops.subtree import subtree_chunk_leaves
+
         cfg = self._config
-        dispatch = cfg is not None and cfg.kernel_impl == "dispatch"
-        group = cfg.dispatch_group if dispatch else None
-        if self.prf_method in expand.SUBTREE_PRFS and not dispatch:
-            from .ops.subtree import subtree_chunk_leaves
-            chunk, kernel = subtree_chunk_leaves(n), "subtree_contract"
+        dflt = matmul128.default_impl()
+
+        def explicit(field):
+            v = getattr(cfg, field) if cfg is not None else None
+            return None if is_auto(v) else v
+
+        searched = tuned.get("_searched") or {}
+        variant = searched.get("kernel_variant") or {}
+        if variant.get("family") != "ggm":
+            searched, variant = {}, {}
+        if cfg is not None and not is_auto_kernel(cfg.kernel_impl):
+            impl, impl_from = cfg.kernel_impl, "config"
+        elif searched.get("kernel_impl") in _ROUTE:
+            impl, impl_from = _ROUTE[searched["kernel_impl"]], "searched"
+        elif tuned.get("kernel_impl") in _ROUTE:
+            impl, impl_from = _ROUTE[tuned["kernel_impl"]], "tuned"
         else:
+            impl, impl_from = "fused", "heuristic"
+        if impl_from != "searched":
+            searched, variant = {}, {}
+        k2 = self.prf_method in expand.SUBTREE_PRFS and impl == "fused"
+        chunk_req = chunk_from = None
+        if explicit("chunk_leaves"):
+            chunk_req, chunk_from = int(cfg.chunk_leaves), "config"
+        elif searched.get("chunk_leaves"):
+            chunk_req, chunk_from = int(searched["chunk_leaves"]), "searched"
+        elif tuned.get("chunk_leaves") and _ROUTE.get(
+                tuned.get("kernel_impl", "fused")) == impl:
+            # a tuned chunk rides only with the route it was timed on
+            chunk_req, chunk_from = int(tuned["chunk_leaves"]), "tuned"
+        if k2:
+            top = subtree_chunk_leaves(n)
+            if chunk_req is not None and (chunk_req < 1
+                                          or chunk_req & (chunk_req - 1)):
+                raise ValueError("chunk_leaves (%d) of K2 must be a power "
+                                 "of two" % chunk_req)
+            chunk = top if chunk_req is None else min(chunk_req, top)
+        elif chunk_req is None:
             chunk = expand.clamp_chunk(None, n, batch)
+        elif chunk_from == "config":
+            chunk = min(chunk_req, n)
+        else:
+            chunk = expand.clamp_chunk(chunk_req, n, batch)
+        if self.radix == 4:
+            chunk = radix4._suffix_chunk(radix4.arities(n), chunk)[1]
+        clamped = chunk_req is not None and chunk != chunk_req
+        if clamped:
+            from .utils.profiling import note_swallowed
+            note_swallowed("api.chunk_leaves_clamped", RuntimeError(
+                "requested chunk_leaves %d (from %s) clamped to %d by the "
+                "route's limit" % (chunk_req, chunk_from, chunk)))
+        f_levels = searched.get("f_levels")
+        if f_levels is not None:
+            base = n.bit_length() - chunk.bit_length()
+            ok = (0 <= int(f_levels) <= base if k2
+                  else base <= int(f_levels) <= n.bit_length() - 1)
+            if self.radix != 2 or impl != "fused" or not ok:
+                f_levels = None
+        if impl_from == "searched" and explicit("dot_impl") is None:
+            dot = searched.get("dot_impl") or dflt
+        else:
+            dot = explicit("dot_impl") or tuned.get("dot_impl") or dflt
+        if impl == "dispatch":
+            group = explicit("dispatch_group")
+            if group is None:
+                group = (searched.get("dispatch_group")
+                         if impl_from == "searched"
+                         else tuned.get("dispatch_group"))
+        else:
+            group = None
+        if k2:
+            kernel = "subtree_contract"
+        else:
             kernel = {PRF_AES128: "aes_level_step",
                       PRF_CHACHA20: "chacha_level_step"}.get(
                           self.prf_method, "plain_level_step")
         if self.radix == 4:
-            chunk = radix4._suffix_chunk(radix4.arities(n), chunk)[1]
             kernel = {"subtree_contract": "subtree_contract_mixed",
                       "aes_level_step": "aes_level_step_a4",
                       "chacha_level_step": "plain_level_step"}.get(kernel,
                                                                    kernel)
-        return {"chunk_leaves": chunk, "kernel": kernel,
-                "kernel_impl": "dispatch" if dispatch else "fused",
-                "dispatch_group": group,
-                "kernel_resolved_from": "config" if dispatch
-                else "heuristic"}
+        out = {"chunk_leaves": chunk, "kernel": kernel, "kernel_impl": impl,
+               "dispatch_group": group, "kernel_resolved_from": impl_from,
+               "dot_impl": dot}
+        if f_levels is not None:
+            out["f_levels"] = int(f_levels)
+        if variant:
+            out["kernel_variant"] = variant
+        if clamped:
+            out["chunk_leaves_effective"] = chunk
+        unroll = (cfg.round_unroll if cfg is not None
+                  and cfg.round_unroll is not None
+                  else tuned.get("round_unroll"))
+        if unroll is not None:
+            out["round_unroll"] = unroll   # recorded; moves no path
+        return out
 
-    def _resolved_sqrt_knobs(self, n: int, batch: int) -> dict:
+    def _resolved_sqrt_knobs(self, n: int, batch: int, tuned: dict) -> dict:
         """The sqrt-N branch: every PRF id goes to K4.  ``row_chunk`` is
-        the config's pin or None (resolved per batch from the keys'
-        split); ``row_chunk_effective`` is the K4 grid step the
-        default split gets at this batch size."""
-        from .ops.sqrt_grid import sqrt_row_chunk
+        the config's pin (K4's step is it halved to the cell cap) or None;
+        with no pin a searched variant's or the tuning cache's K4 grid
+        step comes back as ``grid_rows`` (run as given), else the step
+        is resolved per batch from the keys' split.
+        ``row_chunk_effective`` is the K4 grid step the default split
+        gets at this batch size."""
+        from .ops.sqrt_grid import heuristic_grid_rows, sqrt_row_chunk
+        cfg = self._config
         k, r = sqrtn.default_split(n)
-        rc = self.row_chunk
-        eff = sqrt_row_chunk(r, k, rc if rc is not None else
-                             sqrtn.clamp_row_chunk(None, r, k, batch))
-        return {"row_chunk": rc, "row_chunk_effective": eff,
-                "kernel": "sqrt_grid_contract", "kernel_impl": "fused",
-                "kernel_resolved_from": "heuristic"}
+        searched = tuned.get("_searched") or {}
+        if (searched.get("kernel_variant") or {}).get("family") not in (
+                "xla", "pallas"):
+            searched = {}
+        rc, grid_rows = self.row_chunk, None
+        if rc is not None:
+            eff = sqrt_row_chunk(r, k, rc)
+        else:
+            grid_rows = searched.get("row_chunk") or tuned.get("row_chunk")
+            eff = (int(grid_rows) if grid_rows
+                   else heuristic_grid_rows(r, k, batch))
+        if cfg is not None and not is_auto_kernel(cfg.kernel_impl):
+            impl_from = "config"
+        elif searched.get("row_chunk") or searched.get("kernel_impl"):
+            impl_from = "searched"
+        elif tuned.get("row_chunk") or tuned.get("kernel_impl"):
+            impl_from = "tuned"
+        else:
+            impl_from = "heuristic"
+        out = {"row_chunk": rc, "row_chunk_effective": eff,
+               "kernel": "sqrt_grid_contract", "kernel_impl": "fused",
+               "kernel_resolved_from": impl_from}
+        if grid_rows:
+            out["grid_rows"] = int(grid_rows)   # K4's step, run as given
+        if impl_from == "searched":
+            out["kernel_variant"] = searched["kernel_variant"]
+        return out
 
     # ------------------------------------------------- one-hot and points
 

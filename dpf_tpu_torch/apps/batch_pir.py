@@ -31,11 +31,16 @@ as the parity oracle.  ``LookupStream`` serves rounds through one
 ``ServingEngine`` per size group; ``PrivateLookupClient`` mints one key
 per bin with the batched generators and recovers the rows.
 
-Divergences by design: ``mesh=`` raises (multi-GPU is ROADMAP Queue 1
-item 9); ``scheme="auto"`` raises as ``api.DPF`` does (the tuning cache
-is item 8); the group knobs are the per-key kernels' geometry
-(``subtree.pkt_block_leaves``, ``sqrt_grid.pkt_row_chunk``; AES and
-DUMMY ``expand.clamp_chunk``), with no tuning cache.
+``scheme="auto"`` resolves each (n, G) size group from the tuning
+cache's scheme winner for that shape, else the caller's log-N radix, on
+client and server alike (``_resolve_construction``).  The group knobs
+are the per-key kernels' geometry (``subtree.pkt_block_leaves``,
+``sqrt_grid.pkt_row_chunk``), which no tuned knob reaches: a block size
+or row chunk timed on a shared table is not a per-key one.  AES and
+DUMMY take the tuning cache's live-seed chunk for the group's shape when
+it was tuned on the fused route (the per-key route expands the same
+way), re-clamped to the 64 MiB budget; ``expand.clamp_chunk`` on a cold
+cache.  ``mesh=`` raises (multi-GPU is ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -293,10 +298,50 @@ def _pad_pow2(n, lo=128):
     return next_pow2(max(n, lo))
 
 
-def _resolve_construction(scheme: str, radix: int) -> tuple:
-    """The concrete construction of a size group: sqrt-N or the caller's
-    log-N radix (``scheme="auto"`` is refused before this is asked)."""
-    return ("sqrtn", 2) if scheme == "sqrtn" else ("logn", radix)
+def _resolve_construction(scheme: str, radix: int, n: int, group_size: int,
+                          entry_size: int, prf_method: int,
+                          device=None) -> tuple:
+    """The concrete construction of one (n, G) size group: sqrt-N, or for
+    ``scheme="auto"`` the tuning cache's scheme winner for this shape on
+    ``device`` (``tune.cache.lookup_scheme``), else the caller's log-N
+    radix.  Client and server derive it independently, so it depends
+    only on the bins and the cache."""
+    if scheme == "sqrtn":
+        return "sqrtn", 2
+    if scheme == "auto":
+        from ..core.u128 import next_pow2
+        from ..tune.cache import lookup_scheme
+        rec = lookup_scheme(n=n, entry_size=entry_size,
+                            batch=next_pow2(max(1, group_size)),
+                            prf_method=prf_method, device=device)
+        if rec and rec.get("scheme") in ("logn", "sqrtn"):
+            return rec["scheme"], int(rec.get("radix") or 2)
+    return "logn", radix
+
+
+def group_knobs(prf_method: int, entry_size: int, device, n: int,
+                batch: int, sch: str, rad: int) -> dict:
+    """Program knobs of one (n, G) per-key dispatch: K2's per-key block
+    subtree for the stream ciphers (``subtree.pkt_block_leaves``); for
+    sqrt-N a row chunk of None, resolved by K4's wrapper
+    (``sqrt_grid.pkt_row_chunk``); for AES and DUMMY the live-seed chunk,
+    the tuning cache's for this group's shape on ``device`` when it was
+    tuned on the fused route, re-clamped (``expand.clamp_chunk``), else
+    ``clamp_chunk``'s.  None of them changes a bit."""
+    from ..core import expand, radix4
+    from ..ops import subtree
+    if sch == "sqrtn":
+        return {"row_chunk": None}
+    if prf_method not in expand.SUBTREE_PRFS:
+        from ..tune.cache import lookup_eval_knobs
+        tuned = lookup_eval_knobs(
+            n=n, entry_size=entry_size, batch=batch, prf_method=prf_method,
+            scheme=sch, radix=rad, device=device) or {}
+        chunk = (tuned.get("chunk_leaves") if tuned.get(
+            "kernel_impl", "fused") in ("fused", "xla") else None)
+        return {"chunk_leaves": expand.clamp_chunk(chunk, n, batch)}
+    ars = radix4.arities(n) if rad == 4 else (2,) * (n.bit_length() - 1)
+    return {"chunk_leaves": subtree.pkt_block_leaves(batch, ars)}
 
 
 @dataclass
@@ -324,15 +369,17 @@ class PrivateLookupServer:
                  mesh=None, scheme: str = "logn", device=None):
         """scheme: ``"logn"`` (the binary tree, or the radix-4 tree with
         radix=4) or ``"sqrtn"``; the client must be built with the same
-        arguments.  ``mesh`` and ``scheme="auto"`` raise (not ported).
-        device: where the tables live and the groups evaluate (None =
-        CUDA; ``"cpu"`` runs the kernels' plain versions)."""
-        from ..api import DPF, _check_construction, resolve_device
+        arguments; ``"auto"`` resolves each size group from the tuning
+        cache's scheme winner, else the log-N ``radix``.  ``mesh`` raises
+        (not ported).  device: where the tables live and the groups
+        evaluate (None = CUDA; ``"cpu"`` runs the kernels' plain
+        versions)."""
+        from ..api import DPF, resolve_device
         from ..core import expand, radix4
         if mesh is not None:
             raise ValueError("mesh= (multi-GPU batch-PIR) is not ported "
                              "yet (ROADMAP Queue 1 item 9)")
-        _check_construction(scheme, radix)
+        check_construction(scheme, radix)
         self.prf_method = DPF.DEFAULT_PRF if prf is None else prf
         self.radix = radix
         self.scheme = scheme
@@ -362,9 +409,12 @@ class PrivateLookupServer:
             return expand.permute_table(padded)
 
         self._groups = {}
+        self._knobs = {}    # (n, batch, scheme, radix) -> group knobs
         self._stages = {}   # n -> the pinned key buffer of ``answer``
         for n, (idxs, tbls) in by_size.items():
-            sch, rad = _resolve_construction(scheme, radix)
+            sch, rad = _resolve_construction(
+                scheme, radix, n, len(idxs), self.entry_size,
+                self.prf_method, self.device)
             stacked = np.stack([permute(t, sch, rad) for t in tbls])
             self._groups[n] = _SizeGroup(
                 idxs, torch.from_numpy(stacked).to(self.device), sch, rad)
@@ -376,21 +426,14 @@ class PrivateLookupServer:
     # ------------------------------------------------------ the hot path
 
     def _group_knobs(self, n: int, batch: int, sch: str, rad: int) -> dict:
-        """Program knobs of one (n, G) dispatch, the per-key geometry:
-        K2's block subtree for the stream ciphers
-        (``subtree.pkt_block_leaves``), the 64 MiB live-seed chunk for
-        AES and DUMMY (``expand.clamp_chunk``, rounded down to a product
-        of trailing arities in the radix-4 tree); for sqrt-N the row
-        chunk is None, resolved from the keys' rows by K4's wrapper
-        (``sqrt_grid.pkt_row_chunk``).  None of them changes a bit."""
-        from ..core import expand, radix4
-        from ..ops import subtree
-        if sch == "sqrtn":
-            return {"row_chunk": None}
-        if self.prf_method not in expand.SUBTREE_PRFS:
-            return {"chunk_leaves": expand.clamp_chunk(None, n, batch)}
-        ars = radix4.arities(n) if rad == 4 else (2,) * (n.bit_length() - 1)
-        return {"chunk_leaves": subtree.pkt_block_leaves(batch, ars)}
+        """Program knobs of one (n, G) dispatch (``group_knobs``),
+        memoized per (n, batch, construction)."""
+        key = (n, batch, sch, rad)
+        knobs = self._knobs.get(key)
+        if knobs is None:
+            knobs = self._knobs[key] = group_knobs(
+                self.prf_method, self.entry_size, self.device, *key)
+        return knobs
 
     def _decode_group(self, n: int, grp: _SizeGroup, keys):
         """Packed-codec ingest of one size group's keys, with fail-fast
@@ -701,14 +744,17 @@ class PrivateLookupClient:
     ``radix4.gen_batched_r4``, ``sqrtn.gen_sqrt_batched``);
     ``make_queries_scalar`` keeps the per-bin ``DPF.gen`` loop as its
     oracle (byte-identical keys under the same seeds).  ``scheme`` and
-    ``radix`` mirror the server's; ``entry_size`` is accepted for the
-    JAX package's signature (it keys the tuning cache there, not
-    ported).  Keys are int32 numpy arrays, byte-equal to ``dpf_tpu``'s."""
+    ``radix`` mirror the server's; with ``scheme="auto"`` the table's
+    ``entry_size`` and the server's ``device`` (None = the card when
+    present, else the CPU) key the tuning-cache lookup that resolves
+    each size group, so pass the server's.  Keys are int32 numpy
+    arrays, byte-equal to ``dpf_tpu``'s."""
 
     def __init__(self, bins, bin_sizes, prf=None, radix: int = 2,
-                 scheme: str = "logn", entry_size: int | None = None):
-        from ..api import DPF, _check_construction
-        _check_construction(scheme, radix)
+                 scheme: str = "logn", entry_size: int | None = None,
+                 device=None):
+        from ..api import DPF
+        check_construction(scheme, radix)
         self.prf_method = DPF.DEFAULT_PRF if prf is None else prf
         self.radix = radix
         self.scheme = scheme
@@ -724,8 +770,11 @@ class PrivateLookupClient:
         self._size_groups = {}
         for bi, n in enumerate(self.bin_sizes):
             self._size_groups.setdefault(n, []).append(bi)
-        self._constructions = {n: _resolve_construction(scheme, radix)
-                               for n in self._size_groups}
+        self._constructions = {
+            n: _resolve_construction(scheme, radix, n, len(idxs),
+                                     self.entry_size, self.prf_method,
+                                     device)
+            for n, idxs in self._size_groups.items()}
         self._scalar_dpfs = {}
 
     def group_constructions(self) -> dict:

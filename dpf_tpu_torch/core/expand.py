@@ -34,6 +34,17 @@ with its own table (``[B, N, E]``): the stream ciphers through K2's
 per-key mode, AES and DUMMY through ``dispatch_contract`` with each
 group contracted by K6 (``matmul128.dot_i32_per_key``) in place of K3.
 
+The tuner's knobs (``tune/search.py``, ``tune/kernel_search.py``)
+reach these routes as ``chunk_leaves`` (K2's block subtree, or the
+live-seed chunk of the per-level routes), ``f_levels`` (the frontier a
+route starts from: K2's, walked by the per-level steps above it, or the
+per-level routes' phase-1 frontier, its subtrees contracted in groups of
+``chunk_leaves`` leaves) and ``dot_impl`` (the per-level routes'
+contraction: K3 or ``matmul128.dot_i32_mxu``).  ``chunk_candidates`` and
+``f_level_candidates`` are ``dpf_tpu``'s, for the live-seed routes; K2's
+own are ``ops/subtree.block_leaves_candidates`` and
+``frontier_level_candidates``.  No knob changes a bit of the result.
+
 On CPU tensors every kernel wrapper takes its plain version, so the same
 code is the CPU reference.  ``lax.scan`` becomes a Python loop.
 """
@@ -84,6 +95,37 @@ def clamp_chunk(chunk, n: int, batch: int) -> int:
     if not chunk or not chunk_within_bound(chunk, batch):
         chunk = choose_chunk(n, batch)
     return min(int(chunk), n)
+
+
+def chunk_candidates(n: int, batch: int, span: int = 2) -> list:
+    """``chunk_leaves`` candidates of the live-seed routes for the
+    autotuner (``dpf_tpu``'s rule): powers of two within ``span``
+    octaves of ``choose_chunk``, each dividing the power-of-two ``n`` and
+    each within the 64 MiB live-seed bound (dropped, not clipped).  The
+    heuristic is always a member.  Sorted ascending."""
+    base = choose_chunk(n, batch)
+    out = set()
+    for s in range(-span, span + 1):
+        c = base << s if s >= 0 else base >> (-s)
+        if 1 <= c <= n and chunk_within_bound(c, batch):
+            out.add(c)
+    return sorted(out)
+
+
+def f_level_candidates(n: int, chunk: int, batch: int,
+                       span: int = 3) -> list:
+    """Legal ``f_levels`` of the live-seed routes for one (n, chunk)
+    pair (``dpf_tpu``'s rule): from the chunk-implied frontier
+    ``log2(n / chunk)`` (always a member) down at most ``span`` levels,
+    while the frontier's ``[B, 2^f_levels, 4]`` seeds stay within the
+    64 MiB bound.  Sorted ascending."""
+    depth = int(np.log2(n))
+    base = depth - int(np.log2(max(1, int(chunk))))
+    out = []
+    for fl in range(base, min(depth, base + span) + 1):
+        if (1 << fl) * 16 * max(1, batch) <= CHUNK_SEED_BYTES_BOUND:
+            out.append(fl)
+    return out or [base]
 
 
 def choose_group(f: int, c: int) -> int:
@@ -162,13 +204,21 @@ def permute_table(table_i32: np.ndarray) -> np.ndarray:
 
 def expand_and_contract(cw1, cw2, last, table_perm, *, depth: int,
                         prf_method: int, chunk_leaves: int,
-                        aes_impl: str | None = None) -> torch.Tensor:
+                        aes_impl: str | None = None,
+                        f_levels: int | None = None,
+                        dot_impl: str | None = None) -> torch.Tensor:
     """Batched fused DPF evaluation against one shared table.
 
     cw1, cw2: [B, 64, 4] int32 codeword limbs; last: [B, 4] start seeds;
     table_perm: [N, E] int32 bit-reverse-permuted table, all on one
-    device.  ``chunk_leaves``: leaves per phase-2 subtree (AES, DUMMY) or
-    per K2 block (the stream ciphers); it changes no bit of the result.
+    device.  ``chunk_leaves``: leaves per phase-2 pass (AES, DUMMY) or
+    per K2 block (the stream ciphers).  ``f_levels`` (None = the route's
+    own): K2 starts from the ``2^f_levels`` frontier, which the per-level
+    steps reach first (``f_levels <= depth - log2(chunk_leaves)``); AES
+    and DUMMY expand to that frontier, then contract groups of its
+    subtrees of ``chunk_leaves`` leaves in all (``f_levels >= depth -
+    log2(chunk_leaves)``).  ``dot_impl``: the AES and DUMMY route's
+    contraction (None = K3).  None of these changes a bit of the result.
     ``aes_impl``: the formulation of K1's plain version on CPU tensors.
     Returns [B, E] int32 server shares.
     """
@@ -177,14 +227,28 @@ def expand_and_contract(cw1, cw2, last, table_perm, *, depth: int,
     if n != 1 << depth or c < 1 or n % c or c & (c - 1):
         raise ValueError("chunk_leaves (%d) must be a power of two dividing "
                          "the table size %d = 2^%d" % (c, n, depth))
+    base = depth - (c.bit_length() - 1)
     if prf_method in SUBTREE_PRFS:
         from ..ops.subtree import subtree_contract
-        return subtree_contract(last[:, None, :], cw1, cw2, table_perm,
-                                depth=depth, f_levels=0,
+        fl = f_levels or 0
+        if not 0 <= fl <= base:
+            raise ValueError("f_levels (%d) must be in [0, %d] for K2 blocks "
+                             "of %d leaves" % (fl, base, c))
+        seeds = last[:, None, :]
+        for lv in range(fl):
+            seeds = level_step(seeds, cw1, cw2, depth - 1 - lv, prf_method)
+        return subtree_contract(seeds.contiguous(), cw1, cw2, table_perm,
+                                depth=depth, f_levels=fl,
                                 prf_method=prf_method, block_leaves=c)
+    group = None
+    if f_levels is not None:
+        if not base <= f_levels <= depth:
+            raise ValueError("f_levels (%d) must be in [%d, %d] for chunks "
+                             "of %d leaves" % (f_levels, base, depth, c))
+        c, group = n >> f_levels, c >> (depth - f_levels)
     return eval_dispatch(cw1, cw2, last, table_perm, depth=depth,
-                         prf_method=prf_method, chunk_leaves=c,
-                         aes_impl=aes_impl)
+                         prf_method=prf_method, chunk_leaves=c, group=group,
+                         aes_impl=aes_impl, dot_impl=dot_impl)
 
 
 class DeadlineExceeded(RuntimeError):
@@ -214,14 +278,17 @@ def dispatch_group_size(f: int, c: int, group: int | None) -> int:
 
 def dispatch_contract(last, table_perm, level, n_levels: int, f_lv: int,
                       c: int, group: int | None,
-                      deadline: float | None) -> torch.Tensor:
+                      deadline: float | None,
+                      dot_impl: str | None = None) -> torch.Tensor:
     """The per-level mode's loop over any level schedule:
     ``level(seeds, j, low32)`` runs eval level ``j``; the root goes to
     the ``f = N / c`` frontier nodes at eval level ``f_lv``, then each
-    group of subtrees to its leaves, contracted by K3 (per-key tables
-    ``[B, N, E]``: by K6, each key against its own rows).  The deadline
-    is checked before every launch."""
-    from ..ops.matmul128 import dot_i32, dot_i32_per_key
+    group of subtrees to its leaves, contracted by K3 or the ``dot_impl``
+    of ``matmul128.IMPLS`` (per-key tables ``[B, N, E]``: by K6, each key
+    against its own rows).  The deadline is checked before every
+    launch."""
+    from ..ops.matmul128 import IMPLS, dot_i32, dot_i32_per_key
+    dot = dot_i32 if dot_impl in (None, "i32") else IMPLS[dot_impl]
     n, e = table_perm.shape[-2:]
     f = n // c
     g = dispatch_group_size(f, c, group)
@@ -243,7 +310,7 @@ def dispatch_contract(last, table_perm, level, n_levels: int, f_lv: int,
         if table_perm.dim() == 3:
             acc = acc + dot_i32_per_key(s, table_perm[:, rows])
         else:
-            acc = acc + dot_i32(s, table_perm[rows])
+            acc = acc + dot(s, table_perm[rows])
     return acc
 
 
@@ -251,7 +318,8 @@ def eval_dispatch(cw1, cw2, last, table_perm, *, depth: int,
                   prf_method: int, chunk_leaves: int,
                   group: int | None = None,
                   deadline: float | None = None,
-                  aes_impl: str | None = None) -> torch.Tensor:
+                  aes_impl: str | None = None,
+                  dot_impl: str | None = None) -> torch.Tensor:
     """Per-level evaluation of the binary tree (port of
     ``expand.eval_dispatch``): the same shares as
     ``expand_and_contract``, one launch a level.  ``table_perm`` may be
@@ -262,7 +330,8 @@ def eval_dispatch(cw1, cw2, last, table_perm, *, depth: int,
     ``choose_group``; a value that does not divide the frontier is
     lowered to one that does); ``deadline``: a ``time.monotonic()``
     value checked before every launch; ``aes_impl``: the formulation of
-    K1's plain version on CPU tensors."""
+    K1's plain version on CPU tensors; ``dot_impl``: the shared table's
+    contraction (None = K3)."""
     n = table_perm.shape[-2]
     c = chunk_leaves
     if n != 1 << depth or c < 1 or n % c or c & (c - 1):
@@ -274,7 +343,8 @@ def eval_dispatch(cw1, cw2, last, table_perm, *, depth: int,
                           aes_impl)
 
     return dispatch_contract(last, table_perm, level, depth,
-                             (n // c).bit_length() - 1, c, group, deadline)
+                             (n // c).bit_length() - 1, c, group, deadline,
+                             dot_impl)
 
 
 def expand_and_contract_per_key_tables(cw1, cw2, last, tables_perm, *,

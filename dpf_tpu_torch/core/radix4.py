@@ -443,7 +443,8 @@ def eval_points_mixed(cw1, cw2, last, indices, *, n: int, prf_method: int,
 
 def expand_and_contract_mixed(cw1, cw2, last, table_perm, *, n: int,
                               prf_method: int, chunk_leaves: int | None,
-                              aes_impl: str | None = None) -> torch.Tensor:
+                              aes_impl: str | None = None,
+                              dot_impl: str | None = None) -> torch.Tensor:
     """Batched fused mixed-radix evaluation against one shared table.
 
     cw1, cw2: [B, 64, 4] int32 codeword limbs; last: [B, 4] start seeds;
@@ -452,7 +453,8 @@ def expand_and_contract_mixed(cw1, cw2, last, table_perm, *, n: int,
     down to a suffix product of the arities, None = N): leaves per
     frontier subtree (AES, DUMMY) or per K2 block (the stream ciphers);
     it changes no bit of the result.  ``aes_impl``: the formulation of
-    K1's plain version on CPU tensors.  Returns [B, E] int32 server
+    K1's plain version on CPU tensors; ``dot_impl``: the AES and DUMMY
+    route's contraction (None = K3).  Returns [B, E] int32 server
     shares.
     """
     if table_perm.shape[-2] != n:
@@ -467,14 +469,15 @@ def expand_and_contract_mixed(cw1, cw2, last, table_perm, *, n: int,
                                       block_leaves=c)
     return eval_dispatch_mixed(cw1, cw2, last, table_perm, n=n,
                                prf_method=prf_method, chunk_leaves=c,
-                               aes_impl=aes_impl)
+                               aes_impl=aes_impl, dot_impl=dot_impl)
 
 
 def eval_dispatch_mixed(cw1, cw2, last, table_perm, *, n: int,
                         prf_method: int, chunk_leaves: int | None,
                         group: int | None = None,
                         deadline: float | None = None,
-                        aes_impl: str | None = None) -> torch.Tensor:
+                        aes_impl: str | None = None,
+                        dot_impl: str | None = None) -> torch.Tensor:
     """Per-level evaluation of the radix-4 tree (port of
     ``radix4.eval_dispatch_mixed``): the same shares as
     ``expand_and_contract_mixed``, one launch a level.  AES levels go to
@@ -486,7 +489,8 @@ def eval_dispatch_mixed(cw1, cw2, last, table_perm, *, n: int,
     ``chunk_leaves`` is rounded down to a product of trailing arities
     (None = N); ``deadline`` is checked before every launch;
     ``aes_impl``: the formulation of K1's plain version on CPU
-    tensors."""
+    tensors; ``dot_impl``: the shared table's contraction (None =
+    K3)."""
     if table_perm.shape[-2] != n:
         raise ValueError("table of %d rows for n=%d"
                          % (table_perm.shape[-2], n))
@@ -499,7 +503,7 @@ def eval_dispatch_mixed(cw1, cw2, last, table_perm, *, n: int,
                                 low32, aes_impl)
 
     return dispatch_contract(last, table_perm, level, len(ars), f_lv, c,
-                             group, deadline)
+                             group, deadline, dot_impl)
 
 
 def expand_and_contract_per_key_tables_mixed(cw1, cw2, last, tables_perm,

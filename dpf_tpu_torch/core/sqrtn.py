@@ -445,8 +445,26 @@ def _resolve_row_chunk(r: int, k: int, bsz: int,
 
 # ------------------------------------------------------- evaluation
 
+def sqrt_chunk_candidates(r: int, k: int, batch: int, span: int = 2) -> list:
+    """``row_chunk`` candidates of the plain scan for the autotuner
+    (``dpf_tpu``'s rule): powers-of-two multiples of 4 within ``span``
+    octaves of ``choose_row_chunk``, each dividing R and within the
+    live-slab bound (dropped, not clipped); the heuristic is always a
+    member.  Sorted ascending.  K4's own grid steps are
+    ``ops/sqrt_grid.row_chunk_candidates``."""
+    base = choose_row_chunk(r, k, batch)
+    out = {base}
+    for s in range(-span, span + 1):
+        c = base << s if s >= 0 else base >> (-s)
+        if (ROW_CHUNK_FLOOR <= c <= r and r % c == 0
+                and row_chunk_within_bound(c, k, batch)):
+            out.add(c)
+    return sorted(out)
+
+
 def eval_contract_batched(seeds, cw1, cw2, table, *, prf_method: int,
-                          row_chunk: int | None = None) -> torch.Tensor:
+                          row_chunk: int | None = None,
+                          grid_rows: int | None = None) -> torch.Tensor:
     """Fused batched sqrt-N evaluation: seeds ``[B, K, 4]``, codewords
     ``[B, R, 4]`` (int32 limbs) and the natural-order ``[R*K, E]`` int32
     table on one device -> ``[B, E]`` int32 shares,
@@ -455,11 +473,12 @@ def eval_contract_batched(seeds, cw1, cw2, table, *, prf_method: int,
     Routed as ``dpf_tpu``'s ``kernel_impl="pallas"`` resolution, with
     every PRF id on the grid kernel: K4 on CUDA tensors, the plain scan
     on CPU ones (``ops/sqrt_grid.sqrt_grid_contract``).  ``row_chunk``
-    follows the TPU kernel's rules (``sqrt_grid.sqrt_row_chunk``); it
-    changes no bit of the result."""
+    follows the TPU kernel's rules (``sqrt_grid.sqrt_row_chunk``);
+    ``grid_rows`` names K4's grid step exactly (the tuner's knob).
+    Neither changes a bit of the result."""
     from ..ops.sqrt_grid import sqrt_grid_contract
     return sqrt_grid_contract(seeds, cw1, cw2, table, prf_method=prf_method,
-                              row_chunk=row_chunk)
+                              row_chunk=row_chunk, grid_rows=grid_rows)
 
 
 def eval_contract_per_key_tables(seeds, cw1, cw2, tables, *,

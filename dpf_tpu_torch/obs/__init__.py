@@ -6,9 +6,11 @@ default), ``flight`` (a bounded ring of recent routing, residency and
 fault decisions) and ``metrics`` (typed counters, gauges and histograms
 with an OpenMetrics text export; engines, routers, the table registry
 and the tenant router register their series when built).
-``record_sections()`` is what benchmark records embed.  The JAX
-package's ``bench_trace``, ``register_cluster`` and
-``set_process_index`` wait for the port's multi-GPU item.
+``record_sections()`` is what benchmark records embed;
+``tracer.joint_digest`` merges host spans with a ``torch.profiler``
+trace and ``bench_trace`` is the observability benchmark.  The JAX
+package's ``register_cluster``, ``register_planner`` and
+``set_process_index`` wait for the port's multi-GPU and planning items.
 """
 
 from .flight import FLIGHT, FlightRecorder, flight_dump  # noqa: F401
@@ -16,7 +18,8 @@ from .metrics import (REGISTRY, Counter, Gauge, Histogram,  # noqa: F401
                       MetricsRegistry, default_registry, register_engine,
                       register_router)
 from .tracer import (NULL_SPAN, NullSpan, Span, Tracer,  # noqa: F401
-                     disable, enable, get_tracer, span, tracing)
+                     disable, enable, get_tracer, joint_digest, span,
+                     tracing)
 
 
 def record_sections(flight_last: int = 64) -> dict:

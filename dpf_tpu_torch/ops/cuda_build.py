@@ -10,7 +10,10 @@ together.
 
 Libraries land in ``dpf_tpu_torch/_build/`` (git-ignored), named by a
 digest of the source, the shared headers and the flags, so an edited
-source is rebuilt and an unchanged one is reused.  Every C entry returns
+source is rebuilt and an unchanged one is reused (``tune/compcache.py``
+points ``BUILD_DIR`` elsewhere; ``build`` counts a present library as a
+``CACHE_COUNTERS.compile_hits`` and a compiled one as a
+``compile_misses``).  Every C entry returns
 ``cudaGetLastError()`` after its launch; ``launch`` raises on a non-zero
 code.
 """
@@ -85,13 +88,16 @@ def build(names=tuple(SOURCES)) -> dict:
     ``nvcc`` processes at once.  Returns ``{name: compiler output}`` for
     the sources compiled now (``-Xptxas -v``: registers, shared memory,
     spills); raises with the compiler's output if any build fails."""
-    BUILD_DIR.mkdir(exist_ok=True)
+    from ..utils.profiling import CACHE_COUNTERS
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     procs = {}
     for name in names:
         target = library_path(name)
         if target.exists():
+            CACHE_COUNTERS.compile_hits += 1
             continue
+        CACHE_COUNTERS.compile_misses += 1
         nvcc = nvcc or nvcc_path()
         tmp = target.with_name("%s.%d.tmp" % (target.name, os.getpid()))
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),

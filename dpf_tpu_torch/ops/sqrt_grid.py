@@ -32,9 +32,13 @@ and ``pkt_row_chunk`` rows unless the caller names the row chunk (taken
 as given, or refused by the row-chunk rules); its launches count in
 ``launches_pkt``.
 
-The Mosaic-only variant knobs of the TPU launcher (``grid_order``,
-``dim_semantics``, ``limbs``, ``cw_add``) are not ported (ROADMAP Queue
-1 item 8).
+The tuner moves K4's grid step: ``grid_rows`` names it exactly (the
+row-chunk rules apply, with no halving to the cell cap) and
+``row_chunk_candidates`` offers the steps around the heuristic's.  The
+Mosaic-only variant knobs of the TPU launcher (``tb``, ``max_cells``,
+``grid_order``, ``dim_semantics``, ``limbs``, ``cw_add``) have no
+meaning on the card (``tune/kernel_search.variant_invalid`` refuses
+them).
 """
 
 from __future__ import annotations
@@ -85,6 +89,28 @@ def sqrt_row_chunk(r: int, k: int, row_chunk: int | None = None) -> int:
     while rc * k > MAX_CELLS and rc > sqrtn.ROW_CHUNK_FLOOR and rc % 8 == 0:
         rc //= 2
     return rc
+
+
+def heuristic_grid_rows(r: int, k: int, batch: int) -> int:
+    """K4's grid step when nothing is pinned: the plain scan's row
+    chunk for this batch (``sqrtn.clamp_row_chunk``) halved to the cell
+    cap (``sqrt_row_chunk``), what a shared-table dispatch runs."""
+    return sqrt_row_chunk(r, k, sqrtn.clamp_row_chunk(None, r, k, batch))
+
+
+def row_chunk_candidates(r: int, k: int, batch: int, span: int = 2) -> list:
+    """K4 grid steps for the autotuner: the heuristic's
+    (``heuristic_grid_rows``) and the legal row chunks (divisors of R,
+    multiples of 4 unless R) within ``span`` octaves of it, each passed
+    to K4 as ``grid_rows``.  Sorted ascending."""
+    base = heuristic_grid_rows(r, k, batch)
+    out = {base}
+    for s in range(-span, span + 1):
+        c = base << s if s >= 0 else base >> (-s)
+        if (1 <= c <= r and r % c == 0
+                and (c == r or c % sqrtn.ROW_CHUNK_FLOOR == 0)):
+            out.add(c)
+    return sorted(out)
 
 
 def pkt_row_chunk(r: int, k: int) -> int:
@@ -166,13 +192,22 @@ def sqrt_grid_contract_plain(seeds, cw1, cw2, table, *, prf_method: int,
 
 def sqrt_grid_contract(seeds, cw1, cw2, table, *, prf_method: int,
                        row_chunk: int | None = None,
-                       row0: int = 0) -> torch.Tensor:
+                       row0: int = 0,
+                       grid_rows: int | None = None) -> torch.Tensor:
     """Fused sqrt-N grid expand + contract; K4 on CUDA tensors, plain on
     CPU ones.  ``table``: one ``[R*K, E]`` table or ``[B, R*K, E]``, one
     a key (rows a per-key item: ``row_chunk`` under the row-chunk rules,
-    ``pkt_row_chunk`` when None).  Returns [B, E] int32."""
+    ``pkt_row_chunk`` when None).  ``grid_rows`` (shared table only):
+    K4's grid step taken as given under the row-chunk rules, in place of
+    ``row_chunk``'s halving to the cell cap; the plain version scans at
+    that step.  Returns [B, E] int32."""
     bsz, k, r, e = _check(seeds, cw1, cw2, table, prf_method, row0)
     per_key = table.dim() == 3
+    if grid_rows is not None:
+        if per_key:
+            raise ValueError("grid_rows is the shared-table kernel's step; "
+                             "per-key tables take row_chunk")
+        row_chunk = sqrtn._resolve_row_chunk(r, k, bsz, grid_rows)
     if per_key:
         row_chunk = (pkt_row_chunk(r, k) if row_chunk is None else
                      sqrtn._resolve_row_chunk(r, k, bsz, row_chunk))
@@ -183,7 +218,8 @@ def sqrt_grid_contract(seeds, cw1, cw2, table, *, prf_method: int,
     if seeds.device.type != "cuda":
         raise ValueError("sqrt_grid_contract: unsupported device %s"
                          % seeds.device)
-    rc = row_chunk if per_key else sqrt_row_chunk(r, k, row_chunk)
+    rc = (row_chunk if per_key or grid_rows is not None
+          else sqrt_row_chunk(r, k, row_chunk))
     out = torch.zeros((bsz, e), dtype=torch.int32, device=seeds.device)
     with torch.cuda.device(seeds.device):
         cuda_build.launch(

@@ -77,6 +77,36 @@ def subtree_chunk_leaves(n: int) -> int:
     return c
 
 
+def block_leaves_candidates(n: int, ars=None, span: int = 2) -> list:
+    """K2's ``block_leaves`` candidates for the autotuner: the heuristic
+    ``subtree_chunk_leaves(n)`` (at most 4096) and up to ``span`` octaves
+    below it, each rounded down to a product of trailing arities for a
+    radix-4 tree of eval-order arities ``ars`` (deduplicated).  Larger
+    blocks than the heuristic do not exist (K2 keeps at most 4096 leaves
+    a block).  Sorted ascending."""
+    from ..core.radix4 import _suffix_chunk
+    base = subtree_chunk_leaves(n)
+    out = set()
+    for s in range(span + 1):
+        c = max(1, base >> s)
+        out.add(_suffix_chunk(tuple(ars), c)[1] if ars else c)
+    return sorted(out)
+
+
+def frontier_level_candidates(n: int, block: int, batch: int,
+                              span: int = 3) -> list:
+    """K2's ``f_levels`` candidates (binary tree): the frontier K2 starts
+    from, 0 (the root, the heuristic) up to ``span`` levels down, while
+    a frontier node keeps at least one block subtree below it
+    (``f_levels <= log2(n / block)``) and the frontier's ``[B,
+    2^f_levels, 4]`` seeds stay within the 64 MiB live-seed bound.
+    Sorted ascending."""
+    from ..core.expand import CHUNK_SEED_BYTES_BOUND
+    top = (n // max(1, block)).bit_length() - 1
+    return [fl for fl in range(0, min(top, span) + 1)
+            if (1 << fl) * 16 * max(1, batch) <= CHUNK_SEED_BYTES_BOUND]
+
+
 def pkt_block_leaves(g: int, ars, f_cnt: int = 1) -> int:
     """Leaves per block subtree of K2's per-key mode, for ``g`` keys with
     ``f_cnt`` frontier nodes each over levels of arities ``ars`` below

@@ -5,8 +5,8 @@ mixed-shape arrival trace (``serve/loadgen.py``) through two serving
 stacks over the same table and reports SLO accounting for each:
 
 * **sticky**: one ``ServingEngine`` over the construction
-  ``resolve_sticky`` pins (the binary-tree heuristic: the port has no
-  tuning cache yet);
+  ``resolve_sticky`` pins (the tuning cache's scheme winner, else the
+  binary-tree heuristic);
 * **router**: ``SchemeRouter``, a construction per arrival by the live
   cost model (probe-seeded with CUDA events, EWMA-updated);
 * **shed**: the router with admission control armed (``slo_s``,
@@ -194,7 +194,8 @@ def load_bench(n=4096, entry_size=16, cap=128, prf=0, *,
 
     # ---- stacks: router (3 constructions) + sticky single engine ----
     router = SchemeRouter(table, prf=prf, cap=cap, probe=True, device=dev)
-    sticky_label, sticky_from = resolve_sticky(n, entry_size, prf, cap)
+    sticky_label, sticky_from = resolve_sticky(n, entry_size, prf, cap,
+                                               device=dev)
     sticky_srv = router.server(sticky_label)     # same table upload
     sticky_engine = ServingEngine(sticky_srv, max_in_flight=2,
                                   buckets=router.buckets, warmup=True)

@@ -42,6 +42,18 @@ class Buckets:
             s //= fanout
         return tuple(reversed(out))
 
+    @staticmethod
+    def ladder_candidates(cap: int) -> list:
+        """The tuner's ladder space (``tune/serve_tune.py``): the default
+        /2 x4 ladder, a sparser /4 x2, a two-rung /2 and the single
+        bucket; deduplicated, order kept."""
+        out = []
+        for fanout, count in ((2, 4), (4, 2), (2, 2), (2, 1)):
+            c = Buckets.default_sizes(cap, fanout=fanout, count=count)
+            if c not in out:
+                out.append(c)
+        return out
+
     def bucket_for(self, b: int) -> int:
         """Smallest bucket >= b (b must be in (0, max])."""
         if b < 1:

@@ -365,10 +365,30 @@ class ServingEngine:
 
     # ------------------------------------------------------------- warmup
 
-    def warmup(self) -> None:
+    def warmup(self, tune: bool = False, trace=None) -> None:
         """Build the kernels (on the card) and run one dispatch a bucket
         with synthetic keys; no serving counter moves.  A kernel that
-        does not build or launch raises here."""
+        does not build or launch raises here.  Each dispatch resolves its
+        knobs as traffic will (``DPF.resolved_eval_knobs``: searched,
+        tuned or heuristic), so it runs the launches traffic runs.
+
+        ``tune=True`` first replaces ``buckets`` and ``max_in_flight`` in
+        place with the tuned serving knobs of this (device, table shape,
+        cap): the tuning cache's (``tune.serve_tune.lookup_serve_knobs``),
+        else, for a server that can mint keys, a search
+        (``tune_serving``) against ``trace`` (batch sizes; None = the
+        synthetic trace)."""
+        if tune:
+            from ..tune.serve_tune import lookup_serve_knobs, tune_serving
+            cap = self.buckets.max
+            knobs = lookup_serve_knobs(self._server, cap)
+            if knobs is None and hasattr(self._server, "gen_batch"):
+                knobs = tune_serving(self._server, cap=cap,
+                                     trace=trace)["knobs"]
+            if knobs:
+                self.buckets = Buckets(knobs["buckets"])
+                self.max_in_flight = int(knobs["max_in_flight"])
+                self._stages = []    # one pinned slot a window, plus one
         if self._cuda:
             from ..ops import cuda_build
             cuda_build.build()

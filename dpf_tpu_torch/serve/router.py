@@ -13,10 +13,12 @@ constructions at runtime by a live cost model:
 * ``route(batch)`` picks the cheapest construction for the batch's
   bucket once every available construction has an estimate; until then
   it falls back to the sticky construction (``resolve_sticky``: the
-  binary-tree heuristic, ``routed_from="heuristic"``; the tuning cache
-  that ``dpf_tpu`` consults first is not ported yet).  The router's
-  breakers, cost table and route counts export as metrics
-  (``obs.metrics.register_router``).
+  tuning cache's scheme winner, ``routed_from="cache"``, else the
+  binary-tree heuristic, ``"heuristic"``); an exact scheme-sweep entry
+  at the cap also seeds the cost model.  ``buckets=None`` takes the
+  tuned router ladder (``tune.serve_tune.lookup_router_knobs``), else
+  ``Buckets.default_sizes(cap)``.  The router's breakers, cost table
+  and route counts export as metrics (``obs.metrics.register_router``).
 
 Per-construction circuit breakers, retries with failover and the
 engine supervisor (``serve/faults.py``) keep a failing construction's
@@ -69,13 +71,27 @@ def build_servers(table, labels=LABELS, *, prf_method: int,
 
 
 def resolve_sticky(n: int, entry_size: int, prf_method: int, cap: int,
-                   available=LABELS) -> tuple:
-    """(construction label, resolved_from) of the sticky fallback: the
-    one spelling of that rule, shared by the router and the load
-    benchmark's baseline.  ``dpf_tpu`` consults the tuning cache first;
-    the port has none yet, so the answer is ``heuristic_scheme``'s,
-    with ``resolved_from = "heuristic"``."""
+                   available=LABELS, device=None) -> tuple:
+    """(construction label, resolved_from) of the sticky fallback, the
+    one spelling of ``DPF(scheme="auto")``'s rule shared by the router
+    and the load benchmark's baseline: the tuning cache's scheme winner
+    for this shape on ``device`` (nearest batch), ``"cache"``, else
+    ``heuristic_scheme``, ``"heuristic"``."""
+    from ..tune.cache import lookup_scheme
     from ..tune.search import heuristic_scheme
+    try:
+        knobs = lookup_scheme(n=n, entry_size=entry_size, batch=cap,
+                              prf_method=prf_method, device=device)
+    except Exception as e:      # the cache must never break serving
+        note_swallowed("serve.router.resolve_sticky", e)
+        knobs = None
+    if knobs:
+        win = knobs.get("construction")
+        if win is None:         # records that spell scheme / radix
+            win = ("radix4" if knobs.get("radix") == 4
+                   else knobs.get("scheme"))
+        if win in available:
+            return win, "cache"
     hs = heuristic_scheme(n)
     label = "radix4" if hs["radix"] == 4 else hs["scheme"]
     if label not in available:
@@ -150,8 +166,9 @@ class SchemeRouter:
       constructions: subset of ``LABELS`` to race (default all three).
       cap / buckets / max_in_flight: the shared engine knobs (one
         ladder for every engine — per-bucket costs must compare); None
-        buckets = the default /2 ladder under ``cap`` (``dpf_tpu``
-        consults its tuned router ladder first; not ported yet).
+        buckets = the tuned router ladder (``tune.serve_tune.
+        lookup_router_knobs``, which also sets ``max_in_flight`` and
+        ``ewma_alpha``), else the default /2 ladder under ``cap``.
       ewma_alpha: weight of each new observation in the cost model.
       probe: measure one warmed dispatch per (construction, bucket) at
         startup to seed the cost model (compile cost is paid here, like
@@ -220,7 +237,16 @@ class SchemeRouter:
         any_srv = self._servers[labels[0]]
         self.n = any_srv.table_num_entries
         self.entry_size = any_srv.table_effective_entry_size
+        self.device = any_srv.device
         cap = int(cap or min(any_srv.BATCH_SIZE, 512))
+        if buckets is None:
+            from ..tune.serve_tune import lookup_router_knobs
+            knobs = lookup_router_knobs(self, cap)
+            if knobs:
+                buckets = knobs["buckets"]
+                max_in_flight = int(knobs["max_in_flight"])
+                self.ewma_alpha = float(knobs.get("ewma_alpha",
+                                                  self.ewma_alpha))
         self.buckets = (buckets if isinstance(buckets, Buckets)
                         else Buckets(buckets if buckets is not None
                                      else Buckets.default_sizes(cap)))
@@ -253,15 +279,13 @@ class SchemeRouter:
             for lb in labels}
         self.supervisor = (EngineSupervisor(self) if supervise
                            else None)
-        # ---- sticky fallback
+        # ---- sticky fallback + cost-model seed from the tuning cache
         self._costs = {}            # (label, bucket) -> EWMA seconds
         self._obs_age = {}          # (label, bucket) -> routes at this
         #                             bucket since that label was last
         #                             OBSERVED (exploration clock)
         self._arrivals = {}         # bucket -> (last_t, EWMA gap s)
-        self.sticky, self.sticky_resolved_from = resolve_sticky(
-            self.n, self.entry_size, self.prf_method, self.buckets.max,
-            available=self.constructions)
+        self.sticky, self.sticky_resolved_from = self._resolve_sticky()
         self.routed_from = self.sticky_resolved_from
         self.route_counts = {lb: 0 for lb in labels}
         self.routed_from_counts = {}
@@ -620,6 +644,32 @@ class SchemeRouter:
         """The prepared ``api.DPF`` serving one construction (also the
         key-minting client and the scalar-oracle reference for it)."""
         return self._servers[label]
+
+    def _resolve_sticky(self):
+        """``resolve_sticky`` for this router's shape, plus: an EXACT
+        cap-batch scheme-sweep entry seeds the cost model with its
+        per-construction tuned seconds at the cap bucket (a record of
+        another batch answers "which construction" but would mis-seed
+        the magnitudes)."""
+        from ..tune.cache import default_cache
+        from ..tune.search import scheme_cache_key
+        cap = self.buckets.max
+        try:
+            # .lookup: every consultation moves CACHE_COUNTERS
+            exact = default_cache().lookup(scheme_cache_key(
+                n=self.n, entry_size=self.entry_size, batch=cap,
+                prf_method=self.prf_method, device=self.device))
+            if exact:
+                for row in (exact.get("measured", {})
+                            .get("per_construction", ())):
+                    lb = row.get("construction")
+                    if lb in self._servers and row.get("tuned_s"):
+                        self._costs[(lb, cap)] = float(row["tuned_s"])
+        except Exception as e:  # the cache must never break serving
+            note_swallowed("serve.router.cost_seed", e)
+        return resolve_sticky(self.n, self.entry_size, self.prf_method,
+                              cap, available=self.constructions,
+                              device=self.device)
 
     def warmup(self, probe: bool = True, probe_reps: int = 1) -> None:
         """Precompile every (construction, bucket) program; with

@@ -10,9 +10,9 @@ isolated stack per tenant over shared infrastructure:
   retry and failover, breakers and supervisor rebuilds.
 * **Shared where sharing is safe**: tenants whose (N, E, cap) shapes
   collide share ONE bucket ladder (the same ``Buckets`` instance), so
-  their per-bucket costs compare.  ``dpf_tpu`` looks the ladder up in
-  its tuning cache first (``lookup_router_knobs``); the port has no
-  tuning cache yet, so the ladder is ``Buckets.default_sizes(cap)``.
+  their per-bucket costs compare.  The ladder is the tuned router
+  ladder of that shape (``tune.serve_tune.lookup_router_knobs``), else
+  ``Buckets.default_sizes(cap)``.
 * **Isolated where isolation is the point**: admission control
   (``LoadShed``), ``CircuitBreaker`` state, ``RetryPolicy``, fault
   injectors and SLOs are per tenant, and every flight and metrics event
@@ -292,18 +292,28 @@ class TenantRouter:
 
     def _ladder(self, servers, cap: int):
         """One bucket ladder per (N, E, cap) shape, shared by every
-        tenant whose shape collides (their per-bucket costs compare).
-        The ladder is ``Buckets.default_sizes(cap)``: the tuned router
-        ladder ``dpf_tpu`` looks up first waits for the port's tuning
-        cache, and the knobs stay empty."""
+        tenant whose shape collides (their per-bucket costs compare):
+        the tuned router ladder of the shape on the servers' device,
+        else ``Buckets.default_sizes(cap)``."""
         srv = next(iter(servers.values()))
         key = (srv.table_num_entries, srv.table_effective_entry_size,
                int(cap))
         hit = self._ladders.get(key)
-        if hit is None:
-            hit = self._ladders[key] = (
-                Buckets(Buckets.default_sizes(cap)), {})
-        return hit
+        if hit is not None:
+            return hit
+        knobs = None
+        try:
+            from ..tune.serve_tune import lookup_router_knobs
+            shape = type("Shape", (), {
+                "n": key[0], "entry_size": key[1],
+                "prf_method": srv.prf_method, "device": srv.device})()
+            knobs = lookup_router_knobs(shape, cap)
+        except Exception as e:  # a tuned ladder is an optimization only
+            note_swallowed("serve.tenant.ladder_lookup", e)
+        buckets = Buckets(knobs["buckets"] if knobs
+                          else Buckets.default_sizes(cap))
+        self._ladders[key] = (buckets, knobs or {})
+        return self._ladders[key]
 
     def router(self, name: str) -> SchemeRouter:
         return self.tenants[name].router

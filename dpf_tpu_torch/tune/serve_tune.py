@@ -1,0 +1,384 @@
+"""Serving-knob tuner: bucket ladder x in-flight window vs an arrival
+trace, and the scheme router's knobs.
+
+Port of ``dpf_tpu/tune/serve_tune.py`` (the single-server tiers).  A
+dense ladder wastes less padding but runs more shapes; a deeper
+in-flight window hides more host time behind the card.  Both are
+measured: a deterministic trace of ragged batch sizes is replayed through
+every (ladder, max_in_flight) candidate, each candidate's outputs are
+equality-gated against the blocking ``eval_gpu`` loop on the identical
+stream, and the winner by makespan persists under the ``serve|...`` key.
+``tune_router`` does the same one level up for ``serve.router.
+SchemeRouter`` (ladder x in-flight x EWMA alpha), every routed answer
+gated against the scalar oracle, the winner under ``router|...``, which
+``SchemeRouter(buckets=None)`` and ``TenantRouter`` read back.
+``cached_cost_table`` seeds a cost table from a scheme-sweep entry.
+The cluster tier (``tune_cluster``, ``lookup_cluster_knobs``,
+``cluster_cache_key``) comes with the port's multi-GPU item.
+
+Makespans are the host clock from the first submit to the last result
+(each result waits on its part's CUDA event), best of ``reps``.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+
+from .cache import TuningCache, default_cache
+from .fingerprint import cache_key, device_fingerprint
+
+
+def synthetic_trace(cap: int, batches: int = 16, seed: int = 7) -> list:
+    """A deterministic ragged trace (``dpf_tpu``'s): about half full
+    batches, the rest half-size and uniform stragglers.  Batch sizes in
+    [1, cap]."""
+    rng = np.random.default_rng(seed)
+    sizes = []
+    for _ in range(batches):
+        r = rng.random()
+        if r < 0.5:
+            sizes.append(cap)
+        elif r < 0.8:
+            sizes.append(max(1, cap // 2))
+        else:
+            sizes.append(int(rng.integers(1, cap + 1)))
+    return sizes
+
+
+def resolve_trace(cap: int, trace=None, trace_kind: str | None = None,
+                  trace_kw: dict | None = None) -> list:
+    """The tuner's trace as a batch-size list: an explicit ``trace``
+    (``loadgen.Arrival`` list or sizes), or a ``trace_kind`` through
+    ``serve.loadgen`` (``trace_kw`` forwards to ``make_trace``, else the
+    kind's default trace), else ``synthetic_trace``."""
+    from ..serve import loadgen
+    if trace is not None and trace_kind is not None:
+        raise ValueError("pass trace OR trace_kind, not both")
+    if trace_kw and trace_kind is None:
+        raise ValueError("trace_kw only parameterizes trace_kind")
+    if trace_kind is not None:
+        if trace_kw:
+            kw = {"cap": cap, **trace_kw}
+            if trace_kind == "replay":   # replay_trace takes no cap
+                kw.pop("cap", None)
+            trace = loadgen.make_trace(trace_kind, **kw)
+        else:
+            trace = loadgen.default_trace(trace_kind, cap)
+    if trace is None:
+        return synthetic_trace(cap)
+    return loadgen.batch_sizes(trace)
+
+
+def serve_shape_of(server) -> dict:
+    """The cache-key shape fields of a prepared server, and its device
+    (the key's device half)."""
+    n = getattr(server, "table_num_entries", None) or server.n
+    e = (getattr(server, "table_effective_entry_size", None)
+         or getattr(server, "entry_size"))
+    return {"n": int(n), "entry_size": int(e),
+            "prf_method": server.prf_method,
+            "scheme": getattr(server, "scheme", "logn"),
+            "radix": getattr(server, "radix", 2),
+            "device": getattr(server, "device", None)}
+
+
+def lookup_serve_knobs(server, cap: int,
+                       cache: TuningCache | None = None) -> dict | None:
+    """Tuned (buckets, max_in_flight) for this server's shape, or None.
+    Never raises."""
+    try:
+        cache = cache if cache is not None else default_cache()
+        rec = cache.lookup(
+            cache_key("serve", batch=cap, **serve_shape_of(server)))
+        return rec.get("knobs") if rec else None
+    except Exception:  # the cache must never break serving
+        return None
+
+
+def _pool(server, n: int, distinct: int, tag: bytes):
+    """``distinct`` server-0 keys from one ``gen_batch`` (key i from seed
+    ``tag-i``)."""
+    idx = [(i * 0x9E3779B1) % n for i in range(distinct)]
+    return server.gen_batch(idx, n, seeds=[tag + b"-%d" % i
+                                           for i in range(distinct)])[0]
+
+
+def tune_serving(dpf, *, cap: int | None = None, trace=None,
+                 trace_kind: str | None = None,
+                 trace_kw: dict | None = None,
+                 in_flight=(1, 2, 4), ladders=None, reps: int = 2,
+                 distinct: int = 16, cache: TuningCache | None = None,
+                 force: bool = False, log=None) -> dict:
+    """Measure (ladder, max_in_flight) candidates on ``dpf`` (a prepared
+    ``api.DPF``) and persist the winner.  Returns the cache record with a
+    transient ``searched`` field (False = a warm cache answered).  An
+    explicit trace always measures again: the key carries only the
+    table's shape."""
+    from ..serve.buckets import Buckets
+    from ..serve.engine import ServingEngine
+
+    cache = cache if cache is not None else default_cache()
+    shape = serve_shape_of(dpf)
+    cap = int(cap or min(dpf.BATCH_SIZE, 512))
+    key = cache_key("serve", batch=cap, **shape)
+    if not force and trace is None and trace_kind is None:
+        rec = cache.lookup(key)
+        if rec is not None:
+            return {**rec, "searched": False}
+    n = shape["n"]
+    trace = resolve_trace(cap, trace, trace_kind, trace_kw)
+    if max(trace) > cap:
+        raise ValueError("trace batch %d exceeds cap %d" % (max(trace), cap))
+    ks = _pool(dpf, n, distinct, b"serve-tune")
+    stream = [ks[[(j + i) % distinct for i in range(b)]]
+              for j, b in enumerate(trace)]
+    total = sum(trace)
+    # the gate: the blocking loop on the identical stream
+    reference = [dpf.eval_gpu(b).cpu().numpy() for b in stream]
+    best = None  # (elapsed_s, ladder, mif, stats)
+    tried = rejected = 0
+    for ladder in (ladders if ladders is not None
+                   else Buckets.ladder_candidates(cap)):
+        for mif in in_flight:
+            ladder, mif = tuple(ladder), int(mif)
+            tried += 1
+            try:
+                engine = ServingEngine(dpf, max_in_flight=mif,
+                                       buckets=ladder, warmup=True)
+                futs = [engine.submit(b) for b in stream]
+                engine.drain()
+                if not all(np.array_equal(r, f.result())
+                           for r, f in zip(reference, futs)):
+                    rejected += 1
+                    if log:
+                        log("  reject (diverged): %s mif=%d" % (ladder, mif))
+                    continue
+                elapsed = float("inf")
+                for _ in range(reps):
+                    engine = ServingEngine(dpf, max_in_flight=mif,
+                                           buckets=ladder)
+                    t0 = time.perf_counter()
+                    futs = [engine.submit(b) for b in stream]
+                    engine.drain()
+                    elapsed = min(elapsed, time.perf_counter() - t0)
+            except Exception as exc:
+                rejected += 1
+                if log:
+                    log("  reject (%s): %s mif=%d"
+                        % (type(exc).__name__, ladder, mif))
+                continue
+            if log:
+                log("  ladder=%s mif=%d -> %d qps"
+                    % (list(ladder), mif, int(total / elapsed)))
+            if best is None or elapsed < best[0]:
+                best = (elapsed, ladder, mif, engine.stats.as_dict())
+    if best is None:
+        raise AssertionError("no serving candidate passed the gate")
+    elapsed, ladder, mif, stats = best
+    record = {
+        "knobs": {"buckets": list(ladder), "max_in_flight": mif},
+        "measured": {
+            "elapsed_s": round(elapsed, 6),
+            "qps": int(total / elapsed),
+            "trace": trace, "cap": cap, "reps": reps,
+            "candidates_tried": tried, "rejected": rejected,
+            "engine_stats": stats,
+        },
+        "fingerprint": device_fingerprint(shape["device"]),
+        "gated": True,  # the winner matched the blocking loop exactly
+    }
+    cache.store(key, record)
+    return {**record, "searched": True}
+
+
+def tune_serving_shape(*, n: int, cap: int, entry_size: int = 16,
+                       prf_method: int = 0, cache=None, force=False,
+                       reps: int = 2, device=None) -> dict:
+    """Sweep entry: a server over a seeded table of the shape, its
+    serving knobs tuned; returns a summary row."""
+    from ..api import DPF
+
+    dpf = DPF(prf=prf_method, device=device)
+    table = np.random.default_rng(n ^ 0x5e12).integers(
+        0, 2 ** 31, (n, entry_size), dtype=np.int32, endpoint=False)
+    dpf.eval_init(table)
+    rec = tune_serving(dpf, cap=cap, cache=cache, force=force, reps=reps)
+    m = rec["measured"]
+    return {"entries": n, "cap": cap, "tuned_knobs": rec["knobs"],
+            "qps": m["qps"], "elapsed_s": m["elapsed_s"],
+            "candidates_tried": m["candidates_tried"],
+            "rejected": m["rejected"], "from_cache": not rec["searched"]}
+
+
+# --------------------------------------------------------- scheme router
+
+
+def router_cache_key(*, n: int, entry_size: int, batch: int,
+                     prf_method: int, device=None) -> str:
+    """Tuning-cache key of the scheme router's knobs (scheme and radix
+    pinned to the ``any`` / 0 sentinels: the construction is the
+    router's runtime answer)."""
+    return cache_key("router", n=n, entry_size=entry_size, batch=batch,
+                     prf_method=prf_method, scheme="any", radix=0,
+                     device=device)
+
+
+def lookup_router_knobs(router, cap: int,
+                        cache: TuningCache | None = None,
+                        device=None) -> dict | None:
+    """Tuned router knobs (buckets, max_in_flight, ewma_alpha) for a
+    table shape, or None.  ``router``: anything with ``n`` /
+    ``entry_size`` / ``prf_method`` (a ``SchemeRouter`` being built, or
+    a prepared server); ``device`` (None = the router's ``device``
+    attribute, else the card when present) keys the lookup.  Never
+    raises."""
+    try:
+        cache = cache if cache is not None else default_cache()
+        n = getattr(router, "n", None) or router.table_num_entries
+        e = (getattr(router, "entry_size", None)
+             or router.table_effective_entry_size)
+        dev = device if device is not None else getattr(router, "device",
+                                                        None)
+        rec = cache.lookup(router_cache_key(
+            n=int(n), entry_size=int(e), batch=cap,
+            prf_method=router.prf_method, device=dev))
+        return rec.get("knobs") if rec else None
+    except Exception:  # the cache must never break serving
+        return None
+
+
+def cached_cost_table(*, n: int, entry_size: int, cap: int,
+                      prf_method: int = 0,
+                      cache: TuningCache | None = None,
+                      device=None) -> dict:
+    """``{"construction@cap": seconds}`` from an exact cap-batch
+    scheme-sweep entry's per-construction tuned seconds (the rows
+    ``SchemeRouter`` seeds its cost model from).  Never raises; {} on a
+    cold cache."""
+    from .search import scheme_cache_key
+    out = {}
+    try:
+        cache = cache if cache is not None else default_cache()
+        rec = cache.lookup(scheme_cache_key(
+            n=int(n), entry_size=int(entry_size), batch=int(cap),
+            prf_method=int(prf_method), device=device))
+        for row in (rec or {}).get("measured", {}).get(
+                "per_construction", ()):
+            lb, s = row.get("construction"), row.get("tuned_s")
+            if lb and s:
+                out["%s@%d" % (lb, int(cap))] = float(s)
+    except Exception:   # the cache must never break planning
+        return {}
+    return out
+
+
+def tune_router(table, *, prf_method: int = 0, cap: int | None = None,
+                trace=None, trace_kind: str | None = None,
+                trace_kw: dict | None = None, in_flight=(1, 2),
+                ladders=None, alphas=(0.25,), reps: int = 2,
+                distinct: int = 8, cache: TuningCache | None = None,
+                force: bool = False, log=None, device=None,
+                constructions=None) -> dict:
+    """Grid-search (ladder x ``max_in_flight`` x ``ewma_alpha``) for a
+    ``SchemeRouter`` over ``table`` against a trace replayed back to back
+    (the constructions' servers built once and shared), every routed
+    answer of every rep gated against the scalar oracle (the load
+    bench's key pools, ``bench_load._key_pool``).  The winner persists
+    under ``router|...``; an explicit trace always measures again."""
+    from ..api import DPF, resolve_device
+    from ..serve import loadgen
+    from ..serve.bench_load import _batch_for, _key_pool
+    from ..serve.buckets import Buckets
+    from ..serve.router import LABELS, SchemeRouter, build_servers
+
+    cache = cache if cache is not None else default_cache()
+    table = np.asarray(table, dtype=np.int32)
+    n, entry_size = table.shape
+    cap = int(cap or min(DPF.BATCH_SIZE, 512))
+    labels = tuple(constructions or LABELS)
+    dev = resolve_device(device)
+    key = router_cache_key(n=n, entry_size=entry_size, batch=cap,
+                           prf_method=prf_method, device=dev)
+    if not force and trace is None and trace_kind is None:
+        rec = cache.lookup(key)
+        if rec is not None:
+            return {**rec, "searched": False}
+    servers = build_servers(table, labels, prf_method=prf_method,
+                            device=dev)
+    trace = resolve_trace(cap, trace, trace_kind, trace_kw)
+    if max(trace) > cap:
+        raise ValueError("trace batch %d exceeds cap %d" % (max(trace), cap))
+    total = sum(trace)
+    pools = {lb: _key_pool(srv, n, distinct,
+                           b"router-tune-%s" % lb.encode())
+             for lb, srv in servers.items()}
+    best = None
+    tried = rejected = 0
+    for ladder in (ladders if ladders is not None
+                   else Buckets.ladder_candidates(cap)):
+        for mif in in_flight:
+            for alpha in alphas:
+                ladder, mif, alpha = tuple(ladder), int(mif), float(alpha)
+                tried += 1
+                try:
+                    elapsed, stats = float("inf"), None
+                    for _ in range(reps):
+                        router = SchemeRouter(
+                            None, servers=servers, buckets=ladder,
+                            max_in_flight=mif, ewma_alpha=alpha, cap=cap)
+                        t0 = time.perf_counter()
+                        outs = []
+                        for j, b in enumerate(trace):
+                            dec = router.route(b)
+                            keys, idxs = _batch_for(pools[dec.construction],
+                                                    j, b)
+                            outs.append((dec, idxs,
+                                         router.submit(dec, keys)))
+                        for _, _, fut in outs:
+                            fut.result()
+                        rep_s = time.perf_counter() - t0
+                        if rep_s < elapsed:   # the stats of the kept rep
+                            elapsed, stats = rep_s, router.stats()
+                        # gate every rep: the probe-seeded costs can
+                        # route a rep's batches differently
+                        for dec, idxs, fut in outs:
+                            ref = pools[dec.construction][1][idxs]
+                            if not np.array_equal(fut.result(), ref):
+                                raise AssertionError(
+                                    "routed answers diverged")
+                except Exception as exc:
+                    rejected += 1
+                    if log:
+                        log("  reject (%s): %s mif=%d a=%.2f"
+                            % (type(exc).__name__, ladder, mif, alpha))
+                    continue
+                if log:
+                    log("  ladder=%s mif=%d a=%.2f -> %d qps"
+                        % (list(ladder), mif, alpha, int(total / elapsed)))
+                if best is None or elapsed < best[0]:
+                    best = (elapsed, ladder, mif, alpha, stats)
+    if best is None:
+        raise AssertionError("no router candidate passed the gate")
+    elapsed, ladder, mif, alpha, stats = best
+    record = {
+        "knobs": {"buckets": list(ladder), "max_in_flight": mif,
+                  "ewma_alpha": alpha},
+        "measured": {
+            "elapsed_s": round(elapsed, 6),
+            "qps": int(total / elapsed),
+            "trace": trace, "cap": cap, "reps": reps,
+            "candidates_tried": tried, "rejected": rejected,
+            "constructions": list(labels),
+            "router_stats": stats,
+            "trace_bucket_dispatches": {
+                "%d" % bk: int(c)
+                for bk, c in loadgen.bucket_rates(
+                    trace, ladder, duration_s=1.0).items()},
+        },
+        "fingerprint": device_fingerprint(dev),
+        "gated": True,  # every routed answer matched the eval_cpu oracle
+    }
+    cache.store(key, record)
+    return {**record, "searched": True}

@@ -1,20 +1,36 @@
-"""Runtime evaluation config.
+"""Runtime evaluation config (port of ``dpf_tpu/utils/config.py``).
 
-Port of the ``dpf_tpu/utils/config.py`` ``EvalConfig`` fields this
-package reads: ``prf_method``, ``batch_size``, ``radix`` (2, the binary
-tree, or 4, the radix-4 tree), ``scheme`` (``"logn"``, the GGM trees,
-or ``"sqrtn"``, the sqrt-N grid), ``row_chunk`` (sqrt-N grid rows per
-step of the grid kernel), ``kernel_impl`` and ``dispatch_group``.
-``DPF`` serves ``"logn"`` and ``"sqrtn"``; ``"auto"`` needs the tuning
-cache, not ported yet, and raises.
+Fields: ``prf_method``, ``batch_size``, ``radix`` (2, the binary tree,
+or 4, the radix-4 tree), ``scheme`` (``"logn"``, the GGM trees,
+``"sqrtn"``, the sqrt-N grid, or ``"auto"``, resolved from the tuning
+cache's scheme winner, else the binary tree), ``row_chunk`` (sqrt-N
+grid rows per step of the grid kernel), ``kernel_impl``,
+``dispatch_group``, ``aes_impl``, ``chunk_leaves``, ``dot_impl`` and
+``round_unroll``.  Fields at their auto state (``is_auto``) resolve at
+dispatch: an explicit value wins, then a searched kernel variant, then
+the tuning cache (``tune/cache.py``), then the heuristics
+(``api.DPF.resolved_eval_knobs``).
 
 ``kernel_impl``: ``"dispatch"`` selects the per-level mode of the GGM
 trees (``expand.eval_dispatch`` / ``radix4.eval_dispatch_mixed``: one
 level a launch, a cooperative deadline between launches, the frontier
-in groups of ``dispatch_group`` subtrees).  The JAX package's ``"xla"``
-and ``"pallas"`` are the TPU's two compilers of one function; on the
-card both, and the auto state (None or ``"auto"``), take the fused
-kernels.  The sqrt-N grid has one route, K4, whatever the knob says.
+in groups of ``dispatch_group`` subtrees); ``"fused"`` pins the fused
+kernels.  The JAX package's ``"xla"`` and ``"pallas"`` are the TPU's two
+compilers of one function: on the card they name no route of their own,
+so they count as the auto state (``is_auto_kernel``), as None and
+``"auto"`` do: the fused kernels unless the tuning cache says otherwise.
+The sqrt-N grid has one route, K4, whatever the knob says.
+
+``chunk_leaves`` means what the route it reaches takes: for Salsa and
+ChaCha (and their block-PRG ids) in the fused mode K2's block subtree,
+a power of two of at most 4096 leaves (``ops/subtree.py``); for AES and
+DUMMY, and for every PRF in the dispatch mode, the live-seed chunk of
+``expand.clamp_chunk``.  ``dot_impl`` picks the contraction of the
+routes that contract outside a kernel (K3, ``"i32"``, or
+``torch._int_mm`` on byte limbs, ``"mxu"``: ``ops/matmul128.py``); K2
+and K4 contract inside.  ``round_unroll`` is accepted and recorded (the
+JAX package unrolls its cipher rounds on the TPU); the CUDA kernels'
+rounds are unrolled by ``nvcc``, so it moves no path.
 
 ``aes_impl`` (``"auto"``, ``"gather"`` or ``"bitsliced"`` with an
 optional ``":bp"``, ``":tower"`` or ``":chain"`` S-box circuit) picks the
@@ -28,9 +44,10 @@ code.  The sqrt-N grid's plain AES is the gather form.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import contextlib
+from dataclasses import dataclass, replace
 
-KERNEL_IMPLS = ("xla", "pallas", "dispatch", "auto", None)
+KERNEL_IMPLS = ("fused", "dispatch", "xla", "pallas", "auto", None)
 AES_IMPLS = ("auto", "gather", "bitsliced", "bitsliced:bp",
              "bitsliced:tower", "bitsliced:chain")
 
@@ -62,6 +79,12 @@ def is_auto(value) -> bool:
     return value is None or value == "auto"
 
 
+def is_auto_kernel(value) -> bool:
+    """True when ``kernel_impl`` leaves the route to the resolver: the
+    auto state, or one of the JAX package's compiler names."""
+    return is_auto(value) or value in ("xla", "pallas")
+
+
 @dataclass(frozen=True)
 class EvalConfig:
     """The knobs ``DPF`` reads."""
@@ -73,17 +96,47 @@ class EvalConfig:
     row_chunk: int | None = None  # sqrtn: grid rows per step (None =
     #                       auto; an explicit pin passes straight through
     #                       and raises if it does not divide R)
-    kernel_impl: str | None = "xla"  # "xla" | "pallas" (both: the fused
-    #                       kernels) | "dispatch" (one level a launch)
-    #                       | None/"auto" (the fused kernels)
+    kernel_impl: str | None = "xla"  # "fused" | "dispatch" (one level a
+    #                       launch) | "xla" / "pallas" / None / "auto"
+    #                       (auto: tuned, else the fused kernels)
     dispatch_group: int | None = None  # dispatch mode: frontier subtrees
     #                       expanded per pass (None = auto)
     aes_impl: str = "auto"  # "auto"|"gather"|"bitsliced"[":bp"|":tower"
     #                       |":chain"]: a CPU server's plain AES (ignored
     #                       on the card)
+    chunk_leaves: int | None = None  # None = auto (searched, tuned, else
+    #                       the route's heuristic)
+    dot_impl: str | None = "i32"  # "i32" | "mxu" (ops/matmul128) |
+    #                       None/"auto" (tuned, else the module default)
+    round_unroll: bool | None = None  # recorded; moves no path
 
     def __post_init__(self):
         if self.kernel_impl not in KERNEL_IMPLS:
             raise ValueError("kernel_impl must be one of %s (got %r)"
                              % (KERNEL_IMPLS, self.kernel_impl))
         check_aes_impl(self.aes_impl)
+
+    def with_(self, **kw) -> "EvalConfig":
+        return replace(self, **kw)
+
+    def apply_globals(self):
+        """Push the process-wide knob this config sets: ``matmul128``'s
+        default contraction (the auto state resets it to ``"i32"``).
+        Prefer the scoped ``applied()`` in code that measures
+        candidates."""
+        from ..ops import matmul128
+        matmul128.set_dot_impl(self.dot_impl
+                               if not is_auto(self.dot_impl) else "i32")
+        return self
+
+    @contextlib.contextmanager
+    def applied(self):
+        """Scoped ``apply_globals``: snapshot ``matmul128``'s default,
+        push this config's, and restore the snapshot on exit, exception
+        or not (the tuner measures every candidate inside it)."""
+        from ..ops import matmul128
+        snap = matmul128.default_impl()
+        try:
+            yield self.apply_globals()
+        finally:
+            matmul128.set_dot_impl(snap)

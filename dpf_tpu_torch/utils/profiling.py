@@ -1,11 +1,14 @@
-"""Serving counters and the swallowed-error registry.
+"""Serving counters, cache counters, the swallowed-error registry and
+the profiler helpers.
 
-Port of the pieces of ``dpf_tpu/utils/profiling.py`` that serving reads:
-``EngineCounters`` (per-engine pack / dispatch / wait host time, the
-latency ring and histogram, admission and recovery counts),
-``note_swallowed`` / ``swallowed_snapshot``, ``quantile`` and the
-latency constants.  The JAX module's trace helpers wait for the port's
-observability item; this one imports no profiler.
+Port of ``dpf_tpu/utils/profiling.py``: ``EngineCounters`` (per-engine
+pack / dispatch / wait host time, the latency ring and histogram,
+admission and recovery counts), ``CacheCounters`` / ``CACHE_COUNTERS``
+(the tuning cache's hits, misses and stores; the build cache's
+``compile_*``), ``note_swallowed`` / ``swallowed_snapshot``,
+``quantile``, the latency constants, ``Timer`` and the trace helpers.
+``jax.profiler`` becomes ``torch.profiler``: ``trace`` writes a Chrome
+trace and ``summarize_trace`` reads the device ops' self times from it.
 
 On the card the three host times split a served batch's host work:
 ``pack_time_s`` is the decode, the bucket pad and the copy into pinned
@@ -16,9 +19,113 @@ part's CUDA event.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
+import tempfile
 import threading
+import time
 import warnings
+
+#: where ``trace`` writes when no directory is given
+DEFAULT_TRACE_DIR = os.path.join(tempfile.gettempdir(),
+                                 "dpf_tpu_torch_traces")
+
+
+@contextlib.contextmanager
+def trace(config_name: str, base_dir: str | None = None):
+    """Capture a ``torch.profiler`` trace (host ops, and CUDA kernels and
+    copies when a card is present) named after the benchmark config;
+    yields the directory that receives ``<config_name>.pt.trace.json``."""
+    import torch
+    path = os.path.join(base_dir or DEFAULT_TRACE_DIR, config_name)
+    os.makedirs(path, exist_ok=True)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        try:
+            yield path
+        finally:
+            if torch.cuda.is_available() and torch.cuda.is_initialized():
+                torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(path,
+                                          config_name + ".pt.trace.json"))
+
+
+def _self_times(track_events):
+    """(name, self_us) per complete event of ONE track, with nested
+    children's durations subtracted from their parents (host stacks
+    nest; summing raw durations would count a frame once per
+    ancestor)."""
+    evs = sorted(track_events,
+                 key=lambda e: (float(e.get("ts", 0)),
+                                -float(e.get("dur", 0))))
+    out = []
+    stack = []  # (end, index into out); parents below children
+    for e in evs:
+        ts = float(e.get("ts", 0))
+        dur = float(e.get("dur", 0))
+        while stack and stack[-1][0] <= ts:
+            stack.pop()
+        if stack:
+            out[stack[-1][1]][1] -= dur
+        out.append([str(e.get("name", "?"))[:80], dur])
+        stack.append((ts + dur, len(out) - 1))
+    return out
+
+
+#: Chrome-trace categories of the card's own work in a torch.profiler
+#: export: kernels, copies and fills
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def summarize_trace(trace_dir: str, top: int = 12):
+    """Digest a captured trace into {device_ms, top_ops} (or None).
+
+    Reads the newest ``*.trace.json`` (or ``.json.gz``) under
+    ``trace_dir``, picks the card's tracks (events of category
+    ``kernel``, ``gpu_memcpy`` or ``gpu_memset``), else the host's
+    ``cpu_op`` events (a CPU run: tagged ``cpu_ops``, so the digest is
+    never read as device time), else every complete event, and sums
+    SELF time per op name per (pid, tid) track."""
+    import glob
+    import gzip
+    import json as _json
+
+    paths = sorted(glob.glob(os.path.join(trace_dir, "**", "*.trace.json"),
+                             recursive=True)
+                   + glob.glob(os.path.join(trace_dir, "**",
+                                            "*.trace.json.gz"),
+                               recursive=True), key=os.path.getmtime)
+    if not paths:
+        return None
+    opener = gzip.open if paths[-1].endswith(".gz") else open
+    with opener(paths[-1], "rt") as f:
+        events = _json.load(f).get("traceEvents", [])
+    complete = [e for e in events if e.get("ph") == "X"]
+    chosen = [e for e in complete if e.get("cat") in DEVICE_CATEGORIES]
+    track_kind = "cuda_device"
+    if not chosen:
+        chosen = [e for e in complete if e.get("cat") == "cpu_op"]
+        track_kind = "cpu_ops"
+    if not chosen:
+        chosen, track_kind = complete, "all_tracks_incl_host"
+    tracks = {}
+    for e in chosen:
+        tracks.setdefault((e.get("pid"), e.get("tid")), []).append(e)
+    by_op = {}
+    total_us = 0.0
+    for track in tracks.values():
+        for name, self_us in _self_times(track):
+            total_us += self_us
+            by_op[name] = by_op.get(name, 0.0) + self_us
+    ops = sorted(by_op.items(), key=lambda kv: -kv[1])[:top]
+    return {"trace_file": os.path.basename(paths[-1]),
+            "tracks": track_kind,
+            "device_ms": round(total_us / 1e3, 3),
+            "top_ops": [{"op": k, "ms": round(v / 1e3, 3)}
+                        for k, v in ops]}
 
 
 def quantile(samples, q: float, *, presorted: bool = False) -> float:
@@ -215,6 +322,38 @@ class EngineCounters:
             return d
 
 
+@dataclasses.dataclass
+class CacheCounters:
+    """Process-wide cache-effectiveness counters (``tune/``).
+
+    ``tuning_*`` move on every tuning-cache lookup and store
+    (``tune/cache.py``); ``compile_hits`` / ``compile_misses`` count the
+    build cache (``ops/cuda_build.build``: a kernel library already
+    present under its content digest is a hit, one compiled now a
+    miss).  ``compile_time_saved_s`` keeps ``dpf_tpu``'s field and stays
+    0: a hit's compile time is not known."""
+    tuning_hits: int = 0
+    tuning_misses: int = 0
+    tuning_stores: int = 0
+    compile_hits: int = 0
+    compile_misses: int = 0
+    compile_time_saved_s: float = 0.0
+
+    def as_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["compile_time_saved_s"] = round(d["compile_time_saved_s"], 4)
+        return d
+
+    def reset(self) -> "CacheCounters":
+        """Zero every counter in place."""
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, f.default)
+        return self
+
+
+CACHE_COUNTERS = CacheCounters()
+
+
 #: process-wide registry of caught-and-suppressed exceptions:
 #: site -> {exception class name -> count}
 SWALLOWED_ERRORS: dict = {}
@@ -254,3 +393,23 @@ def swallowed_snapshot() -> dict:
     with _SWALLOWED_LOCK:
         return {site: dict(by_cls) for site, by_cls in
                 sorted(SWALLOWED_ERRORS.items())}
+
+
+class Timer:
+    """Wall-clock block timer that waits for the card: ``__exit__``
+    calls ``torch.cuda.synchronize()`` when CUDA is initialized in this
+    process, so the asynchronous launches of the block are counted."""
+
+    def __init__(self):
+        self.elapsed = 0.0
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        self.elapsed = time.perf_counter() - self._t0
+        return False

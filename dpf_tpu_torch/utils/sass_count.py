@@ -40,7 +40,9 @@ call (its loads and stores included): what the card executes for it.
 
 ``same_code(other)`` holds the shared-table instances of K2 and K4 in
 this tree's build against another build of the same source (a parent
-commit's): each must keep every instruction.  The other build's
+commit's): each must keep every instruction; ``same_functions(other)``
+holds every kernel of another build of any other source (K1, K3, K5,
+K6, K7) the same way, by name.  ``--same-as`` takes either.  The other build's
 instances may carry a last ``bool`` per-key flag (the builds in which
 the per-key mode was a template flag of the shared kernels): its
 ``false`` instances are the shared ones, its ``true`` instances are
@@ -231,6 +233,25 @@ _TEMPLATE_ARGS = re.compile(r"((?:subtree|sqrt_grid)_kernelI(?:L[a-z]\d+E)+)E")
 _ANON_NS = re.compile(r"\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+")
 
 
+def same_functions(other: Path, source: str | None = None) -> dict:
+    """For every kernel of ``other`` (a build of one source), this
+    tree's kernel of the same name (the digest that names an anonymous
+    namespace left out): ``{other's function name: {"instructions": n,
+    "same": bool}}``, ``same`` when every instruction's text is equal.
+    ``source`` defaults to the stem of ``other``'s file name."""
+    source = source or Path(other).name.split("-")[0]
+    cuda_build.build((source,))
+    mine = {_ANON_NS.sub("", name): instrs for name, instrs in
+            sass_functions(cuda_build.library_path(source)).items()}
+    out = {}
+    for name, instrs in sass_functions(Path(other)).items():
+        twin = mine.get(_ANON_NS.sub("", name))
+        out[name] = {"instructions": len(instrs),
+                     "same": twin is not None
+                     and [t for _, t in twin] == [t for _, t in instrs]}
+    return out
+
+
 def same_code(other: Path, source: str | None = None) -> dict:
     """For each shared-table K2 or K4 kernel instance of ``other`` (a
     build of ``subtree.cu`` or ``sqrt_grid.cu``), this tree's instance
@@ -301,7 +322,9 @@ def k7_counts() -> dict:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--same-as"]:
-        res = {str(lib): same_code(Path(lib)) for lib in sys.argv[2:]}
+        res = {str(lib): (same_code if Path(lib).name.split("-")[0] in (
+            "subtree", "sqrt_grid") else same_functions)(Path(lib))
+            for lib in sys.argv[2:]}
         print(json.dumps(res))
         sys.exit(0 if all(r and all(v["same"] for v in r.values())
                           for r in res.values()) else 1)

@@ -14,7 +14,8 @@ setup(
     # dpf_tpu_torch's CUDA sources are compiled by nvcc at first use
     package_data={"dpf_tpu.native": ["src/*.cpp", "src/*.h"],
                   "dpf_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
-                  "dpf_tpu_torch.native": ["src/*.cpp", "src/*.h"]},
+                  "dpf_tpu_torch.native": ["src/*.cpp", "src/*.h"],
+                  "dpf_tpu_torch.obs": ["spanring.c"]},
     python_requires=">=3.10",
     install_requires=["numpy", "jax"],
     extras_require={

@@ -191,7 +191,7 @@ def test_more_keys_than_batch_size():
     assert d.eval_tpu is not None and d.resolved_eval_knobs(4) == {
         "chunk_leaves": 128, "kernel": "subtree_contract",
         "kernel_impl": "fused", "dispatch_group": None,
-        "kernel_resolved_from": "heuristic"}
+        "kernel_resolved_from": "heuristic", "dot_impl": "i32"}
 
 
 def test_unported_constructions_raise():
@@ -204,8 +204,18 @@ def test_unported_constructions_raise():
     assert radix4.radix == 4 and radix4.prf_method == dpf_tpu_torch.PRF_AES128
     with pytest.raises(ValueError, match="radix"):
         dpf_tpu_torch.DPF(config=EvalConfig(radix=8), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        dpf_tpu_torch.DPF(scheme="auto", device="cpu")
+    # scheme="auto" on a cold tuning cache: the binary tree, pinned at
+    # first use (the wire format never changes silently)
+    auto = dpf_tpu_torch.DPF(scheme="auto", device="cpu")
+    assert auto.scheme == "auto" and auto.scheme_resolved_from is None
+    ka, _ = auto.gen(5, 128, seed=b"auto")
+    assert (auto.scheme, auto.radix) == ("logn", 2)
+    assert auto.scheme_resolved_from == "heuristic"
+    assert torch.equal(ka, dpf_tpu_torch.DPF(device="cpu").gen(
+        5, 128, seed=b"auto")[0])
+    with pytest.raises(ValueError, match="leave radix at 2"):
+        dpf_tpu_torch.DPF(scheme="auto", config=EvalConfig(radix=4),
+                          device="cpu")
     with pytest.raises(ValueError):
         dpf_tpu_torch.DPF(scheme="bogus", device="cpu")
     ka, kb = dpf_tpu_torch.DPF(device="cpu").gen([1, 2], 128)

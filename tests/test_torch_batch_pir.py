@@ -4,8 +4,9 @@ dpf_tpu's, on the CPU (``device="cpu"``: the kernels' plain versions).
 The planner's bins, hot/cold split, collocation map and costs, the
 client's keys under pinned seeds and the servers' shares are held equal
 to dpf_tpu's, bit for bit, for the binary, radix-4 and sqrt-N
-constructions.  The mesh (multi-GPU) and ``scheme="auto"`` (tuning
-cache) surfaces are not ported and raise.
+constructions.  The mesh (multi-GPU) surface is not ported and raises;
+``scheme="auto"`` resolves every size group on a cold tuning cache to
+the caller's log-N radix.
 """
 
 import json
@@ -348,10 +349,16 @@ def test_mesh_and_auto_are_not_ported():
     bins = [set(range(100))]
     with pytest.raises(ValueError, match="mesh"):
         PrivateLookupServer(table, bins, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="auto"):
-        PrivateLookupServer(table, bins, scheme="auto", device="cpu")
-    with pytest.raises(NotImplementedError, match="auto"):
-        PrivateLookupClient(bins, [128], scheme="auto", entry_size=4)
+    # scheme="auto" on a cold tuning cache: every size group resolves to
+    # the caller's log-N radix, on the server and the client alike
+    srv = PrivateLookupServer(table, bins, scheme="auto", radix=4,
+                              device="cpu")
+    cli = PrivateLookupClient(bins, [128], scheme="auto", radix=4,
+                              entry_size=4, device="cpu")
+    assert srv.group_constructions() == cli.group_constructions() == {
+        128: ("logn", 4)}
+    with pytest.raises(ValueError, match="scheme must be one of"):
+        PrivateLookupServer(table, bins, scheme="bogus", device="cpu")
     with pytest.raises(ValueError, match="has no radix"):
         PrivateLookupServer(table, bins, scheme="sqrtn", radix=4,
                             device="cpu")

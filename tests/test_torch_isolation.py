@@ -47,6 +47,11 @@ def test_import_loads_no_jax_and_no_dpf_tpu():
             "dpf_tpu_torch.core.aes_sbox_bp, "
             "dpf_tpu_torch.core.aes_sbox_circuit, "
             "dpf_tpu_torch.ops.prf_zoo; "
+            "import dpf_tpu_torch.tune.cache, dpf_tpu_torch.tune.search, "
+            "dpf_tpu_torch.tune.fingerprint, dpf_tpu_torch.tune.compcache, "
+            "dpf_tpu_torch.tune.kernel_search, "
+            "dpf_tpu_torch.tune.serve_tune, dpf_tpu_torch.utils.compat, "
+            "dpf_tpu_torch.obs.bench_trace; "
             "print('\\n'.join(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
@@ -88,7 +93,14 @@ def test_sources_import_no_jax_and_no_dpf_tpu():
                  "dpf_tpu_torch/core/aes_bitsliced.py",
                  "dpf_tpu_torch/core/aes_sbox_bp.py",
                  "dpf_tpu_torch/core/aes_sbox_circuit.py",
-                 "dpf_tpu_torch/ops/prf_zoo.py"):
+                 "dpf_tpu_torch/ops/prf_zoo.py",
+                 "dpf_tpu_torch/tune/cache.py",
+                 "dpf_tpu_torch/tune/fingerprint.py",
+                 "dpf_tpu_torch/tune/compcache.py",
+                 "dpf_tpu_torch/tune/kernel_search.py",
+                 "dpf_tpu_torch/tune/serve_tune.py",
+                 "dpf_tpu_torch/utils/compat.py",
+                 "dpf_tpu_torch/obs/bench_trace.py"):
         assert part in walked, part
     bad = []
     for path in files:

@@ -216,7 +216,8 @@ def test_batch_pir_group_knobs_are_the_per_key_geometry(prf, sch, rad, n, g,
     """The lookup server's knobs: K2's block for the stream ciphers, the
     live-seed chunk for AES, None for sqrt-N (K4's wrapper resolves it
     from the keys' rows)."""
-    srv = types.SimpleNamespace(prf_method=prf)
+    srv = types.SimpleNamespace(prf_method=prf, entry_size=16,
+                                device=torch.device("cpu"), _knobs={})
     assert PrivateLookupServer._group_knobs(srv, n, g, sch, rad) == want
 
 

@@ -341,7 +341,7 @@ def test_radix4_knobs_and_construction_checks():
     assert d.resolved_eval_knobs(512) == {
         "chunk_leaves": 4096, "kernel": "subtree_contract_mixed",
         "kernel_impl": "fused", "dispatch_group": None,
-        "kernel_resolved_from": "heuristic"}
+        "kernel_resolved_from": "heuristic", "dot_impl": "i32"}
     a = _radix4_dpf(3)
     a.eval_init(_table(1 << 12, 2))
     assert a.resolved_eval_knobs(512)["kernel"] == "aes_level_step_a4"

@@ -237,3 +237,22 @@ def test_k7_counts_the_grid_stride_loop(monkeypatch):
     assert sorted(got) == [3, 11]
     # 0x40-0xd0: ten instructions, PRMT LOP3 IADD3 on the INT32 pipe
     assert got[11] == {"instructions": 10, "alu": 3, "fma": 0}
+
+
+def test_same_functions_holds_every_kernel_by_name(monkeypatch):
+    """K1, K3, K5, K6 and K7 against another build: every kernel by its
+    name, the anonymous namespace's digest left out."""
+    instrs = sass_count.parse_sass(LISTING)[
+        "_ZN2k16aes_level_kernelILi2EEEvPK5uint4"]
+    ns_a = "_ZN43_GLOBAL__N__2051430a_10_contract_cu_0123abcd"
+    ns_b = "_ZN43_GLOBAL__N__5e1f0a2b_10_contract_cu_f8e2f0de"
+    other = {ns_a + "15contract_kernelEv": instrs, "gone": instrs,
+             "changed": instrs}
+    mine = {ns_b + "15contract_kernelEv": instrs, "changed": instrs[1:]}
+    monkeypatch.setattr(sass_count.cuda_build, "build", lambda names: {})
+    monkeypatch.setattr(sass_count, "sass_functions",
+                        lambda lib: other if str(lib) == "old.so" else mine)
+    got = sass_count.same_functions("old.so", "contract")
+    assert {k: v["same"] for k, v in got.items()} == {
+        ns_a + "15contract_kernelEv": True, "gone": False,
+        "changed": False}

@@ -373,8 +373,15 @@ def test_sqrtn_api_errors_match_dpf_tpu():
                           device="cpu")
     with pytest.raises(ValueError, match="no radix"):
         dpf_tpu.DPF(config=JaxEvalConfig(radix=4, scheme="sqrtn"))
-    with pytest.raises(NotImplementedError):
-        dpf_tpu_torch.DPF(scheme="auto", device="cpu")
+    with pytest.raises(ValueError, match="leave radix at 2"):
+        dpf_tpu_torch.DPF(scheme="auto", config=EvalConfig(radix=4),
+                          device="cpu")
+    with pytest.raises(ValueError, match="leave radix at 2"):
+        dpf_tpu.DPF(scheme="auto", config=JaxEvalConfig(radix=4))
+    with pytest.raises(ValueError, match="entry_size only"):
+        dpf_tpu_torch.DPF(scheme="sqrtn", entry_size=4, device="cpu")
+    with pytest.raises(ValueError, match="entry_size only"):
+        dpf_tpu.DPF(scheme="sqrtn", entry_size=4)
     n = 1 << 9
     table = _table(n, 4)
     sq = dpf_tpu_torch.DPF(prf=2, scheme="sqrtn", device="cpu")
