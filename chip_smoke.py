@@ -34,7 +34,13 @@ Phases (any failure raises and the script exits non-zero):
    [512, 2^16] and [512, 2^18], each with the bytes its sectors move;
    K2's eight instances (PRF ids 1, 2, 4, 5 over
    the binary and the radix-4 tree) at full width, each also at E = 1
-   (the same expansion, a sixteenth of the contraction); the ChaCha
+   (the same expansion, a sixteenth of the contraction); K2's
+   leaf-range form (``subtree_contract_window``, phase 12's shards and
+   granules: the first block subtree and a count are launch arguments)
+   on ranges of 80 and 7 blocks at ragged batches, and on the 4-way
+   table mesh's second shard at N = 2^20 (2^18 rows, B = 512, binary
+   ChaCha20 and radix-4 ChaCha20-BLK) held and timed with its bound and
+   pipe bound (the ``k2_window`` line); the ChaCha
    level step (the dispatch mode's ChaCha20 level) at K1's widest shape;
    beside each bound, the
    AES kernels' lookup floor (their shared-memory table lookups at one
@@ -210,6 +216,31 @@ Phases (any failure raises and the script exits non-zero):
    a fresh 512-key batch.  Each tuned shape prints the heuristic's and
    the winner's ms, candidates tried and rejected and gate escapes
    beside the card's name and power limit.
+12. multi-GPU and the cluster tier (``mesh_cluster_phase``), each part's
+   counts set to 0 just before it and read just after, N = 2^20, E = 16,
+   512 distinct keys, every mesh and host on the one card: (1)
+   ``ShardedDPFServer`` through ``DPF.sharded_server`` on a 1 x 4 table
+   mesh, a 2 x 2 batch x table mesh and a 1 x 2 x 2 rows x bytes mesh
+   (binary tree only), each of ``cuda:0`` repeated, for binary AES-128
+   and ChaCha20, radix-4 AES-128 and ChaCha20-BLK, sqrt-N AES-128 and
+   ChaCha20, ``psum_group`` 0 and 4: every share equal to the one
+   device's ``eval_gpu``, both servers' shares recovering the rows, the
+   1 x 4 mesh's ms a batch beside the one device's (host clock to a
+   synchronise, median of 3; no gain claimed); (2) two processes of
+   ``python -m dpf_tpu_torch.parallel.multihost`` on the card (gloo:
+   NCCL refuses two ranks on one GPU) as a 1 x 2 table mesh, binary
+   ChaCha20, their shares equal to the one device's, their launches
+   reported by each rank; (3) the cluster, binary AES-128:
+   ``ClusterRouter.local`` with 2 hosts; 4 hosts with an injected
+   ``host_drop`` answered by reshard and by degrade; two
+   ``spawn_cluster`` workers sharing the card (their launches read from
+   their ``stats``), one killed and resharded; a paged
+   ``ClusterShardServer`` (two granules, a budget of one) whose
+   ``torch.cuda.memory_allocated`` moves by exactly one granule; every
+   answer equal to the one device's; (4) ``tune_mesh_eval`` for binary
+   ChaCha20 on the 1 x 4 mesh (0 rejected, 0 gate escapes), then a
+   short ``bench_multichip`` (65536 x 16, two entries of the card) and
+   ``bench_multihost`` (65536 x 16, two worker processes, AES-128).
 
 The last lines are the card's name and power limit, one
 ``{"kernels": [...]}`` line, and ``{"ok": true, "device": {...}}``.
@@ -281,38 +312,10 @@ def log(*a):
 
 
 def launch_counters():
-    """kernel name -> the wrapper that counts its launches, and the
-    read / zero helpers over them."""
-    from dpf_tpu_torch.ops import (aes_level, matmul128, prf_zoo, sqrt_grid,
-                                   subtree)
-    counters = {
-        "aes_level_step": aes_level.aes_level_step,
-        "aes_level_step_a4": aes_level.aes_level_step,
-        "subtree_contract": subtree.subtree_contract,
-        "subtree_contract_mixed": subtree.subtree_contract_mixed,
-        "contract_i32": matmul128.dot_i32,
-        "sqrt_grid_contract": sqrt_grid.sqrt_grid_contract,
-        "chacha_level_step": subtree.chacha_level_step,
-        "contract_i32_per_key": matmul128.dot_i32_per_key,
-        "subtree_contract_pkt": subtree.subtree_contract,
-        "subtree_contract_mixed_pkt": subtree.subtree_contract_mixed,
-        "sqrt_grid_contract_pkt": sqrt_grid.sqrt_grid_contract,
-        "prf_zoo": prf_zoo.zoo_eval}
-
-    def attr(name):
-        # K1 at arity 4 and the per-key modes count on their wrapper's
-        # second counter
-        if name == "aes_level_step_a4":
-            return "launches_a4"
-        return "launches_pkt" if name.endswith("_pkt") else "launches"
-
-    def read_counts():
-        return {k: getattr(fn, attr(k)) for k, fn in counters.items()}
-
-    def zero_counts():
-        for k, fn in counters.items():
-            setattr(fn, attr(k), 0)
-    return read_counts, zero_counts
+    """The read / zero helpers over every kernel wrapper's launch
+    counter (``ops.LAUNCH_COUNTERS``)."""
+    from dpf_tpu_torch.ops import launch_counts, zero_launch_counts
+    return launch_counts, zero_launch_counts
 
 
 def serving_phase(smi, read_counts, zero_counts, n=1 << 20,
@@ -1489,6 +1492,382 @@ def tuning_phase(smi, read_counts, zero_counts, n=1 << 20, batch=512,
     return parts, records
 
 
+def _batch_ms(fn, reps: int, device) -> float:
+    """Median host ms of one call of ``fn`` ended by a device
+    synchronise (after a warm call): a whole batch, host work
+    included."""
+    cuda = torch.device(device).type == "cuda"
+    times = []
+    for i in range(reps + 1):
+        t0 = time.perf_counter()
+        fn()
+        if cuda:
+            torch.cuda.synchronize()
+        if i:
+            times.append(1e3 * (time.perf_counter() - t0))
+    return sorted(times)[len(times) // 2]
+
+
+#: phase 12's constructions: (label, PRF id, scheme, radix)
+MESH_CONSTRUCTIONS = (("binary AES-128", 3, "logn", 2),
+                      ("binary ChaCha20", 2, "logn", 2),
+                      ("radix-4 AES-128", 3, "logn", 4),
+                      ("radix-4 ChaCha20-BLK", 5, "logn", 4),
+                      ("sqrt-N AES-128", 3, "sqrtn", 2),
+                      ("sqrt-N ChaCha20", 2, "sqrtn", 2))
+
+
+def mesh_cluster_phase(smi, read_counts, zero_counts, n=1 << 20, batch=512,
+                       device=None, psum_group=4, reps=3,
+                       multichip_kw=None, multihost_kw=None) -> tuple:
+    """Phase 12, the multi-GPU and cluster tier, at table size ``n`` x 16
+    with ``batch`` distinct keys, every mesh and host on ``device`` (None
+    = the card, repeated: one card rehearses every mesh).  (1) the
+    sharded server on a 4-way table mesh, a 2 x 2 batch x table mesh and
+    a 2 x 2 rows x bytes mesh (binary tree) for the six constructions of
+    ``MESH_CONSTRUCTIONS``, ``psum_group`` 0 and ``psum_group``, every
+    share equal to the one-device ``eval_gpu``'s and both servers
+    recovering the rows, the ms a batch of the 4-way mesh beside the one
+    device's; (2) two processes under ``parallel.multihost`` (gloo) as a
+    1 x 2 table mesh, equal to the one device; (3) the cluster: a
+    two-host ``ClusterRouter.local``, an injected ``host_drop`` answered
+    by reshard and by degrade (four hosts), two spawned workers sharing
+    the device with one killed, and a paged ``ClusterShardServer`` whose
+    device bytes move by exactly its granules; (4) ``tune_mesh_eval`` on
+    one shape (0 rejected, 0 gate escapes) and short ``bench_multichip``
+    and ``bench_multihost`` runs.  Returns ({part: launch counts}, the
+    phase's records)."""
+    import numpy as np
+
+    from dpf_tpu_torch import DPF, EvalConfig
+    from dpf_tpu_torch.core import expand, keygen
+    from dpf_tpu_torch.parallel import cluster_net, multihost, sharded
+    from dpf_tpu_torch.parallel.cluster import (ClusterRouter,
+                                                ClusterShardServer)
+    from dpf_tpu_torch.serve.bench_multichip import multichip_bench
+    from dpf_tpu_torch.serve.bench_multihost import multihost_bench
+    from dpf_tpu_torch.serve.faults import FaultPlan, FaultSpec
+    from dpf_tpu_torch.tune.mesh_tune import tune_mesh_eval
+    from dpf_tpu_torch.utils.hermetic import free_port
+
+    dev = torch.device(device or "cuda")
+    cuda = dev.type == "cuda"
+    t12 = time.perf_counter()
+    parts, records = {}, {}
+    rng = np.random.default_rng(20261018)
+    table = rng.integers(-2 ** 31, 2 ** 31, (n, 16),
+                         dtype=np.int64).astype(np.int32)
+    # distinct indices: an odd multiplier is a bijection mod 2^k
+    idx = np.array([(i * 0x9E3779B1 + 7) % n for i in range(batch)])
+    devs = [dev] * 4
+    meshes = (("1x4 table", sharded.make_mesh(4, 1, devices=devs)),
+              ("2x2 batch x table", sharded.make_mesh(2, 2, devices=devs)),
+              ("1x2x2 rows x bytes",
+               sharded.make_mesh_2d(2, 2, 1, devices=devs)))
+
+    def same(name, got, want):
+        err = max_abs_err(got.cpu(), want.cpu())
+        if err:
+            raise AssertionError("phase 12 %s: differs from the one device "
+                                 "(max_abs_err %d)" % (name, err))
+
+    # ------------------------------------------------ 12.1 sharded server
+    log("phase 12.1 sharded server: N=%d E=16 B=%d distinct keys, meshes "
+        "%s on %s (one device repeated), psum_group 0 and %d"
+        % (n, batch, ", ".join(m for m, _ in meshes), dev, psum_group))
+    # the one-device references and times first, so that the counts
+    # read below hold the meshes' launches only
+    want_rows = torch.from_numpy(table[idx])
+    ones = []
+    for label, prf, scheme, radix in MESH_CONSTRUCTIONS:
+        d = DPF(config=EvalConfig(prf_method=prf, scheme=scheme,
+                                  radix=radix), device=dev)
+        d.eval_init(table)
+        t0 = time.perf_counter()
+        wa, wb = d.gen_batch(idx, n)
+        gen_s = time.perf_counter() - t0
+        ref_a = d.eval_gpu(wa)
+        same(label + " one-device recovery",
+             (ref_a - d.eval_gpu(wb)).cpu(), want_rows)
+        one_ms = _batch_ms(lambda: d.eval_gpu(wa), reps, dev)
+        ones.append((d, wa, wb, gen_s, ref_a, one_ms))
+    zero_counts()
+    rows12 = []
+    for (label, prf, scheme, radix), (d, wa, wb, gen_s, ref_a, one_ms) in \
+            zip(MESH_CONSTRUCTIONS, ones):
+        checked = []
+        for mname, mesh in meshes:
+            if mesh.shape.get("byte", 1) > 1 and (scheme, radix) != \
+                    ("logn", 2):
+                continue
+            for pg in (0, psum_group):
+                srv = d.sharded_server(mesh, psum_group=pg)
+                same("%s %s psum_group %d" % (label, mname, pg),
+                     srv.eval(wa), ref_a)
+                checked.append("%s pg=%d" % (mname, pg))
+            same("%s %s recovery" % (label, mname),
+                 (srv.eval(wa) - srv.eval(wb)).cpu(), want_rows)
+        srv = d.sharded_server(meshes[0][1], psum_group=0)
+        mesh_ms = _batch_ms(lambda: srv.eval(wa), reps, dev)
+        log("  %-22s bit-equal on %s; ms a batch: one device %.3f, 1x4 "
+            "mesh %.3f (%.3f x); keygen %.2f s on the host; %s"
+            % (label, ", ".join(checked), one_ms, mesh_ms,
+               mesh_ms / one_ms, gen_s, smi))
+        rows12.append(dict(construction=label, prf=prf, scheme=scheme,
+                           radix=radix, meshes=checked, one_device_ms=one_ms,
+                           mesh_1x4_ms=mesh_ms, keygen_s=gen_s,
+                           knobs=srv.resolved_eval_knobs(batch)))
+        del d, srv, ref_a
+    parts["12.1 sharded"] = read_counts()
+    records["12.1 sharded"] = rows12
+    del ones
+
+    # ------------------------------------------------ 12.2 two processes
+    log("phase 12.2 two processes under multihost (gloo) as a 1x2 table "
+        "mesh on %s: binary ChaCha20 N=%d E=16 B=%d" % (dev, n, batch))
+    t0 = time.perf_counter()
+    port = free_port()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "shares.npy")
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "dpf_tpu_torch.parallel.multihost",
+             "--rank", str(r), "--world", "2", "--port", str(port),
+             "--backend", "gloo", "--device", str(dev), "--n", str(n),
+             "--entry-size", "16", "--prf", "2", "--batch", str(batch),
+             "--seed", "12", "--out", out_path],
+            cwd=root, env=env, stdout=subprocess.PIPE, text=True)
+            for r in range(2)]
+        results = []
+        for p in procs:
+            out, _ = p.communicate(timeout=600)
+            if p.returncode != 0:
+                raise AssertionError("phase 12.2: a rank exited %d"
+                                     % p.returncode)
+            results += [json.loads(ln[7:]) for ln in out.splitlines()
+                        if ln.startswith("RESULT ")]
+        shares = np.load(out_path)
+    d = DPF(prf=2, device=dev)
+    d.eval_init(cluster_net.make_table(n, 16, 12))
+    keys = multihost.rank_keys(n, 2, "logn", 2, batch, 12)[0]
+    same("12.2 two-process mesh", torch.from_numpy(shares),
+         d.eval_gpu(keys))
+    counts = dict.fromkeys(read_counts(), 0)
+    for res in results:
+        for k, v in res["launches"].items():
+            counts[k] += v
+    parts["12.2 multihost"] = counts
+    records["12.2 multihost"] = dict(
+        ranks=len(results), backend=sorted({r["backend"] for r in results}),
+        device=sorted({r["device"] for r in results}),
+        seconds=time.perf_counter() - t0)
+    log("  bit-equal to the one device; ranks %s, launches %s, %.1f s"
+        % ([(r["rank"], r["backend"], r["device"]) for r in results],
+           counts, time.perf_counter() - t0))
+    del d
+
+    # ------------------------------------------------------- 12.3 cluster
+    log("phase 12.3 cluster: binary AES-128 N=%d E=16 B=%d on %s"
+        % (n, batch, dev))
+    table3 = cluster_net.make_table(n, 16, 13)
+    d = DPF(prf=3, device=dev)
+    d.eval_init(table3)
+    ka, kb = d.gen_batch(idx, n)
+    ref = d.eval_gpu(ka).cpu().numpy()
+    want_rows = table3[idx]
+    del d
+    # the paged host's reference: the same granule on a host without a
+    # budget, run before the counts are zeroed
+    perm = expand.permute_table(table3)
+    g = n // 4
+    gbytes = g * 16 * 4
+    plain = ClusterShardServer(perm, (0, g), g, prf_method=3, device=dev)
+    ref_paged = plain._dispatch_packed(
+        keygen.decode_keys_batched(ka))[:batch].cpu()
+    del plain
+    rec3 = {}
+    zero_counts()
+    c = ClusterRouter.local(table3, hosts=2, prf_method=3,
+                            buckets=(batch,), device=dev)
+    c.warmup()
+    t0 = time.perf_counter()
+    out_a = c.submit(ka).result()
+    rec3["local_2_hosts_ms"] = 1e3 * (time.perf_counter() - t0)
+    same("12.3 two local hosts", torch.from_numpy(out_a),
+         torch.from_numpy(ref))
+    rows_b = (out_a.astype(np.int64) - c.submit(kb).result()).astype(
+        np.int32)
+    same("12.3 two local hosts recovery", torch.from_numpy(rows_b),
+         torch.from_numpy(want_rows))
+    c.close()
+    for policy in ("reshard", "degrade"):
+        inj = FaultPlan([FaultSpec(kind="host_drop", construction="host3",
+                                   start=1)], seed=12).injector()
+        c = ClusterRouter.local(table3, hosts=4, prf_method=3,
+                                buckets=(batch,), injector=inj,
+                                policy=policy, device=dev)
+        c.warmup()
+        for j in range(3):
+            inj.begin_arrival(j)
+            same("12.3 %s arrival %d" % (policy, j),
+                 torch.from_numpy(c.submit_resilient(ka).result()),
+                 torch.from_numpy(ref))
+        if c.decision_counts[policy] != 1 or \
+                c.host_state("host3") != "down":
+            raise AssertionError("phase 12.3 %s: decisions %s, host3 %s"
+                                 % (policy, c.decision_counts,
+                                    c.host_state("host3")))
+        rec3[policy] = dict(decisions=dict(c.decision_counts),
+                            assignment={k: list(v) for k, v in
+                                        c.assignment.items()})
+        log("  injected host_drop of host3 answered by %s: exact before, "
+            "through and after; assignment %s" % (policy, c.assignment))
+        c.close()
+    t0 = time.perf_counter()
+    nodes = cluster_net.spawn_cluster(n, 16, 2, table_seed=13, prf_method=3,
+                                      buckets=(batch,), device=dev,
+                                      timeout_s=300.0)
+    c = ClusterRouter(nodes, granule=n // 2,
+                      table_perm=expand.permute_table(table3),
+                      policy="reshard", prf_method=3,
+                      spare_engine_kw={"buckets": (batch,)}, device=dev)
+    worker_counts = dict.fromkeys(read_counts(), 0)
+    try:
+        c.warmup()
+        spawn_s = time.perf_counter() - t0
+        same("12.3 two workers", torch.from_numpy(c.submit(ka).result()),
+             torch.from_numpy(ref))
+        for k, v in nodes[1].stats()["launches"].items():
+            worker_counts[k] += v
+        nodes[1].kill()                   # a real process death
+        same("12.3 worker killed",
+             torch.from_numpy(c.submit_resilient(ka).result()),
+             torch.from_numpy(ref))
+        # the survivor's counts include the resharded granule's launches
+        for k, v in nodes[0].stats()["launches"].items():
+            worker_counts[k] += v
+        if c.decision_counts["reshard"] != 1:
+            raise AssertionError("phase 12.3: the killed worker was not "
+                                 "resharded (%s)" % c.decision_counts)
+        for k in ("aes_level_step", "contract_i32"):
+            if cuda and worker_counts[k] <= 0:
+                raise AssertionError("kernel %s was never launched in the "
+                                     "workers of phase 12.3" % k)
+        rec3["workers"] = dict(spawn_and_warm_s=spawn_s,
+                               decisions=dict(c.decision_counts),
+                               launches=worker_counts)
+        log("  two workers sharing %s (spawned and warmed in %.1f s), one "
+            "killed and resharded onto the other: exact; worker launches "
+            "%s" % (dev, spawn_s, worker_counts))
+    finally:
+        c.close()
+        for node in nodes:
+            node.kill()
+    # paged: a host assigned two granules under a budget of one
+
+    def allocated():
+        if cuda:
+            torch.cuda.synchronize()
+            return torch.cuda.memory_allocated(dev)
+        return 0
+    gc.collect()
+    m0 = allocated()
+    srv = ClusterShardServer(perm, (0, g), g, prf_method=3,
+                             budget_bytes=gbytes, device=dev)
+    moved = [allocated() - m0]
+    lease = srv.store.lease(0)
+    moved.append(allocated() - m0)
+    lease.release()
+    part = srv._dispatch_packed(keygen.decode_keys_batched(ka))
+    counts = read_counts()
+    same("12.3 paged host", part[:batch], ref_paged)
+    del part
+    gc.collect()
+    moved.append(allocated() - m0)
+    st = srv.store.counters
+    if cuda and moved != [0, gbytes, srv.store.resident_bytes] or \
+            srv.store.resident_bytes > gbytes:
+        raise AssertionError("phase 12.3 paged: memory_allocated moved by "
+                             "%s, granule %d bytes, resident %d"
+                             % (moved, gbytes, srv.store.resident_bytes))
+    rec3["paged"] = dict(granule_bytes=gbytes, budget_bytes=gbytes,
+                         memory_allocated_moves=moved,
+                         counters=dict(st))
+    log("  paged host (2 granules of %d bytes, budget 1): "
+        "memory_allocated moved %s; store %s" % (gbytes, moved, dict(st)))
+    del srv
+    records["12.3 cluster"] = rec3
+    for k, v in worker_counts.items():
+        counts[k] += v
+    parts["12.3 cluster"] = counts
+
+    # --------------------------------------------- 12.4 tuner and benches
+    zero_counts()
+    log("phase 12.4 tune_mesh_eval: binary ChaCha20 N=%d E=16 B=%d on the "
+        "1x4 mesh of %s" % (n, batch, dev))
+    rec = tune_mesh_eval(n, batch, mesh=meshes[0][1], prf_method=2, reps=2,
+                         distinct=8, force=True)
+    m = rec["measured"]
+    log("  heuristic %.4f ms, winner %.4f ms (%s), %d tried, %d rejected, "
+        "%d gate escapes; %s"
+        % (1e3 * m["heuristic_s"], 1e3 * m["best_s"],
+           json.dumps(rec["knobs"]), m["candidates_tried"], m["rejected"],
+           m["gate_escapes"], smi))
+    if m["rejected"] or m["gate_escapes"]:
+        raise AssertionError("phase 12.4 tune_mesh_eval: %d rejected, %d "
+                             "gate escapes" % (m["rejected"],
+                                               m["gate_escapes"]))
+    records["12.4 tune_mesh_eval"] = dict(knobs=rec["knobs"], **{
+        k: m[k] for k in ("best_s", "heuristic_s", "candidates_tried",
+                          "rejected", "gate_escapes", "devices")})
+    mc = multichip_bench(**dict(dict(shapes=((1 << 16, 64),), n_devices=2,
+                                     device=dev, prf=2, reps=1, quiet=True,
+                                     force=True), **(multichip_kw or {})))
+    if mc["total_rejected"] or not mc["checked"]:
+        raise AssertionError("phase 12.4 bench_multichip: %d rejected"
+                             % mc["total_rejected"])
+    log("  bench_multichip: %d devices %s (repeated %s), winner %s, serve "
+        "%s %s qps; %s" % (mc["n_devices"], mc["mesh_devices"],
+                           mc["repeated_device"],
+                           [p["winner"] for p in mc["points"]],
+                           mc["serve"]["mesh"], mc["serve"]["qps"], smi))
+    mh = multihost_bench(**dict(dict(n=1 << 16, entry_size=16, cap=64,
+                                     prf=3, hosts=2, mode="multiprocess",
+                                     duration_s=1.5, on_rate=20.0,
+                                     distinct=8, quiet=True, device=dev),
+                                **(multihost_kw or {})))
+    legs = ("baseline_leg", "chaos_degrade_leg", "chaos_reshard_leg")
+    if mh["gate_escapes"] or not mh["pir_group_routing"]["checked"] or \
+            not all(mh[leg]["drop_attributed"] for leg in legs[1:]):
+        raise AssertionError("phase 12.4 bench_multihost: %d gate escapes, "
+                             "attribution %s, PIR leg %s"
+                             % (mh["gate_escapes"],
+                                [mh[leg]["drop_attributed"]
+                                 for leg in legs],
+                                mh["pir_group_routing"]["checked"]))
+    log("  bench_multihost (%s, %d hosts on %s): availability %s, p99 ms "
+        "%s, gate escapes %d, checked %s; %s"
+        % (mh["mode"], mh["hosts"], mh["device"],
+           [mh[leg]["availability"] for leg in legs],
+           [mh[leg]["p99_ms"] for leg in legs], mh["gate_escapes"],
+           mh["checked"], smi))
+    records["12.4 benches"] = dict(
+        multichip={k: mc[k] for k in ("n_devices", "mesh_devices",
+                                      "repeated_device", "points", "serve",
+                                      "total_rejected", "elapsed_s")},
+        multihost={k: mh[k] for k in ("mode", "hosts", "device",
+                                      "device_name", "value", "checked",
+                                      "gate_escapes")} | {
+            leg: {f: mh[leg][f] for f in ("availability", "p50_ms",
+                                          "p99_ms", "decision_counts",
+                                          "drop_attributed")}
+            for leg in legs})
+    parts["12.4 tuner and benches"] = read_counts()
+    log("phase 12: %.1f s" % (time.perf_counter() - t12))
+    return parts, records
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1875,7 +2254,68 @@ def _main(t_start) -> int:
                     dict(ars=ars, f_lv=0, prf_method=p, block_leaves=4096))
         if p == dpf_tpu_torch.PRF_CHACHA20_BLK:
             rows["subtree_contract_mixed"] = r
-    del fr, cw1, cw2, tbl, tbl1, frs, c1s, c2s, tbls
+
+    # K2's leaf-range form (subtree_contract_window: a mesh shard's or a
+    # cluster granule's rows, phase 12; the window is a launch argument,
+    # the first block subtree and a power-of-two count): ranges of 80 and
+    # 7 blocks (two and three launches) at ragged batches, held against
+    # the plain version; then the 4-way table mesh's second shard at
+    # N = 2^20 (rows 2^18 .. 2^19, B = 512) held and timed, binary
+    # ChaCha20 and radix-4 ChaCha20-BLK
+    from dpf_tpu_torch.parallel.sharded import tree_levels
+    k2_window = {}
+    for radix_w, p, row0_w, rows_w, bsz_w in (
+            (2, dpf_tpu_torch.PRF_CHACHA20, 3 << 16, 5 << 16, 33),
+            (2, dpf_tpu_torch.PRF_SALSA20_BLK, 7 << 12, 7 << 12, 5),
+            (4, dpf_tpu_torch.PRF_CHACHA20_BLK, 1 << 18, 3 << 16, 33),
+            (4, dpf_tpu_torch.PRF_SALSA20, 1 << 16, 7 << 16, 5),
+            (2, dpf_tpu_torch.PRF_CHACHA20, 1 << 18, 1 << 18, 512),
+            (4, dpf_tpu_torch.PRF_CHACHA20_BLK, 1 << 18, 1 << 18, 512)):
+        ars_w, offs_w = tree_levels(n, radix_w)
+        frw, c1w, c2w = rnd(bsz_w, 1, 4), rnd(bsz_w, 64, 4), \
+            rnd(bsz_w, 64, 4)
+        tblw = rnd(rows_w, 16)
+        kw = dict(sched=list(zip(ars_w, offs_w)), row0=row0_w, prf_method=p,
+                  block_leaves=4096, radix=radix_w)
+        entry = (subtree.subtree_contract if radix_w == 2
+                 else subtree.subtree_contract_mixed)
+        t0 = time.perf_counter()
+        want = subtree.subtree_contract_window_plain(frw, c1w, c2w, tblw,
+                                                     **kw)
+        sync()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        name = "%s %s rows [%d, %d)" % (
+            "binary" if radix_w == 2 else "radix-4", prf_names[p], row0_w,
+            row0_w + rows_w)
+        errs[entry.__name__] |= held(
+            "K2 window %s B=%d" % (name, bsz_w),
+            subtree.subtree_contract_window(frw, c1w, c2w, tblw, **kw), want)
+        if bsz_w != 512:
+            continue
+        arity = radix_w
+        # parents below the shard's node, and the walk from the root to
+        # it: one parent a level above the node
+        above = next(j for j in range(len(ars_w) + 1)
+                     if int(np.prod(ars_w[j:])) == rows_w)
+        nodes_w = (rows_w - 1) // (arity - 1) + above
+        blocks = 1 if p in (4, 5) else arity if radix_w == 4 else 2
+        ops = bsz_w * (nodes_w * (blocks * OPS_CORE_BLOCK
+                                  + arity * OPS_CHILD_ADD)
+                       + rows_w * 16 * 2)
+        r = dict(ms=cuda_ms(lambda: subtree.subtree_contract_window(
+                     frw, c1w, c2w, tblw, **kw), 5),
+                 plain_ms=plain_ms, library_ms=None,
+                 bytes=bsz_w * 16 + 2 * bsz_w * 64 * 16 + rows_w * 16 * 4
+                 + bsz_w * 16 * 4,
+                 ops=ops,
+                 pipe_bound_ms=pipe_bound_ms(
+                     ops, bsz_w * nodes_w * blocks * OPS_CORE_BLOCK_ALU,
+                     bsz_w * rows_w * 16),
+                 shape="%s B=512 E=16" % name)
+        log_row("K2 shard window", r)
+        log("    pipe bound ms %.4f on %s" % (r["pipe_bound_ms"], smi))
+        k2_window[name] = r
+    del fr, cw1, cw2, tbl, tbl1, frs, c1s, c2s, tbls, frw, c1w, c2w, tblw
     torch.cuda.empty_cache()
 
     # K5: the ChaCha20 level step (the dispatch mode's ChaCha20 levels,
@@ -2547,6 +2987,26 @@ def _main(t_start) -> int:
     by_path.update(parts)
     log(json.dumps({"phase11": tuning}, default=str))
 
+    # --------------------------- 12. multi-GPU and the cluster tier
+    parts, mesh_cluster = mesh_cluster_phase(smi, read_counts, zero_counts)
+    path12 = {
+        "12.1 sharded": ("aes_level_step", "aes_level_step_a4",
+                         "subtree_contract", "subtree_contract_mixed",
+                         "contract_i32", "sqrt_grid_contract"),
+        "12.2 multihost": ("subtree_contract",),
+        "12.3 cluster": ("aes_level_step", "contract_i32"),
+        "12.4 tuner and benches": ("subtree_contract",
+                                   "subtree_contract_mixed",
+                                   "sqrt_grid_contract")}
+    for part, counts in parts.items():
+        log("phase %s launches: %s" % (part, counts))
+        for k in path12[part]:
+            if counts[k] <= 0:
+                raise AssertionError("kernel %s was never launched in phase "
+                                     "%s" % (k, part))
+    by_path.update(parts)
+    log(json.dumps({"phase12": mesh_cluster}, default=str))
+
     meta = {
         "aes_level_step": ("dpf_tpu_torch/csrc/aes_level.cu",
                            "dpf_tpu/ops/aes_planes.py:408"),
@@ -2594,6 +3054,7 @@ def _main(t_start) -> int:
                if sass and name.startswith("aes_level") else {})})
     log(json.dumps({"launches_per_batch": per_batch}))
     log(json.dumps({"k2_full_width": k2_rows, "k2_sass": sass_k2}))
+    log(json.dumps({"k2_window": k2_window}))
     log(json.dumps({"pkt_sweep": pkt_sweep}))
     log(json.dumps({"k3": k3_rows}))
     log("chip_smoke: %.1f s" % (time.perf_counter() - t_start))

@@ -893,6 +893,23 @@ class DPF(object):
         from .serve import ServingEngine
         return ServingEngine(self, **kwargs)
 
+    def sharded_server(self, mesh=None, **kwargs):
+        """A ``parallel.sharded.ShardedDPFServer`` over this DPF's table
+        with its construction, PRF and batch cap.  Requires a prior
+        ``eval_init`` (which resolves ``scheme="auto"``, so keys already
+        minted stay servable).  ``mesh``: a ``parallel.sharded.
+        make_mesh`` mesh (None = one over every visible card); kwargs
+        forward to ``ShardedDPFServer`` (the explicit pins
+        ``chunk_leaves``, ``row_chunk``, ``psum_group``, ``dot_impl``)."""
+        if self.table is None:
+            raise RuntimeError(
+                "Must call `eval_init` before `sharded_server`")
+        from .parallel.sharded import ShardedDPFServer
+        return ShardedDPFServer(
+            self.table, mesh, prf_method=self.prf_method,
+            batch_size=self.BATCH_SIZE, radix=self.radix,
+            scheme=self.scheme, **kwargs)
+
     # ------------------------------------------------------------ eval_free
 
     def eval_free(self, buffers=None):

@@ -14,8 +14,11 @@ line is ``nvidia-smi``'s name and power limit.  Needs one CUDA card:
 
     python -m dpf_tpu_torch.benchmark [--n N ...] [--prf ID ...] [--reps R]
 
-The root ``benchmark.py``'s other modes belong to modules not ported
-yet.
+Two of the root ``benchmark.py``'s other modes run here too:
+``--multichip`` (``serve/bench_multichip.py``: the mesh autotune
+matrix) and ``--multihost`` (``serve/bench_multihost.py``: the serving
+cluster across a host's death); the rest of the arguments go to them.
+The others belong to modules not ported yet.
 """
 
 from __future__ import annotations
@@ -77,6 +80,14 @@ def run_sweep(configs=None, batch: int = 512, entrysize: int = 16,
 
 
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    for flag, module in (("--multichip", "bench_multichip"),
+                         ("--multihost", "bench_multihost")):
+        if flag in argv:
+            import importlib
+            bench = importlib.import_module(".serve." + module, __package__)
+            bench.main([a for a in argv if a != flag])
+            return 0
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, action="append",
                     help="table size (repeatable; default the sweep's)")

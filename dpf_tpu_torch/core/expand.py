@@ -279,21 +279,24 @@ def dispatch_group_size(f: int, c: int, group: int | None) -> int:
 def dispatch_contract(last, table_perm, level, n_levels: int, f_lv: int,
                       c: int, group: int | None,
                       deadline: float | None,
-                      dot_impl: str | None = None) -> torch.Tensor:
+                      dot_impl: str | None = None,
+                      lv0: int = 0) -> torch.Tensor:
     """The per-level mode's loop over any level schedule:
     ``level(seeds, j, low32)`` runs eval level ``j``; the root goes to
     the ``f = N / c`` frontier nodes at eval level ``f_lv``, then each
     group of subtrees to its leaves, contracted by K3 or the ``dot_impl``
     of ``matmul128.IMPLS`` (per-key tables ``[B, N, E]``: by K6, each key
     against its own rows).  The deadline is checked before every
-    launch."""
+    launch.  ``last`` ``[B, w, 4]`` with ``lv0`` starts from ``w``
+    consecutive nodes of eval level ``lv0`` whose leaves are the table's
+    ``N`` rows (a leaf range of a larger tree)."""
     from ..ops.matmul128 import IMPLS, dot_i32, dot_i32_per_key
     dot = dot_i32 if dot_impl in (None, "i32") else IMPLS[dot_impl]
     n, e = table_perm.shape[-2:]
     f = n // c
     g = dispatch_group_size(f, c, group)
-    seeds = last[:, None, :]
-    for j in range(f_lv):
+    seeds = last[:, None, :] if last.dim() == 2 else last
+    for j in range(lv0, f_lv):
         check_deadline(deadline)
         seeds = level(seeds, j, False)                  # [B, f, 4]
     acc = torch.zeros((last.shape[0], e), dtype=torch.int32,

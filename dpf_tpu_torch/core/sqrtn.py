@@ -26,10 +26,10 @@ tensors:
   PRF call per queried index), plain PyTorch on any device.
 
 ``gen_sqrt_batched`` is the batched generator: one PRF call over the
-``[B, R]`` target-column grid of ``[B, R, 4]`` limb tensors.  The
-sharded path (``eval_sharded_sqrt``), the tuner's
-``sqrt_chunk_candidates`` and the per-key reference ``eval_contract``
-are not ported yet (ROADMAP Queue 1 items 9 and 8).
+``[B, R]`` target-column grid of ``[B, R, 4]`` limb tensors.
+``eval_sharded_sqrt`` is the mesh path: the grid's rows split over the
+mesh's "table" axis, K4 on each shard from its first grid row.  The
+per-key reference ``eval_contract`` is not ported.
 """
 
 from __future__ import annotations
@@ -501,6 +501,77 @@ def eval_contract_per_key_tables(seeds, cw1, cw2, tables, *,
                          % (tuple(tables.shape), seeds.shape[0]))
     return sqrt_grid_contract(seeds, cw1, cw2, tables, prf_method=prf_method,
                               row_chunk=row_chunk)
+
+
+def sharded_sqrt_program(keys: dict, table, *, prf_method: int, mesh,
+                         row_chunk: int | None = None,
+                         psum_group: int | None = None) -> torch.Tensor:
+    """The sqrt-N mesh program over keys already on each device
+    (``keys[device] = (seeds, cw1, cw2)``, ``[B, K, 4]`` and ``[B, R,
+    4]``) and a ``parallel.sharded.shard_table_sqrt`` table.  Each shard
+    runs K4 (the plain scan on CPU tensors) over its own R / shards grid
+    rows with ``row0`` its first row, in groups of ``psum_group`` steps
+    of ``row_chunk`` rows when that divides them; the partials sum mod
+    2^32.  A split the grid kernel cannot take raises ``ValueError``:
+    the card has no other path."""
+    from ..ops.sqrt_grid import sqrt_grid_contract
+    from ..parallel.sharded import _valid_psum_group, mesh_sum
+    seeds = next(iter(keys.values()))[0]
+    bsz, k = seeds.shape[0], seeds.shape[1]
+    r = next(iter(keys.values()))[1].shape[1]
+    n_shards, nb = mesh.shape["table"], mesh.shape["batch"]
+    if r % n_shards:
+        raise ValueError("sqrt-N grid rows R=%d must divide over %d table "
+                         "shards" % (r, n_shards))
+    if bsz % nb:
+        raise ValueError("batch %d does not split over %d batch shards"
+                         % (bsz, nb))
+    r_local = r // n_shards
+    if n_shards > 1 and prf_method in _BLK_WORDS \
+            and r_local % ROW_CHUNK_FLOOR:
+        raise ValueError(
+            "block-PRG sqrt-N sharding needs R/shards (%d) to be a "
+            "multiple of 4 (one core block serves 4 grid rows and K4 "
+            "cannot split it over shards); use fewer table shards or a "
+            "wider n_keys split" % r_local)
+    rc = _resolve_row_chunk(r_local, k, bsz, row_chunk)
+    steps = r_local // rc
+    g = _valid_psum_group(psum_group, steps)
+    n_groups = steps // g if g else 1
+    span, bb = r_local // n_groups, bsz // nb
+
+    def partial(idx, grp):
+        ib, it = mesh.coord(idx, "batch"), mesh.coord(idx, "table")
+        s, c1, c2 = keys[mesh.devices[idx]]
+        sl = slice(ib * bb, (ib + 1) * bb)
+        r0 = it * r_local + grp * span
+        rows = slice(grp * span * k, (grp + 1) * span * k)
+        return sqrt_grid_contract(
+            s[sl], c1[sl, r0:r0 + span], c2[sl, r0:r0 + span],
+            table.blocks[idx][rows], prf_method=prf_method,
+            row_chunk=rc, row0=r0)
+
+    return mesh_sum(mesh, bsz, table.shape[1], partial, n_groups)
+
+
+def eval_sharded_sqrt(seeds, cw1, cw2, table, *, prf_method: int, mesh,
+                      row_chunk: int | None = None,
+                      psum_group: int | None = None) -> torch.Tensor:
+    """Mesh-parallel fused sqrt-N evaluation (port of
+    ``sqrtn.eval_sharded_sqrt``): int32 ``seeds`` ``[B, K, 4]`` and
+    codewords ``[B, R, 4]`` on any device, the natural-order table from
+    ``parallel.sharded.shard_table_sqrt``.  ``row_chunk`` grid rows per
+    step of each shard (None = ``choose_row_chunk`` over R / shards)
+    must divide R / shards (a multiple of 4 when it chunks);
+    ``psum_group`` steps are summed over the mesh at a time.  Where the
+    JAX package falls back to its XLA scan (a block-PRG split of R /
+    shards % 4 != 0), this raises ``ValueError``.  Returns ``[B, E]``
+    int32 on the mesh's output device."""
+    from ..parallel.sharded import keys_on_devices
+    return sharded_sqrt_program(
+        keys_on_devices(mesh, seeds, cw1, cw2), table,
+        prf_method=prf_method, mesh=mesh, row_chunk=row_chunk,
+        psum_group=psum_group)
 
 
 def eval_points_sqrt(keys: list, indices, prf_method: int,

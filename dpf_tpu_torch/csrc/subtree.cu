@@ -206,7 +206,7 @@ __global__ void __launch_bounds__(kThreads)
                    const uint32_t* __restrict__ cw2,
                    const int32_t* __restrict__ table,
                    uint32_t* __restrict__ out, int batch, int f_cnt,
-                   int e_total, const Sched sc) {
+                   int e_total, const Sched sc, long long s0, int log_n) {
   constexpr int kA = BIN ? 2 : 4;                 // widest arity in the block
   // dynamic: the tile's leaves, quad-major (leaf r of key k at word
   // (r / 4) 4 kTileKeys + 4 k + r % 4, so the kTileKeys keys' leaves of a
@@ -228,9 +228,11 @@ __global__ void __launch_bounds__(kThreads)
   const long long key = key0 + (live ? kb : 0);
   const uint32_t* const kc1 = cw1 + key * kMaxSlots * 4;
   const uint32_t* const kc2 = cw2 + key * kMaxSlots * 4;
-  const long long sub = blk / tiles;             // in [0, F << log_s)
-  const int f = (int)(sub >> sc.log_s);
-  const long long s_idx = sub & ((1LL << sc.log_s) - 1);
+  // the launch's block subtrees under each frontier node: 2^log_n of
+  // them from s0 (a leaf range; the whole node: log_n = log_s, s0 = 0)
+  const long long sub = blk / tiles;             // in [0, F << log_n)
+  const int f = (int)(sub >> log_n);
+  const long long s_idx = s0 + (sub & ((1LL << log_n) - 1));
   // key kb's breadth-first nodes sit at (kb << log_kt) + i
   const int nb = 4 * (kb << sc.log_kt);
 
@@ -329,13 +331,13 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  // contract the tile's leaves with table rows row0 .. row0 + CB - 1:
+  // contract the tile's leaves with table rows row0 .. row0 + CB - 1
+  // (the launch's table holds its block subtrees' rows in order):
   // thread tid takes column e0 + tid % ew and the row quads tid / ew,
   // tid / ew + lanes, ...  Keys past the batch's end multiply whatever
   // their leaves hold and are not added.  The lane sums go to the nodes'
   // buffer, free since the barrier above
-  const long long row0 =
-      ((long long)f << sc.log_c) + (s_idx << sc.log_cb);
+  const long long row0 = sub << sc.log_cb;
   const long long ld = e_total;
   uint32_t* const red = scratch;
   for (int e0 = 0; e0 < e_total; e0 += kThreads) {
@@ -564,14 +566,16 @@ template <int P, bool BIN>
 cudaError_t launch_kernel(dim3 grid, size_t smem, cudaStream_t st,
                           const void* frontier, const void* cw1,
                           const void* cw2, const void* table, void* out,
-                          int batch, int f_cnt, int e_total, const Sched& sc) {
+                          int batch, int f_cnt, int e_total, const Sched& sc,
+                          long long s0, int log_n) {
   static const cudaError_t err = cudaFuncSetAttribute(
       subtree_kernel<P, BIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kMaxDynSmemBytes);
   if (err != cudaSuccess) return err;
   subtree_kernel<P, BIN><<<grid, kThreads, smem, st>>>(
       (const uint32_t*)frontier, (const uint32_t*)cw1, (const uint32_t*)cw2,
-      (const int32_t*)table, (uint32_t*)out, batch, f_cnt, e_total, sc);
+      (const int32_t*)table, (uint32_t*)out, batch, f_cnt, e_total, sc, s0,
+      log_n);
   return cudaGetLastError();
 }
 
@@ -596,12 +600,15 @@ cudaError_t launch_pkt(dim3 grid, size_t smem, cudaStream_t st,
 // f_lv arities), table [N, E] rows in digit-reversed order, out [B, E]
 // zeroed by the caller, block subtrees of 2^log_cb leaves (a product of
 // trailing arities).  per_key: table is [B, N, E], one permuted table a
-// key, served by the per-key kernel.  Returns the launch's cudaError_t.
-extern "C" int subtree_contract_launch(
+// key, served by the per-key kernel.  log_n < 0: every block subtree of
+// each frontier node; else the shared-table kernel launches 2^log_n of
+// them from block s0 (subtree_contract_window_launch), table holding
+// their rows.  Returns the launch's cudaError_t.
+static int subtree_launch(
     const void* frontier, const void* cw1, const void* cw2, const void* table,
     void* out, int batch, int f_cnt, int levels, const int* lg,
     const int* off, int f_lv, int log_cb, int e_total, int prf, int per_key,
-    void* stream) {
+    long long s0, int log_n, void* stream) {
   Sched sc{};
   if (levels < 1 || levels > kMaxLevels) return (int)cudaErrorInvalidValue;
   sc.levels = levels;
@@ -614,6 +621,10 @@ extern "C" int subtree_contract_launch(
   bool bin = false;
   if (batch <= 0 || e_total <= 0 ||
       !split_schedule(sc, f_cnt, f_lv, log_cb, log_kt, bin) || sc.log_s > 30)
+    return (int)cudaErrorInvalidValue;
+  if (per_key && (log_n >= 0 || s0 != 0)) return (int)cudaErrorInvalidValue;
+  if (log_n < 0) log_n = sc.log_s;
+  if (log_n > sc.log_s || s0 < 0 || s0 + (1LL << log_n) > (1LL << sc.log_s))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (per_key) {
@@ -641,7 +652,7 @@ extern "C" int subtree_contract_launch(
 #undef DPF_LAUNCH
   }
   const long long tiles = (batch + kTileKeys - 1) / kTileKeys;
-  const long long blocks = (tiles * f_cnt) << sc.log_s;
+  const long long blocks = (tiles * f_cnt) << log_n;
   const size_t smem = 4 * ((size_t)kTileKeys * (log_cb < 2 ? 4 : 1 << log_cb)
                            + kScratchWords);
   if (blocks > 0x7fffffffLL || smem > (size_t)kMaxDynSmemBytes)
@@ -650,10 +661,10 @@ extern "C" int subtree_contract_launch(
 #define DPF_LAUNCH(P)                                                       \
   return (int)(bin ? launch_kernel<P, true>(grid, smem, st, frontier, cw1,  \
                                             cw2, table, out, batch, f_cnt,  \
-                                            e_total, sc)                    \
+                                            e_total, sc, s0, log_n)         \
                    : launch_kernel<P, false>(grid, smem, st, frontier, cw1, \
                                              cw2, table, out, batch, f_cnt, \
-                                             e_total, sc))
+                                             e_total, sc, s0, log_n))
   switch (prf) {
     case 1: DPF_LAUNCH(1);
     case 2: DPF_LAUNCH(2);
@@ -662,6 +673,31 @@ extern "C" int subtree_contract_launch(
     default: return (int)cudaErrorInvalidValue;
   }
 #undef DPF_LAUNCH
+}
+
+extern "C" int subtree_contract_launch(
+    const void* frontier, const void* cw1, const void* cw2, const void* table,
+    void* out, int batch, int f_cnt, int levels, const int* lg,
+    const int* off, int f_lv, int log_cb, int e_total, int prf, int per_key,
+    void* stream) {
+  return subtree_launch(frontier, cw1, cw2, table, out, batch, f_cnt, levels,
+                        lg, off, f_lv, log_cb, e_total, prf, per_key, 0, -1,
+                        stream);
+}
+
+// The leaf-range form: the shared-table kernel over 2^log_n consecutive
+// block subtrees from block s0 under each frontier node (every block
+// walks its path from the node, so the frontier may be the root), table
+// holding exactly their rows [F << log_n << log_cb, E].
+extern "C" int subtree_contract_window_launch(
+    const void* frontier, const void* cw1, const void* cw2, const void* table,
+    void* out, int batch, int f_cnt, int levels, const int* lg,
+    const int* off, int f_lv, int log_cb, int e_total, int prf, long long s0,
+    int log_n, void* stream) {
+  if (log_n < 0) return (int)cudaErrorInvalidValue;
+  return subtree_launch(frontier, cw1, cw2, table, out, batch, f_cnt, levels,
+                        lg, off, f_lv, log_cb, e_total, prf, 0, s0, log_n,
+                        stream);
 }
 
 extern "C" const char* subtree_contract_error_string(int code) {

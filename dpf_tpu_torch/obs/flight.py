@@ -47,16 +47,25 @@ class FlightRecorder:
         self._t0 = time.monotonic()
         self.recorded = 0           # total ever recorded (ring evicts)
         self.dropped = 0            # events evicted from the full ring
+        self._process = None        # process index label (multi-host)
 
     @property
     def capacity(self) -> int:
         return self._ring.maxlen
+
+    def set_process(self, index: int | None) -> None:
+        """Stamp every later event with a ``process`` label, this
+        process's rank (``multihost.initialize``; cluster workers set
+        their own), so merged rings stay attributable per host."""
+        self._process = None if index is None else int(index)
 
     def record(self, kind: str, **attrs) -> None:
         """Append one event; never raises (decision paths call this)."""
         try:
             ev = {"seq": 0, "t": round(time.monotonic() - self._t0, 6),
                   "kind": kind}
+            if self._process is not None and "process" not in attrs:
+                ev["process"] = self._process
             ev.update(attrs)
             with self._lock:
                 self.recorded += 1
@@ -96,3 +105,9 @@ FLIGHT = FlightRecorder()
 def flight_dump(last: int | None = None) -> list:
     """Dump the process flight ring."""
     return FLIGHT.dump(last=last)
+
+
+def set_process_index(index: int | None) -> None:
+    """Label the process ring's events with a process index (multi-host
+    serving: one ring a process, merged by rank)."""
+    FLIGHT.set_process(index)

@@ -347,6 +347,29 @@ class MetricsRegistry:
 #: the process registry everything self-registers into
 REGISTRY = MetricsRegistry()
 
+#: this process's rank, stamped on engine, router and cluster series
+_PROCESS_INDEX: int | None = None
+
+
+def set_process_index(index: int | None) -> None:
+    """Stamp engine, router and cluster series with a ``process`` label,
+    this process's rank (``multihost.initialize``; cluster workers set
+    theirs), so a scrape that merges per-host pages stays attributable."""
+    global _PROCESS_INDEX
+    _PROCESS_INDEX = None if index is None else int(index)
+
+
+def _with_process(labels: dict, override=None) -> dict:
+    """Merge the process label into a sample's labels: an object's own
+    ``process_index`` (a cluster's in-process hosts) wins over the
+    process-wide one; with neither the labels pass through."""
+    p = override if override is not None else _PROCESS_INDEX
+    if p is None or "process" in labels:
+        return labels
+    out = dict(labels)
+    out["process"] = int(p)
+    return out
+
 
 def default_registry() -> MetricsRegistry:
     return REGISTRY
@@ -436,7 +459,8 @@ def register_engine(engine, registry: MetricsRegistry | None = None):
     label = getattr(engine, "label", None) or "engine-%x" % id(engine)
 
     def emit(e):
-        return engine_samples(e.stats, _with_tenant({"engine": label}, e))
+        return engine_samples(e.stats, _with_tenant(_with_process(
+            {"engine": label}, getattr(e, "process_index", None)), e))
     reg.watch(engine, emit)
 
 
@@ -475,8 +499,45 @@ def register_router(router, registry: MetricsRegistry | None = None):
             out.append(("dpf_router_routed_from", "counter",
                         "routing-decision provenance",
                         {"source": src}, float(c)))
-        return [(n, k, h, _with_tenant(l, r), v) for n, k, h, l, v in out]
+        return [(n, k, h, _with_tenant(_with_process(l), r), v)
+                for n, k, h, l, v in out]
     reg.watch(router, emit)
+
+
+def register_cluster(cluster, registry: MetricsRegistry | None = None):
+    """Export a ``parallel.cluster.ClusterRouter``'s host states, granule
+    assignments, recovery decisions and cluster-merged
+    ``EngineCounters`` as first-class series (weakly held)."""
+    reg = registry or REGISTRY
+    states = {"live": 0.0, "degraded": 1.0, "down": 2.0}
+
+    def emit(c):
+        out = []
+        for lb, node in c.hosts.items():
+            labels = _with_process({"host": lb},
+                                   getattr(node, "process_index", None))
+            out.append(("dpf_cluster_host_state", "gauge",
+                        "0=live 1=degraded 2=down", labels,
+                        states.get(c.host_state(lb), -1.0)))
+            out.append(("dpf_cluster_host_granules", "gauge",
+                        "table granules assigned to the host", labels,
+                        float(len(c.assignment.get(lb, ())))))
+        live = sum(1 for lb in c.hosts if c.host_state(lb) == "live")
+        out.append(("dpf_cluster_hosts_live", "gauge",
+                    "hosts currently serving their own granules", {},
+                    float(live)))
+        out.append(("dpf_cluster_hosts_total", "gauge",
+                    "hosts the cluster was built with", {},
+                    float(len(c.hosts))))
+        for decision in ("reshard", "degrade"):
+            out.append(("dpf_cluster_recoveries", "counter",
+                        "host-loss recovery decisions",
+                        {"decision": decision},
+                        float(c.decision_counts.get(decision, 0))))
+        out.extend(engine_samples(c.counters(),
+                                  _with_process({"engine": "cluster"})))
+        return out
+    reg.watch(cluster, emit)
 
 
 def register_table_registry(registry_obj,

@@ -44,7 +44,9 @@ SOURCES = {
                                         _I, _P]},
                   "aes_level_error_string"),
     "subtree": ({"subtree_contract_launch": [_P] * 5 + [_I] * 3
-                 + [_IP] * 2 + [_I] * 5 + [_P]},
+                 + [_IP] * 2 + [_I] * 5 + [_P],
+                 "subtree_contract_window_launch": [_P] * 5 + [_I] * 3
+                 + [_IP] * 2 + [_I] * 4 + [_LL, _I, _P]},
                 "subtree_contract_error_string"),
     "contract": ({"contract_i32_launch": [_P, _LL, _LL, _P, _P, _LL, _LL,
                                           _I, _I, _P]},

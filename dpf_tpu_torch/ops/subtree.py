@@ -35,6 +35,14 @@ and the bit-reversed table ``[N, E]`` -> ``[B, E]`` int32 shares:
   ``pkt_block_leaves`` leaves unless the caller names them (a size the
   kernel cannot take raises); its launches count in ``launches_pkt``.
 
+* ``subtree_contract_window`` / ``subtree_contract_window_plain`` -- the
+  leaf-range form of both trees (a mesh shard or a cluster granule):
+  the root seeds, the whole tree's schedule and the rows ``[row0, row0
+  + rows)`` of the permuted table.  K2 takes a run of consecutive block
+  subtrees as a launch argument (the first block and a power-of-two
+  count; a range is one launch a power-of-two piece), every block
+  walking from the root as in the full-table launch; its launches count
+  on ``subtree_contract`` or ``subtree_contract_mixed``.
 * ``chacha_level_step`` / ``chacha_level_step_plain`` -- one ChaCha20-12
   GGM level, the port of ``pallas_level.chacha_level_step_pallas``:
   seeds ``[B, w, 4]`` and the level's codewords ``[B, 2, 4]`` ->
@@ -215,11 +223,13 @@ def _binary_split(frontier, cw1, cw2, table_perm, depth, f_levels,
 
 
 def _contract_plain(frontier, cw1, cw2, table_perm, sched, f_lv, s_lv, cb,
-                    prf_method) -> torch.Tensor:
+                    prf_method, s0: int = 0) -> torch.Tensor:
     """The plain engine of both trees: walk the frontier to the block
     subtrees' roots with plain level steps of the (arity, offset)
     schedule, expand a group of block subtrees at a time, and contract
-    the low limbs (per-key tables: each key's own rows)."""
+    the low limbs (per-key tables: each key's own rows).  ``s0``: the
+    table's rows are those of the block subtrees from ``s0`` on (one
+    frontier node)."""
     def level(s, j):
         a, o = sched[j]
         return _level_step_multi(s, cw1[:, o:o + a], cw2[:, o:o + a],
@@ -229,6 +239,7 @@ def _contract_plain(frontier, cw1, cw2, table_perm, sched, f_lv, s_lv, cb,
     for j in range(f_lv, s_lv):
         seeds = level(seeds, j)
     nodes = table_perm.shape[-2] // cb
+    seeds = seeds[:, s0:s0 + nodes]
     g = choose_group(nodes, cb)
     acc = torch.zeros((frontier.shape[0], table_perm.shape[-1]),
                       dtype=torch.int32, device=frontier.device)
@@ -246,8 +257,10 @@ def _contract_plain(frontier, cw1, cw2, table_perm, sched, f_lv, s_lv, cb,
 
 
 def _contract_cuda(frontier, cw1, cw2, table_perm, sched, f_lv, cb,
-                   prf_method) -> torch.Tensor:
-    """Launch K2 over the (arity, offset) schedule -> [B, E] int32."""
+                   prf_method, window=None) -> torch.Tensor:
+    """Launch K2 over the (arity, offset) schedule -> [B, E] int32;
+    ``window`` (s0, log_n): 2^log_n block subtrees from s0, the table
+    holding their rows."""
     if frontier.device.type != "cuda":
         raise ValueError("subtree_contract: unsupported device %s"
                          % frontier.device)
@@ -256,13 +269,17 @@ def _contract_cuda(frontier, cw1, cw2, table_perm, sched, f_lv, cb,
     off = (ctypes.c_int * levels)(*(o for _, o in sched))
     bsz, e = frontier.shape[0], table_perm.shape[-1]
     out = torch.zeros((bsz, e), dtype=torch.int32, device=frontier.device)
+    args = (frontier.data_ptr(), cw1.data_ptr(), cw2.data_ptr(),
+            table_perm.data_ptr(), out.data_ptr(), bsz, frontier.shape[1],
+            levels, lg, off, f_lv, cb.bit_length() - 1, e, prf_method)
+    stream = torch.cuda.current_stream().cuda_stream
     with torch.cuda.device(frontier.device):
-        cuda_build.launch(
-            "subtree", "subtree_contract_launch", frontier.data_ptr(),
-            cw1.data_ptr(), cw2.data_ptr(), table_perm.data_ptr(),
-            out.data_ptr(), bsz, frontier.shape[1], levels, lg, off, f_lv,
-            cb.bit_length() - 1, e, prf_method, int(table_perm.dim() == 3),
-            torch.cuda.current_stream().cuda_stream)
+        if window is None:
+            cuda_build.launch("subtree", "subtree_contract_launch", *args,
+                              int(table_perm.dim() == 3), stream)
+        else:
+            cuda_build.launch("subtree", "subtree_contract_window_launch",
+                              *args, window[0], window[1], stream)
     return out
 
 
@@ -371,6 +388,93 @@ def subtree_contract_mixed(frontier, cw1, cw2, table_perm, *, ars,
 
 subtree_contract_mixed.launches = 0
 subtree_contract_mixed.launches_pkt = 0
+
+
+def _window_split(root, cw1, cw2, table, sched, row0, prf_method,
+                  block_leaves):
+    """Checks of the leaf-range form -> (s_lv, CB, pieces): block
+    subtrees of CB leaves (the largest product of trailing arities of at
+    most ``block_leaves`` and 4096 dividing ``row0`` and the rows) from
+    eval level s_lv, in pieces (first block, log2 blocks) of power-of-two
+    block counts."""
+    sched = [(int(a), int(o)) for a, o in sched]
+    ars = tuple(a for a, _ in sched)
+    _operands(root, cw1, cw2, table, prf_method)
+    if root.shape[1] != 1 or table.dim() != 2:
+        raise ValueError("a leaf range takes the root [B, 1, 4] and one "
+                         "[rows, E] table, got %s and %s"
+                         % (tuple(root.shape), tuple(table.shape)))
+    rows = table.shape[0]
+    n = int(np.prod(ars, dtype=np.int64))
+    if rows < 1 or row0 < 0 or row0 + rows > n or len(ars) > 32 or \
+            any(a not in (2, 4) for a in ars) or sum(ars) > 64:
+        raise ValueError("leaf range [%d, %d) of a tree of %d leaves "
+                         "(arities %r)" % (row0, row0 + rows, n, ars))
+    target = min(block_leaves or MAX_BLOCK_LEAVES, MAX_BLOCK_LEAVES)
+    while True:
+        j, cb = _suffix_chunk(ars, target)
+        if (row0 % cb == 0 and rows % cb == 0) or cb <= ars[-1]:
+            break
+        target = cb - 1
+    if row0 % cb or rows % cb or cb > MAX_BLOCK_LEAVES:
+        raise ValueError("leaf range [%d, %d) is not whole blocks of "
+                         "trailing arities %r" % (row0, row0 + rows, ars))
+    pieces, first, count = [], row0 // cb, rows // cb
+    for k in reversed(range(count.bit_length())):
+        if count >> k & 1:
+            pieces.append((first, k))
+            first += 1 << k
+    return sched, j, cb, pieces
+
+
+def subtree_contract_window_plain(root, cw1, cw2, table, *, sched,
+                                  row0: int, prf_method: int,
+                                  block_leaves: int | None = None,
+                                  radix: int = 2) -> torch.Tensor:
+    """Plain PyTorch over a leaf range (``_contract_plain`` from the
+    root, the block subtrees of the range only); ``radix`` is only
+    counted by the kernel's wrapper."""
+    sched, j, cb, pieces = _window_split(root, cw1, cw2, table, sched, row0,
+                                         prf_method, block_leaves)
+    return _contract_plain(root.contiguous(), cw1, cw2, table, sched, 0, j,
+                           cb, prf_method, s0=row0 // cb)
+
+
+def subtree_contract_window(root, cw1, cw2, table, *, sched, row0: int,
+                            prf_method: int, block_leaves: int | None = None,
+                            radix: int = 2) -> torch.Tensor:
+    """K2 over a leaf range: the leaf-range form of ``subtree_contract``
+    and ``subtree_contract_mixed`` (a mesh shard, a cluster granule).
+
+    ``root`` ``[B, 1, 4]`` holds the keys' root seeds, ``sched`` the
+    (arity, first codeword slot) of every eval level of the whole tree,
+    ``table`` the ``[rows, E]`` rows ``[row0, row0 + rows)`` of the
+    permuted table.  Each launch takes a power-of-two run of consecutive
+    block subtrees (``csrc/subtree.cu``'s window entry: the first block
+    and the count), each block walking from the root to its own subtree
+    root as in the full-table launch, so no level above the blocks runs
+    anywhere else.  ``block_leaves`` (None = 4096) is rounded down to a
+    product of trailing arities dividing ``row0`` and the rows.  Launches
+    count on ``subtree_contract`` (``radix`` 2) or
+    ``subtree_contract_mixed``.  Returns [B, E] int32."""
+    if root.device.type == "cpu":
+        return subtree_contract_window_plain(
+            root, cw1, cw2, table, sched=sched, row0=row0,
+            prf_method=prf_method, block_leaves=block_leaves)
+    sched, _, cb, pieces = _window_split(root, cw1, cw2, table, sched, row0,
+                                         prf_method, block_leaves)
+    root = root.contiguous()
+    _check_layout(root, cw1, cw2, table)
+    counter = subtree_contract if radix == 2 else subtree_contract_mixed
+    acc, r = None, 0
+    for s0, k in pieces:
+        tb = table[r:r + (cb << k)]
+        r += cb << k
+        out = _contract_cuda(root, cw1, cw2, tb, sched, 0, cb, prf_method,
+                             window=(s0, k))
+        counter.launches += 1
+        acc = out if acc is None else acc + out
+    return acc
 
 
 def chacha_level_step_plain(seeds: torch.Tensor, cw1_lvl: torch.Tensor,

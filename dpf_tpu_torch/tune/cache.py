@@ -14,7 +14,6 @@ misses}``, every store ``tuning_stores``.  Writes are atomic (a temporary
 file, then a rename) and merge on save: concurrent tuners lose at worst
 their own last write.  A lookup on behalf of a server passes the
 server's device, so the key's device half is that device's fingerprint.
-``lookup_mesh_knobs`` comes with the port's multi-GPU item.
 """
 
 from __future__ import annotations
@@ -177,6 +176,18 @@ def lookup_eval_knobs(*, n: int, entry_size: int, batch: int,
     return _lookup("lookup_eval_knobs", "eval", n=n, entry_size=entry_size,
                    batch=batch, prf_method=prf_method, scheme=scheme,
                    radix=radix, device=device)
+
+
+def lookup_mesh_knobs(*, n: int, entry_size: int, batch: int,
+                      prf_method: int, mesh: str, scheme: str = "logn",
+                      radix: int = 2, device=None) -> dict | None:
+    """Tuned mesh-path knobs (``mesh_tune.tune_mesh_eval``: per-shard
+    ``chunk_leaves`` / ``row_chunk``, ``psum_group``) for this shape on
+    ``device``'s hardware and this mesh split (``mesh`` =
+    ``fingerprint.mesh_tag``)."""
+    return _lookup("lookup_mesh_knobs", "mesh", n=n, entry_size=entry_size,
+                   batch=batch, prf_method=prf_method, scheme=scheme,
+                   radix=radix, mesh=mesh, device=device)
 
 
 def lookup_kernel_variant(*, n: int, entry_size: int, batch: int,

@@ -13,9 +13,9 @@ key has two halves:
 * ``shape_key()``: (N, E, B, prf, scheme, radix), ``dpf_tpu``'s grammar
   byte for byte.
 
-``cache_key(kind, ...)`` joins both as ``<kind>|<device>|<shape>``.
-``mesh_tag`` and the mesh-tagged shapes come with the port's multi-GPU
-item; ``shape_key``'s ``mesh`` argument keeps the grammar.
+``cache_key(kind, ...)`` joins both as ``<kind>|<device>|<shape>``;
+the mesh-path kinds (``mesh``, ``meshsplit``, mesh-tagged ``serve``,
+``cluster``) add ``.m<mesh_tag>`` to the shape.
 """
 
 from __future__ import annotations
@@ -63,6 +63,22 @@ def shape_key(*, n: int, entry_size: int, batch: int, prf_method: int,
     if mesh is not None:
         key += ".m%s" % mesh
     return key
+
+
+def mesh_tag(mesh) -> str:
+    """The mesh half of a mesh-path key (``dpf_tpu``'s grammar):
+    ``<n_batch>x<n_table>``, with ``b<n_byte>`` after it for a 2D mesh
+    whose byte axis is larger than 1; any other layout tags as
+    ``<axis><size>`` pairs in axis order.  A mesh of one card repeated
+    tags like one of distinct cards: the device half of the key tells
+    the machines apart, not how the mesh placed its shards."""
+    shape = dict(mesh.shape)
+    if set(shape) == {"batch", "table"}:
+        return "%dx%d" % (shape["batch"], shape["table"])
+    if set(shape) == {"batch", "table", "byte"}:
+        tag = "%dx%d" % (shape["batch"], shape["table"])
+        return tag if shape["byte"] == 1 else tag + "b%d" % shape["byte"]
+    return "x".join("%s%d" % (a, shape[a]) for a in mesh.axis_names)
 
 
 def cache_key(kind: str, *, n: int, entry_size: int, batch: int,

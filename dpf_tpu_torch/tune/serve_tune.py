@@ -13,8 +13,12 @@ SchemeRouter`` (ladder x in-flight x EWMA alpha), every routed answer
 gated against the scalar oracle, the winner under ``router|...``, which
 ``SchemeRouter(buckets=None)`` and ``TenantRouter`` read back.
 ``cached_cost_table`` seeds a cost table from a scheme-sweep entry.
-The cluster tier (``tune_cluster``, ``lookup_cluster_knobs``,
-``cluster_cache_key``) comes with the port's multi-GPU item.
+``tune_cluster`` tunes the cluster front end's scatter knobs
+(``parallel.cluster.ClusterRouter``), the winner under ``cluster|...``
+with the host count in the mesh slot, which ``ClusterRouter.local``
+reads back (``lookup_cluster_knobs``).  A mesh server's shape carries
+its mesh split (``fingerprint.mesh_tag``), so mesh serving knobs
+(``mesh_tune.tune_mesh_serving``) never answer a one-device server.
 
 Makespans are the host clock from the first submit to the last result
 (each result waits on its part's CUDA event), best of ``reps``.
@@ -72,16 +76,22 @@ def resolve_trace(cap: int, trace=None, trace_kind: str | None = None,
 
 
 def serve_shape_of(server) -> dict:
-    """The cache-key shape fields of a prepared server, and its device
-    (the key's device half)."""
+    """The cache-key shape fields of a prepared server (``api.DPF`` or
+    ``ShardedDPFServer``: then with its mesh split), and its device (the
+    key's device half)."""
     n = getattr(server, "table_num_entries", None) or server.n
     e = (getattr(server, "table_effective_entry_size", None)
          or getattr(server, "entry_size"))
-    return {"n": int(n), "entry_size": int(e),
-            "prf_method": server.prf_method,
-            "scheme": getattr(server, "scheme", "logn"),
-            "radix": getattr(server, "radix", 2),
-            "device": getattr(server, "device", None)}
+    shape = {"n": int(n), "entry_size": int(e),
+             "prf_method": server.prf_method,
+             "scheme": getattr(server, "scheme", "logn"),
+             "radix": getattr(server, "radix", 2),
+             "device": getattr(server, "device", None)}
+    mesh = getattr(server, "mesh", None)
+    if mesh is not None:
+        from .fingerprint import mesh_tag
+        shape["mesh"] = mesh_tag(mesh)
+    return shape
 
 
 def lookup_serve_knobs(server, cap: int,
@@ -379,6 +389,131 @@ def tune_router(table, *, prf_method: int = 0, cap: int | None = None,
         },
         "fingerprint": device_fingerprint(dev),
         "gated": True,  # every routed answer matched the eval_cpu oracle
+    }
+    cache.store(key, record)
+    return {**record, "searched": True}
+
+
+# -------------------------------------------------------- cluster scatter
+
+def cluster_cache_key(*, n: int, entry_size: int, batch: int,
+                      prf_method: int, hosts: int, device=None) -> str:
+    """Tuning-cache key of the cluster scatter knobs: the host count in
+    the mesh slot (``h<H>``), ``dpf_tpu``'s grammar."""
+    return cache_key("cluster", n=n, entry_size=entry_size, batch=batch,
+                     prf_method=prf_method, scheme="logn", radix=2,
+                     mesh="h%d" % int(hosts), device=device)
+
+
+def lookup_cluster_knobs(*, n: int, entry_size: int, hosts: int,
+                         prf_method: int, cap: int,
+                         cache: TuningCache | None = None,
+                         device=None) -> dict | None:
+    """Tuned (buckets, max_in_flight) of this cluster shape on
+    ``device``'s hardware, or None.  Never raises."""
+    try:
+        cache = cache if cache is not None else default_cache()
+        rec = cache.lookup(cluster_cache_key(
+            n=int(n), entry_size=int(entry_size), batch=int(cap),
+            prf_method=int(prf_method), hosts=int(hosts), device=device))
+        return rec.get("knobs") if rec else None
+    except Exception as e:  # the cache must never break serving
+        from ..utils.profiling import note_swallowed
+        note_swallowed("tune.serve_tune.lookup_cluster_knobs", e)
+        return None
+
+
+def tune_cluster(table, *, hosts: int = 2, prf_method: int = 0,
+                 cap: int | None = None, trace=None,
+                 trace_kind: str | None = None,
+                 trace_kw: dict | None = None, in_flight=(1, 2),
+                 ladders=None, reps: int = 2, distinct: int = 8,
+                 cache: TuningCache | None = None, force: bool = False,
+                 log=None, device=None) -> dict:
+    """Grid-search (bucket ladder x ``max_in_flight``) for an in-process
+    ``parallel.cluster.ClusterRouter`` over ``table`` (the scatter and
+    merge code the multi-process tier runs), every merged answer of
+    every rep gated against the scalar oracle (``DPF.eval_cpu``); the
+    winner persists under ``cluster|...``.  An explicit trace always
+    measures again."""
+    from ..api import DPF, resolve_device
+    from ..parallel.cluster import ClusterRouter
+    from ..serve.buckets import Buckets
+
+    cache = cache if cache is not None else default_cache()
+    table = np.asarray(table, dtype=np.int32)
+    n, entry_size = table.shape
+    cap = int(cap or min(DPF.BATCH_SIZE, 512))
+    dev = resolve_device(device)
+    key = cluster_cache_key(n=n, entry_size=entry_size, batch=cap,
+                            prf_method=prf_method, hosts=hosts, device=dev)
+    if not force and trace is None and trace_kind is None:
+        rec = cache.lookup(key)
+        if rec is not None:
+            return {**rec, "searched": False}
+    trace = resolve_trace(cap, trace, trace_kind, trace_kw)
+    if max(trace) > cap:
+        raise ValueError("trace batch %d exceeds cap %d" % (max(trace), cap))
+    total = sum(trace)
+    oracle = DPF(prf=prf_method, device="cpu")
+    oracle.eval_init(table)
+    ks = [oracle.gen((i * 0x9E3779B1) % n, n,
+                     seed=b"cluster-tune-%d" % i)[0]
+          for i in range(distinct)]
+    refs = oracle.eval_cpu(ks).numpy()
+    stream = [([ks[(j + i) % distinct] for i in range(b)],
+               [(j + i) % distinct for i in range(b)])
+              for j, b in enumerate(trace)]
+    best = None
+    tried = rejected = 0
+    for ladder in (ladders if ladders is not None
+                   else Buckets.ladder_candidates(cap)):
+        for mif in in_flight:
+            ladder, mif = tuple(ladder), int(mif)
+            tried += 1
+            try:
+                elapsed, stats = float("inf"), None
+                for _ in range(reps):
+                    c = ClusterRouter.local(
+                        table, hosts=hosts, prf_method=prf_method,
+                        buckets=ladder, engine_kw={"max_in_flight": mif},
+                        device=dev)
+                    c.warmup()
+                    t0 = time.perf_counter()
+                    outs = [(idxs, c.submit(keys)) for keys, idxs in stream]
+                    for _, fut in outs:
+                        fut.result()
+                    rep_s = time.perf_counter() - t0
+                    if rep_s < elapsed:
+                        elapsed, stats = rep_s, c.stats()
+                    for idxs, fut in outs:    # gate every rep's answers
+                        if not np.array_equal(fut.result(), refs[idxs]):
+                            raise AssertionError("merged shares diverged")
+            except Exception as exc:
+                rejected += 1
+                if log:
+                    log("  reject (%s): %s mif=%d"
+                        % (type(exc).__name__, ladder, mif))
+                continue
+            if log:
+                log("  ladder=%s mif=%d -> %d qps"
+                    % (list(ladder), mif, int(total / elapsed)))
+            if best is None or elapsed < best[0]:
+                best = (elapsed, ladder, mif, stats)
+    if best is None:
+        raise AssertionError("no cluster candidate passed the gate")
+    elapsed, ladder, mif, stats = best
+    record = {
+        "knobs": {"buckets": list(ladder), "max_in_flight": mif},
+        "measured": {
+            "elapsed_s": round(elapsed, 6),
+            "qps": int(total / elapsed),
+            "trace": trace, "cap": cap, "hosts": hosts, "reps": reps,
+            "candidates_tried": tried, "rejected": rejected,
+            "cluster_stats": stats,
+        },
+        "fingerprint": device_fingerprint(dev),
+        "gated": True,  # every merged share matched the eval_cpu oracle
     }
     cache.store(key, record)
     return {**record, "searched": True}

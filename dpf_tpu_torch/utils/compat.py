@@ -6,9 +6,9 @@ whether the Pallas sqrt-N grid kernel can run (a TPU backend); here
 whether K4, the sqrt-N grid kernel (``ops/sqrt_grid.py``), can run on
 the given device: a CUDA device that is present and, for a PRF id and
 grid, ``sqrt_grid_unsupported`` with nothing to object.  It never
-initializes CUDA when the device is the CPU.  ``device_memory_stats``
-and ``has_cpu_multiprocess`` come with the port's planning and
-multi-GPU items.
+initializes CUDA when the device is the CPU.  ``has_cpu_multiprocess``
+says whether CPU processes can form a process group here.
+``device_memory_stats`` comes with the port's planning item.
 """
 
 from __future__ import annotations
@@ -27,3 +27,11 @@ def has_pallas_sqrt_kernel(device=None, prf_method: int | None = None,
         return True
     from ..ops.sqrt_grid import sqrt_grid_unsupported
     return sqrt_grid_unsupported(prf_method, r, row0) is None
+
+
+def has_cpu_multiprocess() -> bool:
+    """True when processes on this machine can join a gloo process group
+    (``torch.distributed`` built with gloo): the multi-process mesh of
+    ``parallel/multihost.py`` on CPU devices, or ranks sharing a card."""
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_gloo_available()

@@ -526,6 +526,65 @@ def test_subtree_mixed_kernel_on_host_rejects_bad_schedule(
                            z[:1, 0, :1], sched, 0, log_cb, prf) != 0
 
 
+@pytest.mark.parametrize("method", subtree.SUBTREE_PRFS)
+@pytest.mark.parametrize("radix,depth,row0,rows,bsz,cb,e", [
+    (2, 9, 128, 384, 3, 32, 5),    # 12 blocks from block 4: pieces 8, 4
+    (2, 10, 256, 256, 2, 256, 16),  # one block-aligned quarter
+    (2, 8, 16, 112, 5, 16, 3),     # 7 blocks: pieces 4, 2, 1
+    (4, 10, 256, 768, 3, 64, 4),   # radix 4: 3 of 4 level-1 subtrees
+    (4, 9, 64, 320, 2, 16, 17),    # odd depth: 20 blocks from block 4
+    (2, 7, 0, 128, TB + 1, 128, 2),  # the whole tree as one window
+])
+def test_subtree_window_kernel_on_host(host_libs, method, radix, depth,
+                                       row0, rows, bsz, cb, e):
+    """K2's leaf-range form: each power-of-two run of block subtrees is
+    one launch of the shared-table kernel from the root; the sum equals
+    the plain version."""
+    from dpf_tpu_torch.parallel.sharded import tree_levels
+    rng = np.random.default_rng(depth * 100 + row0 + method)
+    ars, offs = tree_levels(1 << depth, radix)
+    sched = list(zip(ars, offs))
+    root = _rnd(rng, bsz, 1, 4)
+    cw1, cw2, tbl = _rnd(rng, bsz, 64, 4), _rnd(rng, bsz, 64, 4), \
+        _rnd(rng, rows, e)
+    sched, _, cbk, pieces = subtree._window_split(
+        root, cw1, cw2, tbl, sched, row0, method, cb)
+    assert cbk == cb
+    lg = (ctypes.c_int * len(sched))(*(a.bit_length() - 1 for a, _ in sched))
+    off = (ctypes.c_int * len(sched))(*(o for _, o in sched))
+    got = torch.zeros(bsz, e, dtype=torch.int32)
+    r = 0
+    for s0, k in pieces:
+        tb = tbl[r:r + (cb << k)]
+        r += cb << k
+        out = torch.zeros(bsz, e, dtype=torch.int32)
+        assert host_libs["subtree"].subtree_contract_window_launch(
+            root.data_ptr(), cw1.data_ptr(), cw2.data_ptr(), tb.data_ptr(),
+            out.data_ptr(), bsz, 1, len(sched), lg, off, 0,
+            cb.bit_length() - 1, e, method, s0, k, None) == 0
+        got += out
+    assert torch.equal(got, subtree.subtree_contract_window_plain(
+        root, cw1, cw2, tbl, sched=sched, row0=row0, prf_method=method,
+        block_leaves=cb))
+    if row0 == 0 and rows == 1 << depth:      # the whole tree: K2's own
+        assert torch.equal(got, subtree.subtree_contract_plain(
+            root, cw1, cw2, tbl, depth=depth, f_levels=0, prf_method=method,
+            block_leaves=cb))
+
+
+def test_subtree_window_kernel_on_host_rejects(host_libs):
+    z = torch.zeros(1, 64, 4, dtype=torch.int32)
+    sched = subtree._binary_schedule(8)
+    lg = (ctypes.c_int * 8)(*([1] * 8))
+    off = (ctypes.c_int * 8)(*(o for _, o in sched))
+    lib = host_libs["subtree"]
+    for s0, log_n in ((0, -1), (-1, 1), (15, 1), (0, 5)):   # 16 blocks
+        assert lib.subtree_contract_window_launch(
+            z.data_ptr(), z.data_ptr(), z.data_ptr(), z.data_ptr(),
+            z.data_ptr(), 1, 1, 8, lg, off, 0, 4, 1, 2, s0, log_n,
+            None) != 0
+
+
 def _sqrt_launch(lib, seeds, cw1, cw2, tbl, out, rc, row0, method):
     return lib.sqrt_grid_launch(
         seeds.data_ptr(), seeds.stride(0), cw1.data_ptr(), cw2.data_ptr(),

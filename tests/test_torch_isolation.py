@@ -52,6 +52,14 @@ def test_import_loads_no_jax_and_no_dpf_tpu():
             "dpf_tpu_torch.tune.kernel_search, "
             "dpf_tpu_torch.tune.serve_tune, dpf_tpu_torch.utils.compat, "
             "dpf_tpu_torch.obs.bench_trace; "
+            "import dpf_tpu_torch.parallel, dpf_tpu_torch.parallel.sharded, "
+            "dpf_tpu_torch.parallel.multihost, "
+            "dpf_tpu_torch.parallel.cluster, "
+            "dpf_tpu_torch.parallel.cluster_net, "
+            "dpf_tpu_torch.parallel.cluster_worker, "
+            "dpf_tpu_torch.tune.mesh_tune, dpf_tpu_torch.utils.hermetic, "
+            "dpf_tpu_torch.serve.bench_multichip, "
+            "dpf_tpu_torch.serve.bench_multihost; "
             "print('\\n'.join(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
@@ -100,7 +108,16 @@ def test_sources_import_no_jax_and_no_dpf_tpu():
                  "dpf_tpu_torch/tune/kernel_search.py",
                  "dpf_tpu_torch/tune/serve_tune.py",
                  "dpf_tpu_torch/utils/compat.py",
-                 "dpf_tpu_torch/obs/bench_trace.py"):
+                 "dpf_tpu_torch/obs/bench_trace.py",
+                 "dpf_tpu_torch/parallel/sharded.py",
+                 "dpf_tpu_torch/parallel/multihost.py",
+                 "dpf_tpu_torch/parallel/cluster.py",
+                 "dpf_tpu_torch/parallel/cluster_net.py",
+                 "dpf_tpu_torch/parallel/cluster_worker.py",
+                 "dpf_tpu_torch/tune/mesh_tune.py",
+                 "dpf_tpu_torch/utils/hermetic.py",
+                 "dpf_tpu_torch/serve/bench_multichip.py",
+                 "dpf_tpu_torch/serve/bench_multihost.py"):
         assert part in walked, part
     bad = []
     for path in files:
