@@ -116,7 +116,7 @@ Phases (any failure raises and the script exits non-zero):
    1.5 of the time and its OFF windows 0.3 (by its probed per-bucket
    costs), sticky, router and shed
    (slo 250 ms, max_queue_depth 8, a client window of 64 so that the
-   depth bound can trip) legs of about 10 s, qps, p50 / p99
+   depth bound can trip) legs of about 6 s, qps, p50 / p99
    and sheds, every served batch gated against ``eval_cpu`` with 0
    rejections.
 8. tables and tenants (``serve.registry``, ``serve.tenant``, the chaos
@@ -241,6 +241,33 @@ Phases (any failure raises and the script exits non-zero):
    ChaCha20 on the 1 x 4 mesh (0 rejected, 0 gate escapes), then a
    short ``bench_multichip`` (65536 x 16, two entries of the card) and
    ``bench_multihost`` (65536 x 16, two worker processes, AES-128).
+13. the last modules (``last_modules_phase``), each part's counts set to
+   0 just before it and read just after: (1) batch-PIR on meshes of the
+   card repeated: phase 9's table (2^20 x 16 in 256 bins of 4096) on a
+   1 x 4 and a 2 x 2 mesh, the three constructions x AES-128 and
+   ChaCha20, every meshed ``answer`` equal to the one-device server's,
+   two meshed servers recovering every planned row, the per-key kernel
+   (K6 after K1 for AES) launched once an entry and group and no
+   shared-table K2, K3 or K4, 6 rounds through the 1 x 4 mesh's
+   ``LookupStream`` equal to ``answer``, the warm round's ms beside the
+   one device's (no gain claimed); then 2^16 x 16 in 37 bins, a group
+   that zero bins pad to 40; (2) planning: ``device_memory_stats``
+   (``bytes_limit`` = ``mem_get_info``'s total) and
+   ``detect_hbm_budget`` on the card, ``plan.bench_plan.plan_bench`` at
+   2^20 x 16, cap 512, AES-128, key pools of 8, its ON windows keeping
+   the sticky engine 1.5 busy by its probed costs, 4 s traces and one
+   rep (0 gate rejections, a monotone planner and the real-engine
+   autoscale leg raised on; the twin's fidelity and autoscale verdicts
+   printed as measured), and ``plan_fleet`` for 10^9 rows x 16 words at
+   the card's own budget; (3) ``serve.bench_bigtable.bigtable_bench`` at
+   2^20 x 16, cap 512, AES-128: 2 hosts x 4 granules of 8 MiB under a
+   budget of 2 (0 gate escapes, misses on every store, and
+   ``memory_allocated`` moving by 0 while the paged hosts are built and
+   by exactly the held granules when they demote, all raised on; the
+   prefetch race's p99 verdict printed as measured), the 2D mesh leg on
+   ``cuda:0`` repeated; (4) ``python -m dpf_tpu_torch.benchmark --plan
+   --dryrun`` and ``--bigtable --dryrun`` in two processes at once,
+   each exiting 0.
 
 The last lines are the card's name and power limit, one
 ``{"kernels": [...]}`` line, and ``{"ok": true, "device": {...}}``.
@@ -468,7 +495,7 @@ def serving_phase(smi, read_counts, zero_counts, n=1 << 20,
         % n)
     rec = bench_load.load_bench(
         n=n, entry_size=16, cap=cap, prf=aes, on_rate=None, on_load=1.5,
-        off_load=0.3, duration_s=10.0, reps=1, distinct=8,
+        off_load=0.3, duration_s=6.0, reps=1, distinct=8,
         shed_queue_depth=8, shed_window=64, slo_ms=250.0, device=device,
         quiet=True)
     if rec["gate_rejections"] != 0:
@@ -1867,6 +1894,366 @@ def mesh_cluster_phase(smi, read_counts, zero_counts, n=1 << 20, batch=512,
     log("phase 12: %.1f s" % (time.perf_counter() - t12))
     return parts, records
 
+#: phase 13.1's constructions: (label, scheme, radix)
+PIR_CONSTRUCTIONS = (("binary", "logn", 2), ("radix-4", "logn", 4),
+                     ("sqrt-N", "sqrtn", 2))
+#: the per-key kernel each construction launches once an entry and group,
+#: by PRF id (AES: K6 after K1's levels)
+PER_KEY_KERNEL = {("logn", 2, 3): "contract_i32_per_key",
+                  ("logn", 2, 2): "subtree_contract_pkt",
+                  ("logn", 4, 3): "contract_i32_per_key",
+                  ("logn", 4, 2): "subtree_contract_mixed_pkt",
+                  ("sqrtn", 2, 3): "sqrt_grid_contract_pkt",
+                  ("sqrtn", 2, 2): "sqrt_grid_contract_pkt"}
+SHARED_KERNELS = ("subtree_contract", "subtree_contract_mixed",
+                  "contract_i32", "sqrt_grid_contract")
+
+
+def _best_ms(fn, reps: int = 3) -> float:
+    """Least host ms of ``reps`` calls of ``fn`` (each ends in a host
+    gather)."""
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, 1e3 * (time.perf_counter() - t0))
+    return best
+
+
+def last_modules_phase(smi, read_counts, zero_counts, entries=1 << 20,
+                       small_entries=1 << 16, device=None, rounds=6,
+                       plan_kw=None, fleet_rows=10 ** 9, bigtable_kw=None,
+                       cli=True) -> tuple:
+    """Phase 13, the last modules, on ``device`` (None = the card; the
+    CPU rehearses it at small sizes), each part's counts set to 0 just
+    before it and read just after; every one-device reference runs
+    before the counts are zeroed.  (1) batch-PIR on meshes: phase 9's
+    ``entries`` x 16 table in 256 bins, a 1 x 4 and a 2 x 2 mesh of the
+    device repeated, the three constructions x AES-128 and ChaCha20:
+    each meshed ``answer`` equal to the one-device server's, two meshed
+    servers recovering every planned row, the per-key kernel launched
+    once an entry and group and no shared-table K2 / K3 / K4, ``rounds``
+    rounds through the 1 x 4 mesh's ``LookupStream`` equal to
+    ``answer``; then ``small_entries`` x 16 in 37 bins (a group of 37:
+    zero bins pad it to 40); (2) planning: ``device_memory_stats`` and
+    ``detect_hbm_budget`` on the device, ``plan_bench`` (gate rejections,
+    the planner's monotonicity and the real-engine autoscale leg raised
+    on; the twin's fidelity verdicts printed as measured; on the card
+    the twin's autoscale leg must fail its availability gate and no
+    other, its known deviation) and ``plan_fleet`` for
+    ``fleet_rows`` x 16 words at the device's own budget; (3)
+    ``bigtable_bench`` (gate escapes, store misses and the paged hosts'
+    memory raised on; the prefetch race's p99 verdict printed); (4) the
+    ``--plan`` and ``--bigtable`` dry runs of ``python -m
+    dpf_tpu_torch.benchmark`` in two processes at once.  Returns
+    ({part: launch counts}, the phase's records)."""
+    import numpy as np
+
+    from dpf_tpu_torch.apps.batch_pir import (PrivateLookupClient,
+                                              PrivateLookupServer)
+    from dpf_tpu_torch.parallel import sharded
+    from dpf_tpu_torch.plan.bench_plan import plan_bench
+    from dpf_tpu_torch.plan.capacity import detect_hbm_budget, plan_fleet
+    from dpf_tpu_torch.plan.twin import CostTable
+    from dpf_tpu_torch.serve import bench_pir, loadgen
+    from dpf_tpu_torch.serve.bench_bigtable import bigtable_bench
+    from dpf_tpu_torch.utils.compat import device_memory_stats
+
+    dev = torch.device(device or "cuda")
+    cuda = dev.type == "cuda"
+    t13 = time.perf_counter()
+    parts, records = {}, {}
+    meshes = (("1x4", sharded.make_mesh(4, 1, devices=[dev] * 4)),
+              ("2x2", sharded.make_mesh(2, 2, devices=[dev] * 4)))
+
+    def exact(table, got, plan, what):
+        want = sum(t is not None for t in plan)
+        if len(got) != want or not all(
+                np.array_equal(row, table[w]) for w, row in got.items()):
+            raise AssertionError("phase 13.1 %s: recovered rows differ "
+                                 "from the table" % what)
+        return want
+
+    def launches_ok(counts, kernel, want, what):
+        if not cuda:
+            return
+        shared = {k: counts[k] for k in SHARED_KERNELS if counts[k]}
+        if counts[kernel] != want or shared:
+            raise AssertionError(
+                "phase 13.1 %s: %s launched %d times (want %d, one an "
+                "entry and group), shared-table kernels %s"
+                % (what, kernel, counts[kernel], want, shared))
+
+    # ---------------------------------------- 13.1 meshed batch-PIR
+    table, opt = bench_pir._workload(entries, 16, 1 / 256.)
+    bins = opt.hot_table_bins
+    rounds_w = bench_pir._wanted_rounds(opt, entries, rounds)
+    log("phase 13.1 meshed batch-PIR: %d x 16 table in %d bins of %d on "
+        "meshes %s of %s (repeated), 3 constructions x AES-128 / ChaCha20"
+        % (entries, len(bins), len(bins[0]),
+           ", ".join(m for m, _ in meshes), dev))
+    # the one-device references and timings, the key rounds and the
+    # 37-bin plan's references first: the counts are zeroed after them
+    refs = []
+    for label, scheme, radix in PIR_CONSTRUCTIONS:
+        for prf in (3, 2):
+            kw = dict(prf=prf, radix=radix, scheme=scheme)
+            one = PrivateLookupServer(table, bins, device=dev, **kw)
+            client = PrivateLookupClient(bins, one.bin_sizes, entry_size=16,
+                                         **kw)
+            key_rounds = [client.make_queries(w) for w in rounds_w]
+            ka = key_rounds[0][0]
+            refs.append((label, scheme, radix, prf, kw, client, key_rounds,
+                         one.answer(ka), _best_ms(lambda: one.answer(ka)),
+                         len(one._groups)))
+            del one
+            gc.collect()
+    small, sopt = bench_pir._workload(small_entries, 16,
+                                      1772 / float(small_entries))
+    sbins = sopt.hot_table_bins
+    swant = bench_pir._wanted_rounds(sopt, small_entries, 1)[0]
+    srefs = []
+    for label, scheme, radix in PIR_CONSTRUCTIONS:
+        kw = dict(prf=3, radix=radix, scheme=scheme)
+        one = PrivateLookupServer(small, sbins, device=dev, **kw)
+        client = PrivateLookupClient(sbins, one.bin_sizes, entry_size=16,
+                                     **kw)
+        ka, kb, plan = client.make_queries(swant)
+        srefs.append((label, kw, client, ka, kb, plan, one.answer(ka)))
+        del one
+
+    zero_counts()
+    rows13 = []
+    for (label, scheme, radix, prf, kw, client, key_rounds, want, one_ms,
+         groups) in refs:
+        what = "%s prf %d" % (label, prf)
+        ka, kb, plan = key_rounds[0]
+        row = dict(construction=label, prf=prf, bins=len(bins),
+                   groups=groups, one_device_ms=one_ms)
+        for mname, mesh in meshes:
+            srv_a, srv_b = (PrivateLookupServer(table, bins, mesh=mesh,
+                                                **kw) for _ in range(2))
+            before = read_counts()
+            got = srv_a.answer(ka)
+            after = read_counts()
+            launches_ok({k: after[k] - before[k] for k in after},
+                        PER_KEY_KERNEL[(scheme, radix, prf)],
+                        mesh.size * groups, "%s %s" % (what, mname))
+            if not np.array_equal(got, want):
+                raise AssertionError("phase 13.1 %s %s: the meshed answer "
+                                     "differs from the one device's"
+                                     % (what, mname))
+            row[mname + "_rows_recovered"] = exact(
+                table, client.recover(got, srv_b.answer(kb), plan), plan,
+                "%s %s" % (what, mname))
+            row[mname + "_ms"] = _best_ms(lambda: srv_a.answer(ka))
+            if mname == "1x4":
+                stream = srv_a.stream(max_in_flight=2, warmup=True)
+                futs = [(stream.submit(a), a) for a, _, _ in key_rounds]
+                for fut, a in futs:
+                    if not np.array_equal(fut.result(), srv_a.answer(a)):
+                        raise AssertionError(
+                            "phase 13.1 %s: the 1x4 mesh's stream differs "
+                            "from answer" % what)
+                row["stream_rounds"] = len(futs)
+                del stream
+            del srv_a, srv_b
+        rows13.append(row)
+        log("  %-8s prf %d: 1x4 and 2x2 answers equal the one device's, "
+            "%d rows recovered on each, %d stream rounds equal answer; "
+            "warm round ms (best of 3): one device %.3f, 1x4 %.3f, 2x2 "
+            "%.3f (no gain claimed: one card) on %s"
+            % (label, prf, row["1x4_rows_recovered"], row["stream_rounds"],
+               one_ms, row["1x4_ms"], row["2x2_ms"], smi))
+        gc.collect()
+    # zero-bin padding: a group of 37 over the 1x4 mesh
+    pads = {}
+    for label, kw, client, ka, kb, plan, want in srefs:
+        srv_a, srv_b = (PrivateLookupServer(small, sbins, mesh=meshes[0][1],
+                                            **kw) for _ in range(2))
+        got = srv_a.answer(ka)
+        if not np.array_equal(got, want):
+            raise AssertionError("phase 13.1 %s AES-128 %d bins: the 1x4 "
+                                 "mesh differs from the one device"
+                                 % (label, len(sbins)))
+        exact(small, client.recover(got, srv_b.answer(kb), plan), plan,
+              "%s %d bins" % (label, len(sbins)))
+        pads[label] = {n: (len(g.idxs), g.gpad)
+                       for n, g in srv_a._groups.items()}
+        if not any(g.gpad for g in srv_a._groups.values()):
+            raise AssertionError("phase 13.1: no zero-bin padding in %s"
+                                 % pads[label])
+    log("  %d x 16 in %d bins, AES-128, 1x4 mesh: (groups, zero bins) %s; "
+        "equal to the one device, rows recovered" % (
+            small_entries, len(sbins), pads))
+    parts["13.1 meshed batch-PIR"] = read_counts()
+    records["13.1 meshed batch-PIR"] = dict(rounds=rows13, padding=pads)
+    del srv_a, srv_b, refs, srefs
+    gc.collect()
+
+    # ------------------------------------------------- 13.2 planning
+    zero_counts()
+    stats = device_memory_stats(dev)
+    hbm = detect_hbm_budget(dev)
+    if cuda:
+        total_b = torch.cuda.mem_get_info(dev)[1]
+        if stats["bytes_limit"] != total_b or hbm is None:
+            raise AssertionError("phase 13.2: device_memory_stats %s, "
+                                 "mem_get_info total %d, budget %s"
+                                 % (stats, total_b, hbm))
+    elif stats is not None or hbm is not None:
+        raise AssertionError("phase 13.2: a CPU device has no ceiling")
+    log("phase 13.2 planning: device_memory_stats %s, detect_hbm_budget "
+        "%s on %s" % (stats, hbm, smi))
+    pkw = dict(n=entries, entry_size=16, cap=512, prf=3, on_rate=None,
+               on_load=1.5, duration_s=4.0, reps=1, distinct=8,
+               device=dev, quiet=True)
+    pkw.update(plan_kw or {})
+    rec = plan_bench(**pkw)
+    real = rec["autoscale_real"]
+    if rec["gate_rejections"] or not rec["planner"]["monotone"] or \
+            not real["ok"]:
+        raise AssertionError("phase 13.2 plan_bench: %d gate rejections, "
+                             "monotone %s, real autoscale leg %s"
+                             % (rec["gate_rejections"],
+                                rec["planner"]["monotone"], real))
+    # the twin's autoscale leg compresses its trace by the cap bucket's
+    # cost; on the card's bucket costs, which grow with the bucket, the
+    # engine death leaves no replica and the leg fails availability and
+    # no other gate.  Any other verdict is a change to look at
+    twin = rec["autoscale_twin"]
+    failed = sorted(k for k, v in twin["gates"].items() if not v)
+    if cuda and failed != ["availability"]:
+        raise AssertionError("phase 13.2 plan_bench: the twin's autoscale "
+                             "leg failed gates %s (expected availability "
+                             "alone): %s" % (failed, twin["gates"]))
+    log("  autoscale twin leg (%s): gates %s, autoscaled availability %s "
+        "and %s engine-hours against %d static replicas' %s, as measured"
+        % ("ok" if twin["ok"] else "not ok", twin["gates"],
+           twin["autoscaled"]["availability"],
+           twin["autoscaled"]["engine_hours"], twin["static_replicas"],
+           twin["static"]["engine_hours"]))
+    for leg in rec["fidelity"]["legs"]:
+        log("  fidelity %-15s (%s dispatch): real p99 %s ms, twin p99 %s "
+            "ms, real shed %.4f, twin shed %.4f: %s %s as measured"
+            % (leg["name"], rec["fidelity"]["dispatch_model"],
+               leg["real"]["p99_ms"], leg["twin"]["p99_ms"],
+               leg["real"]["shed_rate"], leg["twin"]["shed_rate"],
+               leg["gated"], "within" if leg.get("p99_within",
+                                                 leg.get("shed_within"))
+               else "outside"))
+    log("  plan_bench (%s, on_rate %.2f): worst p99 rel error %s, planner "
+        "%s replicas / %s hosts (monotone), autoscale twin saved %s "
+        "engine-hours, real ups %d downs %d, 0 gate rejections; %s"
+        % (rec["construction"], rec["trace"]["on_rate"], rec["value"],
+           rec["planner"]["replicas"], rec["planner"]["hosts"],
+           rec["autoscale_twin"]["engine_hours_saved"],
+           rec["autoscale_real"]["scale_ups"],
+           rec["autoscale_real"]["scale_downs"], smi))
+    fleet = plan_fleet(loadgen.default_bursty(512, seed=13),
+                       CostTable(rec["cost_table"]),
+                       label=rec["construction"], slo_s=0.25,
+                       table_bytes=fleet_rows * 16 * 4, device=dev)
+    log("  plan_fleet %d rows x 16 words (%d bytes) at this device's "
+        "budget (%s, %s bytes): %d hosts minimum (memory floor %d), %d "
+        "replicas" % (fleet_rows, fleet["memory"]["table_bytes"],
+                      fleet["memory"]["hbm_source"],
+                      fleet["memory"]["hbm_bytes_per_host"],
+                      fleet["hosts"],
+                      fleet["memory"]["hosts_memory_floor"],
+                      fleet["replicas"]))
+    parts["13.2 planning"] = read_counts()
+    records["13.2 planning"] = dict(
+        device_memory_stats=stats, hbm_budget=hbm,
+        plan_bench={k: rec[k] for k in (
+            "construction", "value", "trace", "cost_table", "fidelity",
+            "planner", "plan_stats", "gate_rejections", "checked")} | {
+            "autoscale_twin": {k: twin[k] for k in (
+                "ok", "gates", "trace", "static", "static_replicas",
+                "engine_hours_saved")} | {"autoscaled": {
+                    k: v for k, v in twin["autoscaled"].items()
+                    if k != "autoscale"}},
+            "autoscale_real": rec["autoscale_real"]},
+        plan_fleet=fleet)
+    gc.collect()
+
+    # ------------------------------------------------- 13.3 big table
+    # (the bench computes its references, then zeroes the counts)
+    bkw = dict(n=entries, entry_size=16, cap=512, prf=3, hosts=2,
+               granules_per_host=4, budget_granules=2, distinct=4,
+               device=dev, quiet=True, before_legs=zero_counts)
+    bkw.update(bigtable_kw or {})
+    log("phase 13.3 bigtable_bench: %d x 16, cap %d, AES-128, %d hosts x "
+        "%d granules, budget %d granules a host, on %s"
+        % (bkw["n"], bkw["cap"], bkw["hosts"], bkw["granules_per_host"],
+           bkw["budget_granules"], dev))
+    bt = bigtable_bench(**bkw)
+    paged, race = bt["paged_cluster"], bt["prefetch_race"]
+    misses = {h: st["counters"]["misses"]
+              for h, st in paged["stores"].items()}
+    mem = paged["memory"]
+    if bt["gate_escapes"] or not all(misses.values()) or \
+            (cuda and not mem["whole_granules"]) or \
+            not (paged["checked"] and bt["mesh_2d"]["checked"]
+                 and bt["plan"]["checked"]):
+        raise AssertionError("phase 13.3 bigtable_bench: %d gate escapes, "
+                             "store misses %s, memory %s, paged / mesh-2D "
+                             "/ plan checked %s" % (
+                                 bt["gate_escapes"], misses, mem,
+                                 (paged["checked"], bt["mesh_2d"]["checked"],
+                                  bt["plan"]["checked"])))
+    log("  paged cluster: %d granules of %d bytes a host under a budget of "
+        "%d bytes, availability %s, p99 %s ms, 0 gate escapes, store "
+        "misses %s, memory_allocated %s; mesh-2D %d variants equal; plan "
+        "floor %d hosts; on %s" % (
+            paged["granules_per_host"], paged["assigned_bytes_per_host"]
+            // paged["granules_per_host"], paged["budget_bytes_per_host"],
+            paged["availability"], paged["p99_ms"], misses, mem,
+            len(bt["mesh_2d"]["variants"]), bt["plan"]["hosts_memory_floor"],
+            smi))
+    log("  prefetch race p99 ms: off %s, on %s (x%s): the on side %s, as "
+        "measured; prefetch hits %d" % (
+            race["prefetch_off"]["p99_ms"], race["prefetch_on"]["p99_ms"],
+            race["p99_speedup"],
+            "does not lose" if race["checked"] else "loses",
+            race["prefetch_on"]["store"]["counters"]["prefetch_hits"]))
+    parts["13.3 big table"] = read_counts()
+    records["13.3 big table"] = {k: bt[k] for k in (
+        "table", "trace", "slo_ms", "paged_cluster", "prefetch_race",
+        "mesh_2d", "gate_escapes", "checked")} | {
+        "plan": {k: bt["plan"][k] for k in ("hosts_memory_floor",
+                                            "memory_floor_binds",
+                                            "jointly_monotone", "checked")}}
+    gc.collect()
+
+    # ------------------------------------------------------ 13.4 CLI
+    if cli:
+        t0 = time.perf_counter()
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=root)
+        extra = [] if cuda else ["--device", "cpu"]
+        procs = {flag: subprocess.Popen(
+            [sys.executable, "-m", "dpf_tpu_torch.benchmark", flag,
+             "--dryrun"] + extra, cwd=root, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for flag in ("--plan", "--bigtable")}
+        rcs = {}
+        for flag, p in procs.items():
+            out, err = p.communicate(timeout=600)
+            rcs[flag] = p.returncode
+            if p.returncode != 0 or not out.strip():
+                raise AssertionError("phase 13.4 benchmark %s --dryrun "
+                                     "exited %d: %s" % (flag, p.returncode,
+                                                        err[-2000:]))
+            json.loads(out.strip().splitlines()[-1])
+        records["13.4 CLI"] = dict(rcs=rcs,
+                                   seconds=time.perf_counter() - t0)
+        log("phase 13.4 python -m dpf_tpu_torch.benchmark --plan --dryrun "
+            "and --bigtable --dryrun (two processes at once): exit %s, "
+            "%.1f s" % (rcs, time.perf_counter() - t0))
+    log("phase 13: %.1f s" % (time.perf_counter() - t13))
+    return parts, records
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -3006,6 +3393,30 @@ def _main(t_start) -> int:
                                      "%s" % (k, part))
     by_path.update(parts)
     log(json.dumps({"phase12": mesh_cluster}, default=str))
+
+    # ------------------------------------------------- 13. the last modules
+    parts, last = last_modules_phase(smi, read_counts, zero_counts)
+    path13 = {
+        "13.1 meshed batch-PIR": ("aes_level_step", "aes_level_step_a4",
+                                  "contract_i32_per_key",
+                                  "subtree_contract_pkt",
+                                  "subtree_contract_mixed_pkt",
+                                  "sqrt_grid_contract_pkt"),
+        "13.2 planning": ("aes_level_step", "contract_i32"),
+        "13.3 big table": ("aes_level_step", "contract_i32")}
+    for part, counts in parts.items():
+        log("phase %s launches: %s" % (part, counts))
+        for k in path13[part]:
+            if counts[k] <= 0:
+                raise AssertionError("kernel %s was never launched in phase "
+                                     "%s" % (k, part))
+    shared = {k: v for k, v in parts["13.1 meshed batch-PIR"].items()
+              if k in SHARED_KERNELS and v}
+    if shared:
+        raise AssertionError("phase 13.1 launched shared-table kernels: %s"
+                             % shared)
+    by_path.update(parts)
+    log(json.dumps({"phase13": last}, default=str))
 
     meta = {
         "aes_level_step": ("dpf_tpu_torch/csrc/aes_level.cu",

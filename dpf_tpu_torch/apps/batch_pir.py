@@ -40,7 +40,19 @@ or row chunk timed on a shared table is not a per-key one.  AES and
 DUMMY take the tuning cache's live-seed chunk for the group's shape when
 it was tuned on the fused route (the per-key route expands the same
 way), re-clamped to the 64 MiB budget; ``expand.clamp_chunk`` on a cold
-cache.  ``mesh=`` raises (multi-GPU is ROADMAP Queue 1 item 9).
+cache.
+
+With ``mesh=`` (a ``parallel.sharded.Mesh``) each size group pads G with
+zero bins to the mesh's entry count and splits its ``[G + pad, n, E]``
+stack into one contiguous slice an entry, in the row-major order of the
+mesh's entries (``dpf_tpu``'s ``P(all axes)``).  Each entry's device
+holds its slice and evaluates it with its slice of the keys (the last key
+repeated into the pad rows, whose tables are zero); bins are disjoint,
+so the entries' answers are concatenated on the mesh's output device,
+never summed, and the pad rows dropped.  A group's knobs fall back to the
+mesh-tuned entry (``tune.cache.lookup_mesh_knobs``) when the one-device
+entry is absent.  A multi-process mesh (``ranks``) raises: the mesh is
+in-process, as ``dpf_tpu``'s.
 """
 
 from __future__ import annotations
@@ -320,37 +332,62 @@ def _resolve_construction(scheme: str, radix: int, n: int, group_size: int,
 
 
 def group_knobs(prf_method: int, entry_size: int, device, n: int,
-                batch: int, sch: str, rad: int) -> dict:
+                batch: int, sch: str, rad: int, mesh=None) -> dict:
     """Program knobs of one (n, G) per-key dispatch: K2's per-key block
     subtree for the stream ciphers (``subtree.pkt_block_leaves``); for
     sqrt-N a row chunk of None, resolved by K4's wrapper
     (``sqrt_grid.pkt_row_chunk``); for AES and DUMMY the live-seed chunk,
     the tuning cache's for this group's shape on ``device`` when it was
     tuned on the fused route, re-clamped (``expand.clamp_chunk``), else
-    ``clamp_chunk``'s.  None of them changes a bit."""
+    ``clamp_chunk``'s.  With a ``mesh`` the cache is read at the group's
+    padded size ``batch`` and falls back to the mesh-tuned entry of this
+    split; the geometry is each entry's, ``batch / entries`` keys a
+    launch.  None of them changes a bit."""
     from ..core import expand, radix4
     from ..ops import subtree
     if sch == "sqrtn":
         return {"row_chunk": None}
+    per = batch // (1 if mesh is None else mesh.size)
     if prf_method not in expand.SUBTREE_PRFS:
-        from ..tune.cache import lookup_eval_knobs
-        tuned = lookup_eval_knobs(
-            n=n, entry_size=entry_size, batch=batch, prf_method=prf_method,
-            scheme=sch, radix=rad, device=device) or {}
+        from ..tune.cache import lookup_eval_knobs, lookup_mesh_knobs
+        shape = dict(n=n, entry_size=entry_size, batch=batch,
+                     prf_method=prf_method, scheme=sch, radix=rad,
+                     device=device)
+        tuned = lookup_eval_knobs(**shape) or {}
+        if not tuned and mesh is not None:
+            from ..tune.fingerprint import mesh_tag
+            tuned = lookup_mesh_knobs(mesh=mesh_tag(mesh), **shape) or {}
         chunk = (tuned.get("chunk_leaves") if tuned.get(
             "kernel_impl", "fused") in ("fused", "xla") else None)
-        return {"chunk_leaves": expand.clamp_chunk(chunk, n, batch)}
+        return {"chunk_leaves": expand.clamp_chunk(chunk, n, per)}
     ars = radix4.arities(n) if rad == 4 else (2,) * (n.bit_length() - 1)
-    return {"chunk_leaves": subtree.pkt_block_leaves(batch, ars)}
+    return {"chunk_leaves": subtree.pkt_block_leaves(per, ars)}
 
 
 @dataclass
 class _SizeGroup:
     """All bins sharing one padded mini-table size n, stacked."""
     idxs: list           # bin indices, in stacked (axis 0) order
-    tables: torch.Tensor  # [G, n, E] on the device, permuted per scheme
+    tables: list         # [G + gpad, n, E] permuted per scheme: one
+    #                      tensor, or with a mesh one slice an entry
+    devices: list        # the device of each entry of ``tables``
+    gpad: int            # zero bins appended for the mesh (0 without)
     scheme: str          # construction of this group
     radix: int
+
+    @property
+    def padded(self) -> int:
+        return len(self.idxs) + self.gpad
+
+
+class _ShardStaged:
+    """One key batch staged for a meshed group: a ``StagedKeys`` an
+    entry (its slice of the padded keys)."""
+    __slots__ = ("parts", "size")
+
+    def __init__(self, parts, size):
+        self.parts = parts
+        self.size = size
 
 
 class PrivateLookupServer:
@@ -370,20 +407,29 @@ class PrivateLookupServer:
         """scheme: ``"logn"`` (the binary tree, or the radix-4 tree with
         radix=4) or ``"sqrtn"``; the client must be built with the same
         arguments; ``"auto"`` resolves each size group from the tuning
-        cache's scheme winner, else the log-N ``radix``.  ``mesh`` raises
-        (not ported).  device: where the tables live and the groups
-        evaluate (None = CUDA; ``"cpu"`` runs the kernels' plain
-        versions)."""
+        cache's scheme winner, else the log-N ``radix``.  mesh: a
+        ``parallel.sharded.Mesh`` of one process over which each size
+        group's bins split (the answers gather on its output device);
+        ``device`` is then the mesh's and must not be given.  device:
+        where the tables live and the groups evaluate without a mesh
+        (None = CUDA; ``"cpu"`` runs the kernels' plain versions)."""
         from ..api import DPF, resolve_device
         from ..core import expand, radix4
-        if mesh is not None:
-            raise ValueError("mesh= (multi-GPU batch-PIR) is not ported "
-                             "yet (ROADMAP Queue 1 item 9)")
         check_construction(scheme, radix)
+        if mesh is not None:
+            if mesh.distributed:
+                raise ValueError(
+                    "batch-PIR serves an in-process mesh; this mesh spans "
+                    "processes (ranks %s)" % sorted(set(mesh.ranks.flat)))
+            if device is not None:
+                raise ValueError("pass mesh= or device=, not both: a "
+                                 "mesh names its own devices")
         self.prf_method = DPF.DEFAULT_PRF if prf is None else prf
         self.radix = radix
         self.scheme = scheme
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = (mesh.output_device if mesh is not None
+                       else resolve_device(device))
         table = np.asarray(table, dtype=np.int32)
         self.entry_size = table.shape[1]
         self.bins = [sorted(b) for b in bins]
@@ -408,16 +454,23 @@ class PrivateLookupServer:
                 return padded[perm]
             return expand.permute_table(padded)
 
+        devices = ([self.device] if mesh is None
+                   else [mesh.devices[idx] for idx in mesh.local_entries()])
         self._groups = {}
         self._knobs = {}    # (n, batch, scheme, radix) -> group knobs
-        self._stages = {}   # n -> the pinned key buffer of ``answer``
+        self._stages = {}   # n -> the pinned key buffer(s) of ``answer``
         for n, (idxs, tbls) in by_size.items():
             sch, rad = _resolve_construction(
                 scheme, radix, n, len(idxs), self.entry_size,
                 self.prf_method, self.device)
-            stacked = np.stack([permute(t, sch, rad) for t in tbls])
+            gpad = (-len(idxs)) % len(devices)
+            stacked = np.stack([permute(t, sch, rad) for t in tbls]
+                               + [np.zeros_like(tbls[0])] * gpad)
+            g = stacked.shape[0] // len(devices)
             self._groups[n] = _SizeGroup(
-                idxs, torch.from_numpy(stacked).to(self.device), sch, rad)
+                idxs, [torch.from_numpy(stacked[s * g:(s + 1) * g]).to(dev)
+                       for s, dev in enumerate(devices)],
+                devices, gpad, sch, rad)
 
     def group_constructions(self) -> dict:
         """{bin size n: (scheme, radix)} of each size group."""
@@ -426,13 +479,15 @@ class PrivateLookupServer:
     # ------------------------------------------------------ the hot path
 
     def _group_knobs(self, n: int, batch: int, sch: str, rad: int) -> dict:
-        """Program knobs of one (n, G) dispatch (``group_knobs``),
-        memoized per (n, batch, construction)."""
+        """Program knobs of one (n, G) dispatch (``group_knobs``; ``batch``
+        is the group's padded size), memoized per (n, batch,
+        construction)."""
         key = (n, batch, sch, rad)
         knobs = self._knobs.get(key)
         if knobs is None:
             knobs = self._knobs[key] = group_knobs(
-                self.prf_method, self.entry_size, self.device, *key)
+                self.prf_method, self.entry_size, self.device, *key,
+                mesh=getattr(self, "mesh", None))
         return knobs
 
     def _decode_group(self, n: int, grp: _SizeGroup, keys):
@@ -477,46 +532,85 @@ class PrivateLookupServer:
                   else keygen.decode_keys_batched)
         return decode(arr)
 
+    def _shard_spans(self, grp: _SizeGroup) -> list:
+        """The real key rows ``(lo, hi)`` of each entry's slice of the
+        padded group: a slice past the last bin takes the last key, and
+        every slice pads to ``padded / entries`` rows by repeating its
+        last key into rows whose tables are zero."""
+        g, last = grp.padded // len(grp.tables), len(grp.idxs)
+        return [(s * g, min((s + 1) * g, last)) if s * g < last
+                else (last - 1, last) for s in range(len(grp.tables))]
+
     def _stage_group(self, grp: _SizeGroup, pk, stage=None):
         """A group's packed keys in one host buffer in the layout the
-        device takes (``api.stage_packed``)."""
+        device takes (``api.stage_packed``); with a mesh, each entry's
+        slice in a buffer of its own (``stage``: a list, one an entry)."""
         from ..api import stage_packed
-        return stage_packed(pk, pk.batch, stage, grp.scheme == "sqrtn")
+        sqrt = grp.scheme == "sqrtn"
+        if self.mesh is None:
+            return stage_packed(pk, pk.batch, stage, sqrt)
+        g = grp.padded // len(grp.tables)
+        stages = stage or [None] * len(grp.tables)
+        return _ShardStaged([stage_packed(pk.slice(lo, hi), g, st, sqrt)
+                             for (lo, hi), st in zip(self._shard_spans(grp),
+                                                     stages)], grp.padded)
 
-    def _run_group_program(self, n: int, grp: _SizeGroup, staged):
-        """Upload one staged key batch and enqueue the group's per-key
-        program; returns the ``[G, E]`` shares on the device without a
-        host wait (on the card every copy and kernel is ordered on the
-        current stream)."""
+    def _program(self, n: int, grp: _SizeGroup, staged, tables, device):
+        """Upload one staged key batch to ``device`` and enqueue the
+        group's per-key program on ``tables`` there; returns the shares
+        on the device without a host wait (on the card every copy and
+        kernel is ordered on the current stream)."""
         from ..api import _logn_planes, upload
         from ..core import expand, radix4, sqrtn
-        buf = upload(staged, self.device)
-        knobs = self._group_knobs(n, staged.size, grp.scheme, grp.radix)
+        buf = upload(staged, device)
+        knobs = self._group_knobs(n, grp.padded, grp.scheme, grp.radix)
         if grp.scheme == "sqrtn":
             pk = staged.pk
-            seeds, cw1, cw2 = sqrtn.sqrt_key_views(buf, pk.n_keys,
-                                                   pk.n_codewords)
+            seeds, cw1, cw2 = sqrtn.sqrt_key_views(
+                buf, pk.n_keys, pk.n_codewords, pad_to=staged.size)
             return sqrtn.eval_contract_per_key_tables(
-                seeds, cw1, cw2, grp.tables, prf_method=self.prf_method,
+                seeds, cw1, cw2, tables, prf_method=self.prf_method,
                 **knobs)
         cw1, cw2, last = _logn_planes(buf, staged.size)
         if grp.radix == 4:
             return radix4.expand_and_contract_per_key_tables_mixed(
-                cw1, cw2, last, grp.tables, n=n, prf_method=self.prf_method,
+                cw1, cw2, last, tables, n=n, prf_method=self.prf_method,
                 **knobs)
         return expand.expand_and_contract_per_key_tables(
-            cw1, cw2, last, grp.tables, depth=n.bit_length() - 1,
+            cw1, cw2, last, tables, depth=n.bit_length() - 1,
             prf_method=self.prf_method, **knobs)
+
+    def _gather(self, grp: _SizeGroup, outs) -> torch.Tensor:
+        """The entries' ``[G / entries, E]`` answers concatenated on the
+        output device, the pad rows dropped."""
+        from ..parallel.sharded import _to
+        if len(outs) == 1:
+            return outs[0][:len(grp.idxs)]
+        return torch.cat([_to(o, self.device)
+                          for o in outs])[:len(grp.idxs)]
+
+    def _run_group_program(self, n: int, grp: _SizeGroup, staged):
+        """Enqueue one staged key batch's group program, on each entry of
+        a mesh; returns the ``[G, E]`` shares on the (output) device
+        without a host wait."""
+        if self.mesh is None:
+            return self._program(n, grp, staged, grp.tables[0], self.device)
+        return self._gather(grp, [
+            self._program(n, grp, st, tbl, dev)
+            for st, tbl, dev in zip(staged.parts, grp.tables, grp.devices)])
 
     def _answer_stage(self, n: int):
         """The pinned key buffer of group n's ``answer`` (None on the
-        CPU): its next fill waits only for the upload that last read
-        it."""
+        CPU), one an entry with a mesh (a device that repeats in the mesh
+        gets one for each of its entries, so that no entry's fill waits
+        for another's copy): its next fill waits only for the upload that
+        last read it."""
         if self.device.type != "cuda":
             return None
         if n not in self._stages:
             from ..serve.engine import PinnedStage
-            self._stages[n] = PinnedStage()
+            self._stages[n] = (PinnedStage() if self.mesh is None else
+                               [PinnedStage() for _ in self._groups[n].tables])
         return self._stages[n]
 
     def answer(self, keys_per_bin):
@@ -542,10 +636,10 @@ class PrivateLookupServer:
 
     def answer_scalar(self, keys_per_bin):
         """The per-key path, kept as the parity oracle: per-key scalar
-        deserialize and pack, the same knobs, a host wait per size
-        group.  Same kernels, so ``answer`` must match it bit for bit."""
+        deserialize and pack, then the same staging, knobs and program as
+        ``answer``, with a host wait per size group.  Same kernels, so
+        ``answer`` must match it bit for bit."""
         from ..core import expand, keygen, radix4, sqrtn
-        from ..core.u32 import from_u32
         if len(keys_per_bin) != len(self.bins):
             raise ValueError("expected one key per bin (%d bins), got %d"
                              % (len(self.bins), len(keys_per_bin)))
@@ -562,27 +656,16 @@ class PrivateLookupServer:
                 if k.n != n:
                     raise ValueError("key for bin %d (bin size %d) got n=%d"
                                      % (bi, n, k.n))
-            knobs = self._group_knobs(n, len(keys), grp.scheme, grp.radix)
             if grp.scheme == "sqrtn":
-                seeds, cw1, cw2 = (from_u32(a).to(self.device)
-                                   for a in sqrtn.pack_sqrt_keys(parsed))
-                shares = sqrtn.eval_contract_per_key_tables(
-                    seeds, cw1, cw2, grp.tables, prf_method=self.prf_method,
-                    **knobs)
+                pk = sqrtn.PackedSqrtKeys(*sqrtn.pack_sqrt_keys(parsed), n)
             else:
-                pack = (radix4.pack_mixed_keys if grp.radix == 4
-                        else expand.pack_keys)
-                cw1, cw2, last = (from_u32(a).to(self.device)
-                                  for a in pack(parsed))
-                if grp.radix == 4:
-                    shares = radix4.expand_and_contract_per_key_tables_mixed(
-                        cw1, cw2, last, grp.tables, n=n,
-                        prf_method=self.prf_method, **knobs)
-                else:
-                    shares = expand.expand_and_contract_per_key_tables(
-                        cw1, cw2, last, grp.tables, depth=n.bit_length() - 1,
-                        prf_method=self.prf_method, **knobs)
-            out[grp.idxs] = shares.cpu().numpy()
+                pk = keygen.PackedKeys(*(radix4.pack_mixed_keys
+                                         if grp.radix == 4
+                                         else expand.pack_keys)(parsed),
+                                       depth=n.bit_length() - 1, n=n)
+            staged = self._stage_group(grp, pk)
+            out[grp.idxs] = self._run_group_program(
+                n, grp, staged).cpu().numpy()
         return out
 
     # ------------------------------------------------------- streaming
@@ -601,15 +684,17 @@ class _GroupStreamServer:
     server: the engine's ``_decode_batch``, ``_stage_packed`` and
     ``_dispatch_packed`` plus the shape attributes it reads.  A group's
     batch is always one key per bin, G keys, and the engine's one bucket
-    is at least G (its warmup keys are a whole bucket): staging keeps
-    the first G keys, and the dispatch runs the same program as
-    ``answer``."""
+    is at least the group's mesh-padded size (its warmup keys are a whole
+    bucket): staging keeps the first G keys, and the dispatch runs the
+    same program as ``answer``.  On a mesh each of the engine's pinned
+    slots stands for one slot an entry."""
 
     def __init__(self, owner: PrivateLookupServer, n: int,
                  grp: _SizeGroup):
         self._owner = owner
         self._grp = grp
         self._g = len(grp.idxs)
+        self._slots = {}                # engine slot -> one an entry
         self.table_num_entries = n
         self.table_effective_entry_size = owner.entry_size
         self.device = owner.device
@@ -622,6 +707,12 @@ class _GroupStreamServer:
                                          keys)
 
     def _stage_packed(self, pk, size, stage=None):
+        if stage is not None and self._owner.mesh is not None:
+            from ..serve.engine import PinnedStage
+            if stage not in self._slots:
+                self._slots[stage] = [PinnedStage()
+                                      for _ in self._grp.tables]
+            stage = self._slots[stage]
         return self._owner._stage_group(self._grp, pk.slice(0, self._g),
                                         stage)
 
@@ -630,8 +721,9 @@ class _GroupStreamServer:
                                               self._grp, staged)
 
     def resolved_eval_knobs(self, batch: int) -> dict:
-        return self._owner._group_knobs(self.table_num_entries, self._g,
-                                        self._grp.scheme, self._grp.radix)
+        return self._owner._group_knobs(self.table_num_entries,
+                                        self._grp.padded, self._grp.scheme,
+                                        self._grp.radix)
 
 
 class LookupRoundFuture:
@@ -667,8 +759,8 @@ class LookupStream:
     """Streaming batch-PIR serving: multi-round query batches pipelined
     through one ``ServingEngine`` per (n, G) size group.
 
-    Each engine owns a single shape bucket (the group's padded
-    power-of-two size), ingest is the packed group codec, and up to
+    Each engine owns a single shape bucket (the group's mesh-padded size
+    to the next power of two), ingest is the packed group codec, and up to
     ``max_in_flight`` rounds per group overlap host decode and staging
     with the card.  ``submit`` returns a ``LookupRoundFuture`` at once;
     results are bit-identical to ``PrivateLookupServer.answer``.
@@ -689,7 +781,7 @@ class LookupStream:
             adapter = _GroupStreamServer(server, n, grp)
             self._engines.append((n, grp, ServingEngine(
                 adapter, max_in_flight=max_in_flight,
-                buckets=[next_pow2(len(grp.idxs))], warmup=warmup,
+                buckets=[next_pow2(grp.padded)], warmup=warmup,
                 label="n%dxG%d" % (n, len(grp.idxs)))))
 
     def submit(self, keys_per_bin) -> LookupRoundFuture:

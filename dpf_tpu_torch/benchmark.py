@@ -14,11 +14,18 @@ line is ``nvidia-smi``'s name and power limit.  Needs one CUDA card:
 
     python -m dpf_tpu_torch.benchmark [--n N ...] [--prf ID ...] [--reps R]
 
-Two of the root ``benchmark.py``'s other modes run here too:
-``--multichip`` (``serve/bench_multichip.py``: the mesh autotune
-matrix) and ``--multihost`` (``serve/bench_multihost.py``: the serving
-cluster across a host's death); the rest of the arguments go to them.
-The others belong to modules not ported yet.
+Every other mode of the root ``benchmark.py`` (``:229-291``) runs here
+too, routed in the root's order to the port's module, the flag removed
+and the rest of the arguments passed on (``MODES``): ``--multichip``
+(the mesh autotune matrix), ``--multihost`` (the serving cluster across
+a host's death), ``--bigtable`` (paged granules, the prefetch race, 2D
+meshes, memory-aware planning), ``--batch-pir``, ``--load`` (router vs
+sticky engine under bursts), ``--chaos``, ``--multitenant``, ``--plan``
+(the digital twin against the card), ``--trace`` (tracing overhead),
+``--autotune-kernel`` (``tune.kernel_search``), ``--autotune-scheme``
+(``tune.search --scheme-sweep``), ``--autotune`` (``tune.search``) and
+``--serve``.  Each runs on the card
+unless its ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -79,14 +86,31 @@ def run_sweep(configs=None, batch: int = 512, entrysize: int = 16,
     return rows
 
 
+#: the root ``benchmark.py``'s modes in its order: (flag, the port's
+#: module whose ``main`` takes the rest of the arguments, arguments it
+#: adds)
+MODES = (("--multichip", ".serve.bench_multichip", ()),
+         ("--multihost", ".serve.bench_multihost", ()),
+         ("--bigtable", ".serve.bench_bigtable", ()),
+         ("--batch-pir", ".serve.bench_pir", ()),
+         ("--load", ".serve.bench_load", ()),
+         ("--chaos", ".serve.bench_chaos", ()),
+         ("--multitenant", ".serve.bench_multitenant", ()),
+         ("--plan", ".plan.bench_plan", ()),
+         ("--trace", ".obs.bench_trace", ()),
+         ("--autotune-kernel", ".tune.kernel_search", ()),
+         ("--autotune-scheme", ".tune.search", ("--scheme-sweep",)),
+         ("--autotune", ".tune.search", ()),
+         ("--serve", ".serve.bench_serve", ()))
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    for flag, module in (("--multichip", "bench_multichip"),
-                         ("--multihost", "bench_multihost")):
+    for flag, module, added in MODES:
         if flag in argv:
             import importlib
-            bench = importlib.import_module(".serve." + module, __package__)
-            bench.main([a for a in argv if a != flag])
+            importlib.import_module(module, __package__).main(
+                [a for a in argv if a != flag] + list(added))
             return 0
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, action="append",

@@ -20,8 +20,9 @@ registry that a scrape reads:
   / ``# HELP``, ``_total`` counter samples, ``le`` buckets, ``# EOF``)
   and ``snapshot()`` the JSON form benchmark records embed.
 
-The JAX module's ``register_cluster``, ``register_planner`` and
-``set_process_index`` wait for the port's multi-GPU and planning items.
+``register_cluster``, ``register_planner`` and ``set_process_index``
+cover the cluster tier and the planner (``plan/``), whose counters the
+planning bench registers.
 """
 
 from __future__ import annotations
@@ -639,6 +640,33 @@ def register_tenants(tenant_router,
                             float(getattr(ts, f))))
         return out
     reg.watch(tenant_router, emit)
+
+
+def register_planner(stats, registry: MetricsRegistry | None = None):
+    """Export the planning tier's counters (``plan/twin.PLAN_STATS``, or
+    any object with the same attributes) as ``dpf_plan_*`` series
+    (weakly held; the plan package owns the singleton, so it stays live
+    for the process).  The plan package imports neither torch nor obs;
+    the planner's process calls this after importing both."""
+    reg = registry or REGISTRY
+
+    def emit(s):
+        out = []
+        for f in ("twin_runs", "sim_arrivals", "sim_sheds", "sweeps",
+                  "scale_ups", "scale_downs"):
+            out.append(("dpf_plan_" + f, "counter",
+                        "PlannerStats." + f, {},
+                        float(getattr(s, f))))
+        if s.last_p99_ms is not None:
+            out.append(("dpf_plan_last_p99_ms", "gauge",
+                        "p99 of the most recent twin run", {},
+                        float(s.last_p99_ms)))
+        if s.last_replicas is not None:
+            out.append(("dpf_plan_last_replicas", "gauge",
+                        "alive replicas at the end of the most recent "
+                        "twin run", {}, float(s.last_replicas)))
+        return [(n, k, h, _with_process(l), v) for n, k, h, l, v in out]
+    reg.watch(stats, emit)
 
 
 def _process_samples():

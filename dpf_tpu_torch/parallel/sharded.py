@@ -68,6 +68,11 @@ class Mesh:
     def distributed(self) -> bool:
         return self.ranks is not None
 
+    @property
+    def size(self) -> int:
+        """The mesh's entry count (JAX's ``Mesh.size``)."""
+        return int(self.devices.size)
+
     def coord(self, idx: tuple, axis: str) -> int:
         """``idx``'s position on ``axis`` (0 on an axis the mesh lacks)."""
         if axis not in self.axis_names:

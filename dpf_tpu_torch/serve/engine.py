@@ -363,6 +363,13 @@ class ServingEngine:
     def closed(self) -> bool:
         return self._closed
 
+    @property
+    def dispatch_blocking(self) -> bool:
+        """Whether ``submit`` computes in the caller's thread (a CPU
+        server) rather than enqueueing on a CUDA stream and returning:
+        the twin's ``FleetConfig.dispatch_blocking`` for this engine."""
+        return not self._cuda
+
     # ------------------------------------------------------------- warmup
 
     def warmup(self, tune: bool = False, trace=None) -> None:

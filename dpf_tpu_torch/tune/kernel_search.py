@@ -790,7 +790,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--family", default="sqrtn",
                     help="sqrtn|logn|keygen|all or a comma list")
-    ap.add_argument("--shapes", default=None, help="N:B points")
+    ap.add_argument("--shapes", default=None,
+                    help="N:B points (default: tune.search.DEFAULT_SWEEP, "
+                         "256:32 with --dryrun)")
     ap.add_argument("--prf", type=int, default=PRF_CHACHA20)
     ap.add_argument("--entry-size", type=int, default=16)
     ap.add_argument("--reps", type=int, default=3)

@@ -525,8 +525,9 @@ def parse_shapes(text: str) -> tuple:
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--shapes", default="4096:128,16384:512",
-                    help="N:B points, comma separated")
+    ap.add_argument("--shapes", default=None,
+                    help="N:B points, comma separated (default %s)"
+                         % ",".join("%d:%d" % p for p in DEFAULT_SWEEP))
     ap.add_argument("--prf", type=int, default=0)
     ap.add_argument("--entry-size", type=int, default=16)
     ap.add_argument("--reps", type=int, default=3)
@@ -541,7 +542,7 @@ def main(argv=None):
                     help="cpu to run the plain versions (default: the card)")
     ap.add_argument("--out")
     args = ap.parse_args(argv)
-    shapes = parse_shapes(args.shapes)
+    shapes = parse_shapes(args.shapes) if args.shapes else DEFAULT_SWEEP
     kw = dict(prf_method=args.prf, entry_size=args.entry_size,
               reps=args.reps, force=args.force, out=args.out,
               device=args.device or "cuda", distinct=args.distinct)

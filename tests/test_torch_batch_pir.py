@@ -4,9 +4,13 @@ dpf_tpu's, on the CPU (``device="cpu"``: the kernels' plain versions).
 The planner's bins, hot/cold split, collocation map and costs, the
 client's keys under pinned seeds and the servers' shares are held equal
 to dpf_tpu's, bit for bit, for the binary, radix-4 and sqrt-N
-constructions.  The mesh (multi-GPU) surface is not ported and raises;
-``scheme="auto"`` resolves every size group on a cold tuning cache to
-the caller's log-N radix.
+constructions.  ``PrivateLookupServer(mesh=...)`` on meshes of CPU
+devices (1 x 4, 2 x 4 and the 1 x 2 x 2 rows x bytes mesh) equals
+dpf_tpu's meshed server on the matching mesh of the 8 forced JAX CPU
+devices (``tests/conftest.py``) and the port's one-device server, with
+group counts that are not multiples of the mesh size; ``scheme="auto"``
+resolves every size group on a cold tuning cache to the caller's log-N
+radix.
 """
 
 import json
@@ -344,11 +348,9 @@ def test_sqrtn_group_rejects_short_keys_cleanly():
         sa.answer([np.zeros(6, np.int32)])
 
 
-def test_mesh_and_auto_are_not_ported():
+def test_auto_scheme_and_bad_constructions():
     table = np.zeros((300, 4), np.int32)
     bins = [set(range(100))]
-    with pytest.raises(ValueError, match="mesh"):
-        PrivateLookupServer(table, bins, mesh=object(), device="cpu")
     # scheme="auto" on a cold tuning cache: every size group resolves to
     # the caller's log-N radix, on the server and the client alike
     srv = PrivateLookupServer(table, bins, scheme="auto", radix=4,
@@ -422,3 +424,157 @@ def test_lookup_stream_bad_round_leaves_no_orphan_dispatch():
     fut = stream.submit(ka)
     stream.drain()
     assert np.array_equal(fut.result(), sa.answer(ka))
+
+
+# ------------------------------------------------------------- the mesh
+
+MESHES = {"1x4": (1, 4, 1), "2x4": (2, 4, 1), "1x2x2": (1, 2, 2)}
+
+
+def _mesh(shape):
+    from dpf_tpu_torch.parallel import sharded
+    from dpf_tpu_torch.utils.hermetic import force_cpu_mesh
+    nb, nt, ny = shape
+    devs = force_cpu_mesh(nb * nt * ny)
+    if ny > 1:
+        return sharded.make_mesh_2d(nt, ny, nb, devices=devs)
+    return sharded.make_mesh(nt, nb, devices=devs)
+
+
+def _jmesh(shape):
+    import jax
+    from dpf_tpu.parallel import sharded as jsharded
+    nb, nt, ny = shape
+    devs = jax.devices()
+    if ny > 1:
+        return jsharded.make_mesh_2d(nt, ny, nb, devices=devs[:nb * nt * ny])
+    return jsharded.make_mesh(nt, nb, devices=devs[:nb * nt])
+
+
+@pytest.mark.parametrize("scheme,radix,prf,meshes", [
+    ("logn", 2, DPF.PRF_DUMMY, ("1x4", "2x4", "1x2x2")),
+    ("logn", 4, DPF.PRF_CHACHA20, ("1x4", "2x4")),
+    ("sqrtn", 2, DPF.PRF_CHACHA20, ("1x4", "2x4")),
+])
+def test_mesh_matches_dpf_tpu_and_one_device(scheme, radix, prf, meshes):
+    """The meshed server's shares equal dpf_tpu's meshed server's and the
+    one-device server's on every mesh; 10 bins of one size (G = 10, not a
+    multiple of 4 or 8, so zero bins pad each group) and two servers
+    recover every planned row; answer == answer_scalar."""
+    table, opt, one, _, cl = _setup(scheme, radix, prf, bin_fraction=0.1)
+    assert [len(g.idxs) for g in one._groups.values()] == [10]
+    wanted = [sorted(b)[1] for b in opt.hot_table_bins[:4]]
+    ka, kb, plan = cl.make_queries(wanted)
+    want = one.answer(ka)
+    for name in meshes:
+        srv = PrivateLookupServer(table, opt.hot_table_bins, prf=prf,
+                                  radix=radix, scheme=scheme,
+                                  mesh=_mesh(MESHES[name]))
+        ref = jbp.PrivateLookupServer(table, opt.hot_table_bins, prf=prf,
+                                      radix=radix, scheme=scheme,
+                                      mesh=_jmesh(MESHES[name]))
+        (grp,) = srv._groups.values()
+        assert grp.gpad == (-10) % srv.mesh.size
+        assert [t.shape[0] for t in grp.tables] == [grp.padded //
+                                                    srv.mesh.size] * \
+            srv.mesh.size
+        got = srv.answer(ka)
+        assert np.array_equal(got, want), name
+        assert np.array_equal(got, np.asarray(ref.answer(ka))), name
+        assert np.array_equal(got, srv.answer_scalar(ka)), name
+        rows = cl.recover(got, srv.answer(kb), plan)
+        for w in wanted:
+            assert (rows[w] == table[w]).all(), (name, w)
+
+
+def test_mesh_two_size_groups_and_more_entries_than_bins():
+    """Two size groups (G = 1 and 2) over 4 entries: entries past the
+    last bin evaluate the last key against zero tables; equal to
+    dpf_tpu's meshed server and to the one-device server."""
+    table = np.arange(300 * 4, dtype=np.int32).reshape(300, 4)
+    bins = [set(range(100)), set(range(100, 280)), set(range(280, 300))]
+    one = PrivateLookupServer(table, bins, prf=DPF.PRF_SALSA20,
+                              device="cpu")
+    srv = PrivateLookupServer(table, bins, prf=DPF.PRF_SALSA20,
+                              mesh=_mesh(MESHES["1x4"]))
+    ref = jbp.PrivateLookupServer(table, bins, prf=DPF.PRF_SALSA20,
+                                  mesh=_jmesh(MESHES["1x4"]))
+    assert {n: (len(g.idxs), g.gpad) for n, g in srv._groups.items()} == {
+        128: (2, 2), 256: (1, 3)}
+    assert srv._shard_spans(srv._groups[256]) == [(0, 1)] * 4
+    cl = PrivateLookupClient(bins, one.bin_sizes, prf=DPF.PRF_SALSA20)
+    ka, kb, plan = cl.make_queries([5, 150, 290])
+    got = srv.answer(ka)
+    assert np.array_equal(got, one.answer(ka))
+    assert np.array_equal(got, np.asarray(ref.answer(ka)))
+    assert np.array_equal(got, srv.answer_scalar(ka))
+    rows = cl.recover(got, srv.answer(kb), plan)
+    assert all((rows[w] == table[w]).all() for w in (5, 150, 290))
+
+
+@pytest.mark.parametrize("scheme,radix,prf", CONSTRUCTIONS)
+def test_mesh_lookup_stream_matches_answer(scheme, radix, prf):
+    """Rounds through the meshed server's stream (each engine's bucket
+    the group's mesh-padded size) equal its answer() and recover."""
+    table, opt, one, _, cl = _setup(scheme, radix, prf, bin_fraction=0.1)
+    srv = PrivateLookupServer(table, opt.hot_table_bins, prf=prf,
+                              radix=radix, scheme=scheme,
+                              mesh=_mesh(MESHES["2x4"]))
+    stream = srv.stream(max_in_flight=2, warmup=True)
+    assert [eng.buckets.sizes for _, _, eng in stream._engines] == [(16,)]
+    rounds = []
+    for r in range(3):
+        wanted = [sorted(b)[r] for b in opt.hot_table_bins[:3]]
+        ka, kb, plan = cl.make_queries(wanted)
+        rounds.append((ka, kb, plan, wanted, stream.submit(ka)))
+    stream.drain()
+    for ka, kb, plan, wanted, fut in rounds:
+        ans = fut.result()
+        assert np.array_equal(ans, srv.answer(ka))
+        assert np.array_equal(ans, one.answer(ka))
+        rows = cl.recover(ans, one.answer(kb), plan)
+        assert all((rows[w] == table[w]).all() for w in wanted)
+
+
+def test_mesh_group_knobs_fall_back_to_the_mesh_entry(tmp_path,
+                                                      monkeypatch):
+    """A meshed server reads the mesh-tuned entry of its split when the
+    one-device entry is absent, prefers the one-device entry when both
+    exist, and clamps against each entry's keys; a server without a
+    mesh never reads the mesh entry."""
+    from dpf_tpu_torch.tune import cache as tcache
+    from dpf_tpu_torch.tune.fingerprint import cache_key
+    monkeypatch.setenv("DPF_TPU_TORCH_TUNE_CACHE", str(tmp_path / "t.json"))
+    tcache.default_cache(refresh=True)
+    table = np.arange(128 * 4, dtype=np.int32).reshape(128, 4)
+    bins = [list(range(i * 16, (i + 1) * 16)) for i in range(8)]
+    shape = dict(n=128, entry_size=4, batch=8, prf_method=0,
+                 scheme="logn", radix=2, device=torch.device("cpu"))
+    tcache.default_cache().store(
+        cache_key("mesh", mesh="2x4", **shape),
+        {"knobs": {"chunk_leaves": 32, "psum_group": 1}})
+    tcache.default_cache(refresh=True)
+    srv = PrivateLookupServer(table, bins, prf=0, mesh=_mesh(MESHES["2x4"]))
+    assert srv._group_knobs(128, 8, "logn", 2) == {"chunk_leaves": 32}
+    one = PrivateLookupServer(table, bins, prf=0, device="cpu")
+    assert one._group_knobs(128, 8, "logn", 2) == {"chunk_leaves": 128}
+    tcache.default_cache().store(cache_key("eval", **shape),
+                                 {"knobs": {"chunk_leaves": 64}})
+    tcache.default_cache(refresh=True)
+    srv = PrivateLookupServer(table, bins, prf=0, mesh=_mesh(MESHES["2x4"]))
+    assert srv._group_knobs(128, 8, "logn", 2) == {"chunk_leaves": 64}
+    cl = PrivateLookupClient(bins, srv.bin_sizes, prf=0)
+    ka, _, _ = cl.make_queries([3, 40])
+    assert np.array_equal(srv.answer(ka), one.answer(ka))
+
+
+def test_mesh_rejects_ranks_and_a_device():
+    table = np.zeros((300, 4), np.int32)
+    bins = [set(range(100))]
+    mesh = _mesh(MESHES["1x4"])
+    with pytest.raises(ValueError, match="mesh= or device="):
+        PrivateLookupServer(table, bins, mesh=mesh, device="cpu")
+    mesh.ranks = np.zeros(mesh.devices.shape, dtype=int)
+    mesh.rank = 0
+    with pytest.raises(ValueError, match="spans processes"):
+        PrivateLookupServer(table, bins, mesh=mesh)

@@ -1,8 +1,10 @@
 """The port's benchmark harness on the CPU (``device="cpu"``): the
 throughput, latency and contraction benchmarks run and check their
 results, the ``"mxu"`` contraction equals ``dpf_tpu``'s
-``dot_i32_mxu`` bit for bit, and the reference sweep has its twelve
-configurations with a yardstick for each."""
+``dot_i32_mxu`` bit for bit, the reference sweep has its twelve
+configurations with a yardstick for each, and ``benchmark.main`` routes
+every mode of the root ``benchmark.py``, in its order, to the port's
+module with the flag removed."""
 
 import numpy as np
 import pytest
@@ -125,3 +127,71 @@ def test_sweep_rows_on_cpu(capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert benchmark.main(["--n", "1024"]) == 2
     assert "no CUDA device" in capsys.readouterr().err
+
+
+def _root_modes() -> list:
+    """The root ``benchmark.py``'s mode flags, in its order."""
+    import ast
+    from pathlib import Path
+    src = (Path(__file__).resolve().parent.parent / "benchmark.py")
+    flags = []
+    for node in ast.walk(ast.parse(src.read_text())):
+        if (isinstance(node, ast.Compare) and len(node.ops) == 1
+                and isinstance(node.ops[0], ast.In)
+                and isinstance(node.left, ast.Constant)
+                and str(node.left.value).startswith("--")):
+            flags.append((node.lineno, node.left.value))
+    return [f for _, f in sorted(flags)]
+
+
+def test_modes_are_the_root_benchmarks():
+    assert [f for f, _, _ in benchmark.MODES] == _root_modes()
+    assert len(benchmark.MODES) == 13
+
+
+@pytest.mark.parametrize("flag,target,added", benchmark.MODES)
+def test_each_mode_reaches_its_main_without_the_flag(flag, target, added,
+                                                     monkeypatch):
+    import importlib
+    calls = []
+    mod = importlib.import_module(target, "dpf_tpu_torch")
+    monkeypatch.setattr(mod, "main", calls.append)
+    assert benchmark.main(["--dryrun", flag, "--device", "cpu"]) == 0
+    assert calls == [["--dryrun", "--device", "cpu", *added]]
+
+
+@pytest.mark.parametrize("flag,fn,kw", [
+    ("--autotune", "autotune_sweep",
+     dict(prf_method=3, entry_size=16, reps=2, serve=False, force=True,
+          out=None, device="cpu", distinct=32)),
+    ("--autotune-scheme", "scheme_sweep",
+     dict(prf_method=3, entry_size=16, reps=2, force=True, out=None,
+          device="cpu", distinct=32)),
+    ("--autotune-kernel", "kernel_search_sweep",
+     dict(prf_method=3, entry_size=16, reps=2, generations=3,
+          population=6, family="sqrtn", force=True, dryrun=False,
+          out=None, device="cpu")),
+])
+def test_autotune_mains_call_the_ports_sweeps(flag, fn, kw, monkeypatch):
+    import importlib
+    calls = []
+    mod = importlib.import_module("dpf_tpu_torch.tune." + (
+        "kernel_search" if fn == "kernel_search_sweep" else "search"))
+    monkeypatch.setattr(mod, fn, lambda shapes, **k: calls.append(
+        (shapes, k)))
+    argv = [flag, "--shapes", "1024:8,4096:16", "--prf", "3", "--reps",
+            "2", "--force", "--device", "cpu"]
+    if flag == "--autotune":
+        argv.append("--no-serve")
+    assert benchmark.main(argv) == 0
+    assert calls == [(((1024, 8), (4096, 16)), kw)]
+
+
+def test_autotune_sweeps_default_to_the_roots_shapes(monkeypatch):
+    from dpf_tpu.tune.search import DEFAULT_SWEEP as ROOT_SWEEP
+    from dpf_tpu_torch.tune import search
+    calls = []
+    monkeypatch.setattr(search, "scheme_sweep",
+                        lambda shapes, **k: calls.append(shapes))
+    assert benchmark.main(["--autotune-scheme", "--device", "cpu"]) == 0
+    assert calls == [search.DEFAULT_SWEEP] == [tuple(ROOT_SWEEP)]

@@ -60,6 +60,11 @@ def test_import_loads_no_jax_and_no_dpf_tpu():
             "dpf_tpu_torch.tune.mesh_tune, dpf_tpu_torch.utils.hermetic, "
             "dpf_tpu_torch.serve.bench_multichip, "
             "dpf_tpu_torch.serve.bench_multihost; "
+            "import dpf_tpu_torch.plan, dpf_tpu_torch.plan.twin, "
+            "dpf_tpu_torch.plan.capacity, dpf_tpu_torch.plan.autoscale, "
+            "dpf_tpu_torch.plan.bench_plan, "
+            "dpf_tpu_torch.serve.bench_bigtable, "
+            "dpf_tpu_torch.utils.results, dpf_tpu_torch.utils.scrape; "
             "print('\\n'.join(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
@@ -117,7 +122,15 @@ def test_sources_import_no_jax_and_no_dpf_tpu():
                  "dpf_tpu_torch/tune/mesh_tune.py",
                  "dpf_tpu_torch/utils/hermetic.py",
                  "dpf_tpu_torch/serve/bench_multichip.py",
-                 "dpf_tpu_torch/serve/bench_multihost.py"):
+                 "dpf_tpu_torch/serve/bench_multihost.py",
+                 "dpf_tpu_torch/plan/__init__.py",
+                 "dpf_tpu_torch/plan/twin.py",
+                 "dpf_tpu_torch/plan/capacity.py",
+                 "dpf_tpu_torch/plan/autoscale.py",
+                 "dpf_tpu_torch/plan/bench_plan.py",
+                 "dpf_tpu_torch/serve/bench_bigtable.py",
+                 "dpf_tpu_torch/utils/results.py",
+                 "dpf_tpu_torch/utils/scrape.py"):
         assert part in walked, part
     bad = []
     for path in files:
