@@ -1,0 +1,1 @@
+"""Files found by name from BENCHMARK.json (see ../__init__.py)."""
