@@ -323,6 +323,21 @@ LOOKUPS_AES_BLOCK = 160
 # (1 of ~10).  Fewer a child: 3 x 12 + 9 instructions, 3 x 4 lookups
 OPS_AES_LOW_SAVED = 3 * 12 + 9
 LOOKUPS_AES_LOW_SAVED = 3 * 4
+# K1 runs rounds 1 and 2 once a node for what its A plaintexts share
+# (csrc/aes_ttable.cuh::aes128_encrypt_byte0): for each plaintext after
+# the first, 15 lookups of round 1 and 12 of round 2 fewer, and their
+# permutes (K4 keeps 160 lookups a block)
+LOOKUPS_AES_SHARED_SAVED = 15 + 12
+OPS_AES_SHARED_SAVED = 2 * LOOKUPS_AES_SHARED_SAVED
+
+
+def k1_node_work(arity):
+    """Operations and table lookups of one K1 node at arity 2 or 4."""
+    ops = OPS_AES_NODE if arity == 2 else OPS_AES_NODE_A4
+    return (ops - (arity - 1) * OPS_AES_SHARED_SAVED,
+            LOOKUPS_AES_SCHEDULE + arity * LOOKUPS_AES_BLOCK
+            - (arity - 1) * LOOKUPS_AES_SHARED_SAVED)
+
 # Salsa/ChaCha-12 core block = 48 quarter rounds x 12 ops + 16 adds; of
 # a quarter round's 4 adds, 4 xors and 4 rotations, the xors and
 # rotations run on the INT32 pipe only (an add may also be an IMAD)
@@ -2435,8 +2450,8 @@ def _main(t_start) -> int:
             seeds, c1, c2), 1),
         library_ms=None,
         bytes=nodes * 16 + 2 * bsz * 2 * 16 + 2 * nodes * 16,
-        ops=nodes * OPS_AES_NODE,
-        lookups=nodes * (LOOKUPS_AES_SCHEDULE + 2 * LOOKUPS_AES_BLOCK),
+        ops=nodes * k1_node_work(2)[0],
+        lookups=nodes * k1_node_work(2)[1],
         shape="B=%d w=%d -> 2w (one level)" % (bsz, w))
     k1_low(rows["aes_level_step"], seeds, c1, c2, 2)
     del seeds, cw1, cw2, c1, c2
@@ -2464,8 +2479,8 @@ def _main(t_start) -> int:
             seeds, c1, c2, 4), 1),
         library_ms=None,
         bytes=nodes * 16 + 2 * bsz * 4 * 16 + 4 * nodes * 16,
-        ops=nodes * OPS_AES_NODE_A4,
-        lookups=nodes * (LOOKUPS_AES_SCHEDULE + 4 * LOOKUPS_AES_BLOCK),
+        ops=nodes * k1_node_work(4)[0],
+        lookups=nodes * k1_node_work(4)[1],
         shape="B=%d w=%d -> 4w (one radix-4 level)" % (bsz, w))
     k1_low(rows["aes_level_step_a4"], seeds, c1, c2, 4)
     del seeds, cw1, cw2, c1, c2
@@ -3153,9 +3168,9 @@ def _main(t_start) -> int:
     # (torch.profiler, one warm batch) beside the bound and lookup floor
     # of the same work.  A batch expands every inner node of each key's
     # tree once: B (N - 1) binary nodes, B (N - 1) / 3 radix-4 nodes.
-    for name, radix, arity, ops in (
-            ("aes_level_step", 2, 2, OPS_AES_NODE),
-            ("aes_level_step_a4", 4, 4, OPS_AES_NODE_A4)):
+    for name, radix, arity in (("aes_level_step", 2, 2),
+                               ("aes_level_step_a4", 4, 4)):
+        ops, lookups = k1_node_work(arity)
         n = 1 << 20
         prof = profile_batch.profile_config(dpf_tpu_torch.PRF_AES128, n,
                                             radix)
@@ -3169,9 +3184,7 @@ def _main(t_start) -> int:
         work = dict(bytes=nodes * 16 + (nodes * arity - leaves) * 16
                     + leaves * 4 + launches * 2 * 512 * arity * 16,
                     ops=nodes * ops - leaves * OPS_AES_LOW_SAVED,
-                    lookups=nodes * (LOOKUPS_AES_SCHEDULE
-                                     + arity * LOOKUPS_AES_BLOCK)
-                    - leaves * LOOKUPS_AES_LOW_SAVED)
+                    lookups=nodes * lookups - leaves * LOOKUPS_AES_LOW_SAVED)
         b_ms, _, floor_ms = bound(work)
         rows[name].update(batch_ms=sum(v["ms"] for v in k1),
                           batch_launches=launches, batch_bound_ms=b_ms,

@@ -20,12 +20,17 @@
 //
 // Bound on the H100: shared-memory lookups and instruction issue.  Each
 // node costs one key schedule (40 S-box lookups) and A encryptions (160
-// lookups each) against 16 (1 + A) bytes of device memory: 360 lookups at
-// A = 2, 680 at A = 4.  The design:
+// lookups each, less what rounds 1 and 2 share) against 16 (1 + A) bytes
+// of device memory: 40 + (15 + A) + (12 + 4A) + 128A lookups, 333 at
+// A = 2, 599 at A = 4 (360 and 680 with every block on its own).  The
+// design:
 //
 //   * the AES core of aes_ttable.cuh: a 64 KB table with one copy per
 //     bank, so a warp's lookup is one wavefront whatever the data, two
 //     instructions per lookup and one rotation per round column;
+//   * rounds 1 and 2 once per node for what the A plaintexts share
+//     (aes128_encrypt_byte0): they differ only in byte 0, so round 1
+//     reads one byte per plaintext and round 2 four, one per new column;
 //   * a persistent grid: as many blocks as fit on the card at once
 //     (SMs x resident blocks per SM, read once per process), each filling
 //     its table once and walking nodes with a grid-stride loop.  A level
@@ -41,10 +46,10 @@
 //     streams without the 12 unused bytes of each leaf.  Everything
 //     before the store is the same code.
 //
-// The SASS of sm_90a (utils/sass_count.py) issues ~1,300 instructions and
-// 360 shared-memory loads per node at A = 2, ~2,300 and 680 at A = 4:
+// The SASS of sm_90a (utils/sass_count.py) issues ~1,190 instructions and
+// 333 shared-memory loads per node at A = 2, ~2,030 and 599 at A = 4:
 // at the card's issue rate and one wavefront per SM per clock, the widest
-// level's lookups (2^26 nodes x 360) take longer than its instructions,
+// level's lookups (2^26 nodes x 333) take longer than its instructions,
 // so the lookups are the floor.
 
 #include <algorithm>
@@ -82,13 +87,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         narrow ? (long long)((uint32_t)idx / (uint32_t)w) : idx / w;
     const uint4 sd = seeds[idx];
     const uint32_t k[4] = {sd.x, sd.y, sd.z, sd.w};
-    uint32_t st[A][4];  // plaintext b: the all-zero block with b in byte 0
-#pragma unroll
-    for (int b = 0; b < A; ++b) {
-      st[b][0] = (uint32_t)b;
-      st[b][1] = st[b][2] = st[b][3] = 0u;
-    }
-    dpf::aes128_encrypt<A>(tab, k, st);
+    uint32_t st[A][4];  // AES_k(b), b the all-zero block with b in byte 0
+    dpf::aes128_encrypt_byte0<A>(tab, k, st);
 
     // this level's A codewords for this key, selected by the seed's LSB
     const uint32_t* cw = ((sd.x & 1u) ? cw2 : cw1) + key * cw_stride_b;

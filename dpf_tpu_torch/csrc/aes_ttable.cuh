@@ -31,7 +31,12 @@
 //     read at a warp-uniform index.
 //
 // The key schedule runs on the fly, one round key live at a time, and is
-// shared by every block encrypted under the key.
+// shared by every block encrypted under the key: 40 lookups.  A block
+// takes 160 (16 a round), so P blocks under a key take 40 + 160 P
+// (aes128_encrypt).  K1's plaintexts b = 0..A-1 differ in one byte, and
+// aes128_encrypt_byte0 runs the lookups of rounds 1 and 2 that do not
+// read it once for all A: 27 fewer for each block after the first,
+// 333 at A = 2 and 599 at A = 4 (utils/sass_count.py::k1_lookups).
 #pragma once
 
 #include "dpf_common.cuh"
@@ -170,6 +175,88 @@ __device__ __forceinline__ void aes128_encrypt(const AesTable& t,
   next_round_key(t, rk, rcon);
 #pragma unroll
   for (int p = 0; p < P; ++p) aes_final_round(t, st[p], rk);
+}
+
+// A blocks under one AES-128 key whose plaintexts are b = 0..A-1: the
+// all-zero block with b in byte 0 (the low byte of column 0).  That is
+// the precondition; ct[b] receives block b's ciphertext.  The result is
+// aes128_encrypt<A>'s on those plaintexts, bit for bit.
+//
+// The plaintexts differ only in byte (row 0, column 0), so after
+// AddRoundKey columns 1-3 are the key's for every b.  Round 1 reads that
+// byte in one lookup, T0 of new column 0; its other 15 lookups, and so
+// new columns 1-3, are the same for every b.  Round 2 reads each byte of
+// old column 0 once (new column c its byte (4 - c) % 4) and 12 bytes of
+// the shared columns.  So rounds 1 and 2 take 15 + A and 12 + 4A lookups,
+// not 16A each; from round 3 on every byte differs.  A shared partial
+// that feeds a column's rotated half (bd in aes_round) is rotated per
+// block after the block's lookup is merged, as in aes_round.
+template <int A>
+__device__ __forceinline__ void aes128_encrypt_byte0(const AesTable& t,
+                                                     const uint32_t key[4],
+                                                     uint32_t ct[A][4]) {
+  static_assert(A >= 1 && A <= 256, "plaintext b must fit in byte 0");
+  uint32_t rk[4] = {key[0], key[1], key[2], key[3]};
+  // round 1 on the state {rk[0] ^ b, rk[1], rk[2], rk[3]}
+  uint32_t x[A];  // T0 of byte 0 of column 0, one a block
+#pragma unroll
+  for (int b = 0; b < A; ++b) x[b] = lookup<0>(t, t.t0, rk[0] ^ (uint32_t)b);
+  uint32_t m[4];  // new column 0 without x[b]; new columns 1-3
+  {
+    const uint32_t bd = lookup<1>(t, t.t0, rk[1]) ^ lookup<3>(t, t.t2, rk[3]);
+    m[0] = lookup<2>(t, t.t2, rk[2]) ^ __funnelshift_l(bd, bd, 8);
+  }
+#pragma unroll
+  for (int c = 1; c < 4; ++c) {
+    const uint32_t bd = lookup<1>(t, t.t0, rk[(c + 1) & 3]) ^
+                        lookup<3>(t, t.t2, rk[(c + 3) & 3]);
+    m[c] = lookup<0>(t, t.t0, rk[c]) ^ lookup<2>(t, t.t2, rk[(c + 2) & 3]) ^
+           __funnelshift_l(bd, bd, 8);
+  }
+  next_round_key(t, rk, 1u);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) m[c] ^= rk[c];
+#pragma unroll
+  for (int b = 0; b < A; ++b) x[b] ^= m[0];  // column 0 of block b
+
+  // round 2 on the state {x[b], m[1], m[2], m[3]}: per new column the
+  // shared lookups (q: the unrotated half with the round key, r: the
+  // rotated half), then one lookup of x[b] merged into q or r
+  next_round_key(t, rk, 2u);
+  const uint32_t r0 = lookup<1>(t, t.t0, m[1]) ^ lookup<3>(t, t.t2, m[3]);
+  const uint32_t q0 = lookup<2>(t, t.t2, m[2]) ^ __funnelshift_l(r0, r0, 8) ^
+                      rk[0];
+  const uint32_t r1 = lookup<1>(t, t.t0, m[2]);
+  const uint32_t q1 = lookup<0>(t, t.t0, m[1]) ^ lookup<2>(t, t.t2, m[3]) ^
+                      rk[1];
+  const uint32_t r2 = lookup<1>(t, t.t0, m[3]) ^ lookup<3>(t, t.t2, m[1]);
+  const uint32_t q2 = lookup<0>(t, t.t0, m[2]) ^ __funnelshift_l(r2, r2, 8) ^
+                      rk[2];
+  const uint32_t r3 = lookup<3>(t, t.t2, m[2]);
+  const uint32_t q3 = lookup<0>(t, t.t0, m[3]) ^ lookup<2>(t, t.t2, m[1]) ^
+                      rk[3];
+#pragma unroll
+  for (int b = 0; b < A; ++b) {
+    const uint32_t bd1 = r1 ^ lookup<3>(t, t.t2, x[b]);
+    const uint32_t bd3 = lookup<1>(t, t.t0, x[b]) ^ r3;
+    ct[b][0] = q0 ^ lookup<0>(t, t.t0, x[b]);
+    ct[b][1] = q1 ^ __funnelshift_l(bd1, bd1, 8);
+    ct[b][2] = q2 ^ lookup<2>(t, t.t2, x[b]);
+    ct[b][3] = q3 ^ __funnelshift_l(bd3, bd3, 8);
+  }
+
+  // rounds 3-10 as aes128_encrypt's
+  uint32_t rcon = 4u;
+#pragma unroll
+  for (int r = 3; r < 10; ++r) {
+    next_round_key(t, rk, rcon);
+    rcon = ((rcon << 1) ^ ((rcon >> 7) * 0x11bu)) & 0xffu;
+#pragma unroll
+    for (int b = 0; b < A; ++b) aes_round(t, ct[b], rk);
+  }
+  next_round_key(t, rk, rcon);
+#pragma unroll
+  for (int b = 0; b < A; ++b) aes_final_round(t, ct[b], rk);
 }
 
 }  // namespace dpf

@@ -8,9 +8,9 @@ grid-stride loop (one node per iteration) and the AES rounds loop inside
 it, for the full store ("arity A") and the low-limb store ("arity A
 low32").  The
 rounds loop runs as often as makes the node's shared-memory loads (LDS)
-equal the lookups AES-128 needs (a key schedule of 40 and A blocks of
-160), so the instructions a node issues are the grid-stride body plus
-the rounds body times its further trips.
+equal the lookups K1 needs (``k1_lookups``), so the instructions a node
+issues are the grid-stride body plus the rounds body times its further
+trips.
 
 K2 (``subtree``): each ``subtree_kernel<PRF, BIN>`` instance's
 expansion and contraction.  The expansion's node is the depth-first
@@ -285,6 +285,26 @@ def same_code(other: Path, source: str | None = None) -> dict:
     return out
 
 
+def k1_lookups(arity: int) -> int:
+    """Table lookups of one K1 node at ``arity`` A: 67 + 133 A, 333 at
+    A = 2 and 599 at A = 4.
+
+    AES-128 reads a table once per state byte and round, 16 a round and
+    160 a block, and its key schedule 4 a round, 40.  K1's plaintexts
+    b = 0..A-1 differ only in byte 0 of column 0, so after AddRoundKey
+    columns 1-3 are the same for every b.  Round 1 reads that byte in one
+    lookup per plaintext and its other 15 once: 15 + A.  Its new columns
+    1-3 stay shared and round 2 reads each byte of column 0 once, four
+    per plaintext, and 12 bytes of the shared columns once: 12 + 4 A.
+    Rounds 3-10 read 16 a round for each plaintext, 128 A:
+
+        40 + (15 + A) + (12 + 4 A) + 128 A = 67 + 133 A,
+
+    27 lookups fewer for each plaintext after the first than the
+    40 + 160 A of A blocks on their own."""
+    return 40 + (15 + arity) + (12 + 4 * arity) + 128 * arity
+
+
 def k1_counts() -> dict:
     """Per-node counts of K1 at arity 2 and 4, each store form, from the
     built library."""
@@ -297,7 +317,7 @@ def k1_counts() -> dict:
             arity = int(m.group(1))
             key = "arity %d%s" % (arity, " low32" if m.group(2) == "1"
                                   else "")
-            out[key] = per_node(instrs, 40 + 160 * arity)
+            out[key] = per_node(instrs, k1_lookups(arity))
     return out
 
 

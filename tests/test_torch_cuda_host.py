@@ -341,6 +341,29 @@ def test_aes_level_low32_kernel_on_host(host_libs, bsz, w, arity):
         seeds, c1, c2, arity, low32=True))
 
 
+@pytest.mark.parametrize("low32", [0, 1])
+@pytest.mark.parametrize("arity", [2, 4])
+def test_aes_level_kernel_on_host_every_key_byte0(host_libs, arity, low32):
+    """K1's first round reads byte 0 of the key xor the plaintext b once
+    per node and shares the rest: byte 0 of the seeds takes every value
+    here, under both values of their LSB, and the grid strides past a
+    ragged tail."""
+    bsz, w = 2, 301
+    rng = np.random.default_rng(256 + arity)
+    seeds, cw1, cw2 = _rnd(rng, bsz, w, 4), _rnd(rng, bsz, 64, 4), \
+        _rnd(rng, bsz, 64, 4)
+    seeds[..., 0] = (seeds[..., 0] & ~0xff) | (
+        torch.arange(bsz * w, dtype=torch.int32).view(bsz, w) % 256)
+    c1, c2 = cw1[:, 30:30 + arity], cw2[:, 30:30 + arity]
+    out = torch.empty((bsz, arity * w) + ((4,) if not low32 else ()),
+                      dtype=torch.int32)
+    assert host_libs["aes_level"].aes_level_launch(
+        seeds.data_ptr(), c1.data_ptr(), c2.data_ptr(), c1.stride(0),
+        out.data_ptr(), bsz, w, arity, low32, None) == 0
+    assert torch.equal(out, aes_level.aes_level_step_plain(
+        seeds, c1, c2, arity, low32=bool(low32)))
+
+
 def test_aes_level_kernel_on_host_rejects_bad_arity(host_libs):
     z = torch.zeros(1, 4, 4, dtype=torch.int32)
     assert host_libs["aes_level"].aes_level_launch(

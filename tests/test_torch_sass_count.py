@@ -3,6 +3,9 @@ read from a SASS listing.  The listings here are small hand-made ones in
 ``cuobjdump -sass``'s format (no toolkit on the CPU); ``chip_smoke.py``
 runs the same code on the card's build."""
 
+import importlib.util
+from pathlib import Path
+
 import pytest
 
 from dpf_tpu_torch.utils import sass_count
@@ -164,9 +167,23 @@ def test_k1_counts_names_each_store_form(monkeypatch):
                         lambda lib: {n: instrs for n in names})
     got = sass_count.k1_counts()
     assert sorted(got) == ["arity 2", "arity 4 low32"]
-    # the rounds loop runs until the LDS equal 40 + 160 A lookups
-    assert got["arity 2"]["lds"] == 3 + 2 * ((360 - 3) // 2)
-    assert got["arity 4 low32"]["lds"] == 3 + 2 * ((680 - 3) // 2)
+    # the rounds loop runs until the LDS equal K1's lookups a node
+    assert got["arity 2"]["lds"] == 3 + 2 * ((333 - 3) // 2)
+    assert got["arity 4 low32"]["lds"] == 3 + 2 * ((599 - 3) // 2)
+
+
+@pytest.mark.parametrize("arity,lookups", [(2, 333), (4, 599)])
+def test_k1_lookups_share_rounds_one_and_two(arity, lookups):
+    """A key schedule of 40 and A blocks of 160, less the 27 lookups of
+    rounds 1 and 2 that each plaintext after the first shares."""
+    assert sass_count.k1_lookups(arity) == lookups
+    assert lookups == 40 + 160 * arity - 27 * (arity - 1)
+    # chip_smoke.py prices K1's lookup floor with the same count
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    assert chip_smoke.k1_node_work(arity)[1] == lookups
 
 
 def test_k2_counts_names_the_per_key_instances(monkeypatch):
