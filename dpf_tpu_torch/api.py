@@ -53,6 +53,7 @@ from .core.prf_ref import (PRF_AES128, PRF_CHACHA20, PRF_CHACHA20_BLK,
                            PRF_DUMMY, PRF_NAMES, PRF_SALSA20,
                            PRF_SALSA20_BLK)
 from .core.u32 import from_u32
+from .obs.tracer import span
 from .utils.config import check_construction, is_auto, is_auto_kernel
 
 
@@ -175,17 +176,48 @@ def stage_packed(pk, size: int | None, stage, sqrt: bool) -> StagedKeys:
     return StagedKeys(host, rows, size, pk, stage)
 
 
-def upload(staged: StagedKeys, device: torch.device) -> torch.Tensor:
+#: per device, the side stream ``upload(..., overlap=True)`` copies on
+_COPY_STREAMS = {}
+
+
+def _copy_stream(device: torch.device):
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    stream = _COPY_STREAMS.get(device)
+    if stream is None:
+        stream = _COPY_STREAMS[device] = torch.cuda.Stream(device)
+    return stream
+
+
+def upload(staged: StagedKeys, device: torch.device,
+           overlap: bool = False) -> torch.Tensor:
     """The staged buffer on ``device``: from pinned memory an
     asynchronous copy on the current stream, after which the staging
     slot records the event that frees it; from pageable memory a copy the
-    host waits for; on the CPU the buffer itself."""
+    host waits for; on the CPU the buffer itself.  Under the
+    ``route.key_upload`` span (``bytes``: the buffer's).
+
+    ``overlap`` (the sqrt-N route, 25 MB of keys a 512-key batch): a
+    pinned buffer is copied on a side stream that the current stream
+    then waits for, so the copy runs while the kernels enqueued before
+    it do, not after them."""
     host = staged.host
-    if device.type == "cpu":
-        return host
-    dev = host.to(device, non_blocking=host.is_pinned())
-    if staged.stage is not None:
-        staged.stage.record_copy()
+    with span("route.key_upload", bytes=4 * host.numel()):
+        if device.type == "cpu":
+            return host
+        pinned = host.is_pinned()
+        if not (overlap and pinned):
+            dev = host.to(device, non_blocking=pinned)
+            if staged.stage is not None:
+                staged.stage.record_copy()
+            return dev
+        main, side = torch.cuda.current_stream(device), _copy_stream(device)
+        with torch.cuda.stream(side):
+            dev = host.to(device, non_blocking=True)
+            if staged.stage is not None:
+                staged.stage.record_copy()
+        main.wait_stream(side)
+        dev.record_stream(main)
     return dev
 
 
@@ -566,8 +598,8 @@ class DPF(object):
         is clamped to the batch's split and the kernel's cell cap."""
         pk = staged.pk
         seeds, cw1, cw2 = sqrtn.sqrt_key_views(
-            upload(staged, self.device), pk.n_keys, pk.n_codewords,
-            pad_to=staged.size)
+            upload(staged, self.device, overlap=True), pk.n_keys,
+            pk.n_codewords, pad_to=staged.size)
         k = self.resolved_eval_knobs(staged.size)
         rc, grid_rows = self.row_chunk, k.get("grid_rows")
         if grid_rows is not None and \
@@ -576,9 +608,12 @@ class DPF(object):
         if grid_rows is None and rc is None:
             rc = sqrtn.clamp_row_chunk(None, pk.n_codewords, pk.n_keys,
                                        staged.size)
-        return sqrtn.eval_contract_batched(
-            seeds, cw1, cw2, self.table_device, prf_method=self.prf_method,
-            row_chunk=rc, grid_rows=grid_rows)
+        with span("route.sqrt_grid", keys=staged.size, rows=pk.n_codewords,
+                  row_chunk=rc if grid_rows is None else grid_rows):
+            return sqrtn.eval_contract_batched(
+                seeds, cw1, cw2, self.table_device,
+                prf_method=self.prf_method, row_chunk=rc,
+                grid_rows=grid_rows)
 
     def _lookup_tuned(self, batch: int) -> dict:
         """The tuning cache's knobs for this shape and batch size on this

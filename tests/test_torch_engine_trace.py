@@ -1,9 +1,10 @@
 """Spans and device times inside the serving engine and the construction
-route: ``route.*`` spans nested in ``dispatch``, the window wait apart
-from result waits, one ``req`` a request, and timing events only while a
-tracer is installed.  The CPU cases run the plain kernels; the ``chip``
-case needs a CUDA card and skips without one.  This file imports no JAX,
-so on a machine with a card it runs on its own:
+route: ``route.*`` spans nested in ``dispatch`` (the key upload and the
+sqrt-N grid among them), the window wait apart from result waits, one
+``req`` a request, the key bytes each upload names, and timing events
+only while a tracer is installed.  The CPU cases run the plain
+kernels; the ``chip`` case needs a CUDA card and skips without one.
+This file imports no JAX, so on a machine with a card it runs on its own:
 ``python -m pytest --noconftest tests/test_torch_engine_trace.py``."""
 
 import numpy as np
@@ -11,7 +12,7 @@ import pytest
 import torch
 
 from dpf_tpu_torch import DPF, EvalConfig
-from dpf_tpu_torch.core import expand
+from dpf_tpu_torch.core import expand, sqrtn
 from dpf_tpu_torch.obs import tracer as obs_tracer
 from dpf_tpu_torch.serve import engine as engine_mod
 
@@ -75,7 +76,11 @@ def test_route_spans_nest_in_each_dispatch(traced, config, top, groups,
     ids = _by_id(events)
     dispatches = [e for e in events if e["name"] == "dispatch"]
     assert len(dispatches) == engine.stats.dispatches == 4
-    route = [e for e in events if e["name"].startswith("route.")]
+    uploads = [e for e in events if e["name"] == "route.key_upload"]
+    assert sorted(_parent(e, ids)["span_id"] for e in uploads) == sorted(
+        e["span_id"] for e in dispatches)
+    route = [e for e in events if e["name"].startswith("route.")
+             and e not in uploads]
     assert len(route) == len(dispatches) * (top + 2 * groups
                                             + (groups == 0))
     for disp in dispatches:
@@ -116,6 +121,66 @@ def test_stream_route_spans_its_top_levels(traced):
     assert {_parent(e, ids)["name"] for e in events[:2]} == {"outer"}
     assert torch.equal(fl2, expand.expand_and_contract(cw1, cw2, last,
                                                        table, **kw))
+
+
+# ------------------------------------ the key upload and the sqrt-N grid
+
+def _sqrt_server(prf_method=2, n=N, device="cpu"):
+    d = DPF(prf=prf_method, scheme="sqrtn", device=device)
+    d.eval_init(np.random.default_rng(6).integers(
+        -2 ** 31, 2 ** 31, (n, 5), dtype=np.int64).astype(np.int32))
+    keys = d.gen_batch([(i * 37) % n for i in range(24)], n,
+                       seeds=[b"sqrt-%d" % i for i in range(24)])[0]
+    return d, keys
+
+
+def test_sqrt_grid_span_nests_in_each_dispatch(traced):
+    d, keys = _sqrt_server()
+    engine = d.serving_engine(buckets=(4, 8), max_in_flight=2)
+    futs = _serve(engine, keys, (3, 8, 11))
+    for f, b in zip(futs, (3, 8, 11)):
+        assert np.array_equal(f.result(), d.eval_cpu(keys[:b]).numpy())
+    events = traced.events()
+    ids = _by_id(events)
+    dispatches = [e for e in events if e["name"] == "dispatch"]
+    assert len(dispatches) == engine.stats.dispatches == 4
+    _, r = sqrtn.default_split(N)
+    for disp in dispatches:
+        kids = [e for e in events if e["parent_id"] == disp["span_id"]]
+        assert [e["name"] for e in kids] == ["route.key_upload",
+                                             "route.sqrt_grid"]
+        grid = kids[1]["attrs"]
+        assert grid["keys"] == disp["attrs"]["bucket"]
+        assert grid["rows"] == r
+        assert r % grid["row_chunk"] == 0
+    grids = [e for e in events if e["name"] == "route.sqrt_grid"]
+    assert all(_parent(e, ids)["name"] == "dispatch" for e in grids)
+
+
+@pytest.mark.parametrize("scheme", ["logn", "sqrtn"])
+def test_key_bytes_are_the_staged_rows(traced, scheme):
+    """A log-N part uploads its padded rows (cw1, cw2 and the start seed:
+    2,064 bytes a row); a sqrt-N part its real keys' seeds and codewords
+    (the wire less its 64-byte header: 49,152 bytes a key at 2^20) and
+    pads on the device."""
+    if scheme == "logn":
+        d, keys = _server(EvalConfig(prf_method=2))
+        per_row = 4 * (2 * 64 * 4 + 4)
+    else:
+        d, keys = _sqrt_server()
+        k, r = sqrtn.default_split(N)
+        per_row = 16 * (k + 2 * r)
+        assert keys.shape[1] * 4 == per_row + 64
+        k20, r20 = sqrtn.default_split(1 << 20)
+        assert 16 * (k20 + 2 * r20) == 49152
+    engine = d.serving_engine(buckets=(4, 8), max_in_flight=2)
+    _serve(engine, keys, (3, 8, 11))        # parts of 3, 8, 8 and 3 keys
+    st = engine.stats
+    rows = (st.queries_submitted + st.padded_queries if scheme == "logn"
+            else st.queries_submitted)
+    uploads = [e for e in traced.events() if e["name"] == "route.key_upload"]
+    assert len(uploads) == st.dispatches == 4
+    assert sum(e["attrs"]["bytes"] for e in uploads) == rows * per_row
 
 
 # ------------------------------------------- window wait and req ids
@@ -287,3 +352,20 @@ def test_device_time_on_the_card(chip, traced, monkeypatch):
     assert len(waited) == engine.stats.dispatches == 6
     assert all(e["attrs"]["device_ms"] >= 0 for e in waited)
     assert any(e["name"].startswith("route.") for e in traced.events())
+
+
+@pytest.mark.chip
+def test_sqrt_keys_upload_beside_the_grid_on_the_card(chip):
+    """A sqrt-N part's keys go to the card on a side stream while the
+    grid of the part before them runs; with the window full and each
+    part's keys different, every answer is still the one-shot path's."""
+    from dpf_tpu_torch import api
+    d, keys = _sqrt_server(n=1 << 12, device="cuda")
+    keys = np.asarray(keys)
+    engine = d.serving_engine(buckets=(8, 16), max_in_flight=2)
+    batches = [np.roll(keys, 5 * i, axis=0)[:b]
+               for i, b in enumerate((16, 16, 5, 16, 20, 16, 7, 16, 16))]
+    futs = [engine.submit(b) for b in batches]
+    for f, b in zip(futs, batches):
+        assert np.array_equal(f.result(), d.eval_gpu(b).cpu().numpy())
+    assert api._COPY_STREAMS
